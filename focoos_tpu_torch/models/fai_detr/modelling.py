@@ -34,6 +34,7 @@ from focoos_tpu_torch.nn.layers.common import (
     TransformerEncoderLayer,
     bilinear_resize,
     get_activation,
+    init_like_flax_,
     sine_position_embedding_2d,
 )
 from focoos_tpu_torch.ops.boxes import box_cxcywh_to_xyxy, inverse_sigmoid
@@ -389,28 +390,10 @@ class FAIDetr(nn.Module):
         kernels, zero biases, unit norms, the MSDA grid init and the
         classifier prior bias. Draws on the CPU, so a seed gives the same
         weights on every device."""
-        for m in self.modules():
-            if isinstance(m, (nn.Linear, nn.Conv2d)):
-                _lecun_normal_(m.weight, m.weight[0].numel(), generator)
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, MultiHeadAttention):
-                for w in m.in_proj_weight.chunk(3):
-                    _lecun_normal_(w, m.embed_dim, generator)
-                m.in_proj_bias.zero_()
-            elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
-                m.reset_parameters()
+        init_like_flax_(self, generator)
         for m in self.modules():
             if isinstance(m, MSDeformableAttention):
                 m.reset_sampling_parameters()
         cls_bias = _bias_init_with_prob(1.0 / (self.config.num_classes + 1))
         for lin in [self.predictor.enc_score_classifier, *self.predictor.dec_score_classifier]:
             lin.bias.fill_(cls_bias)
-
-
-def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
-    """flax ``lecun_normal``: truncated normal in [-2, 2] std, variance 1/fan_in."""
-    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
-    t = torch.empty(w.shape, dtype=torch.float32)
-    nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
-    w.copy_(t)

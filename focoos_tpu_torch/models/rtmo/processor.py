@@ -1,0 +1,98 @@
+"""rtmo processor (port of focoos_tpu/models/rtmo/processor.py; reference:
+focoos/models/rtmo/processor.py).
+
+The model decodes to static [B, D] tensors on the device; the processor
+copies them to the host once, scales boxes and keypoints back to each
+original image frame and builds the detections.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple, Union
+
+import numpy as np
+
+from focoos_tpu.ports import FocoosDet, FocoosDetections
+from focoos_tpu_torch.models.rtmo.config import RTMOConfig
+from focoos_tpu_torch.models.rtmo.ports import RTMOModelOutput
+from focoos_tpu_torch.processor.base_processor import Processor
+
+
+class RTMOProcessor(Processor):
+    def __init__(self, config: RTMOConfig, image_size: Optional[Union[int, Tuple[int, int]]] = None):
+        super().__init__(config, image_size)
+        self.threshold = config.score_thr
+
+    def preprocess(self, inputs):
+        """Images → (NHWC batch, None). With no target size the batch is
+        padded, never resized, up to a multiple of 32, so the Focus
+        space-to-depth and the stride-8/16/32 levels split evenly."""
+        if self.training:
+            raise NotImplementedError("rtmo training preprocess is not ported yet (ROADMAP Queue 1 item 8)")
+        batch = self.get_batch(inputs, self._target_size())
+        if self._target_size() is None:
+            _, h, w, _ = batch.shape
+            ph, pw = (-h) % 32, (-w) % 32
+            if ph or pw:
+                batch = np.pad(batch, ((0, 0), (0, ph), (0, pw), (0, 0)))
+        return batch, None
+
+    def _scaled_arrays(self, output: RTMOModelOutput, input_hw, image_sizes):
+        """``input_hw=None`` means the batch was padded, not resized: the
+        model's coordinates are already each image's own pixel frame."""
+        scores = output.scores.cpu().numpy()
+        labels = output.labels.cpu().numpy()
+        boxes = output.boxes.cpu().numpy().copy()
+        kpts = output.keypoints.cpu().numpy().copy()
+        kvis = output.keypoints_scores.cpu().numpy()
+        if input_hw is not None:
+            ih, iw = input_hw
+            for i, (h, w) in enumerate(image_sizes):
+                sx, sy = w / iw, h / ih
+                boxes[i, :, 0::2] *= sx
+                boxes[i, :, 1::2] *= sy
+                kpts[i, ..., 0] *= sx
+                kpts[i, ..., 1] *= sy
+        return scores, labels, boxes, kpts, kvis
+
+    def postprocess(
+        self,
+        output: RTMOModelOutput,
+        inputs,
+        class_names: List[str] = [],
+        threshold: Optional[float] = None,
+        **kw,
+    ) -> List[FocoosDetections]:
+        threshold = self.threshold if threshold is None else threshold
+        image_sizes = self.get_image_sizes(inputs)
+        scores, labels, boxes, kpts, kvis = self._scaled_arrays(output, self._target_size(), image_sizes)
+
+        results = []
+        for i in range(scores.shape[0]):
+            h, w = image_sizes[i]
+            keep = scores[i] > threshold
+            dets = []
+            for s, lab, b, kp, kv in zip(scores[i][keep], labels[i][keep], boxes[i][keep], kpts[i][keep], kvis[i][keep]):
+                # reference int conventions (rtmo/processor.py:183-191): boxes
+                # clip to [0, max(h, w)] then truncate; keypoint x clips to
+                # [0, w], y to [0, h], truncated
+                bb = np.clip(b, 0, max(h, w)).astype(int)
+                kx = np.clip(kp[:, 0], 0, w).astype(int)
+                ky = np.clip(kp[:, 1], 0, h).astype(int)
+                dets.append(
+                    FocoosDet(
+                        bbox=bb.tolist(),
+                        conf=float(s),
+                        cls_id=int(lab),
+                        label=class_names[int(lab)] if class_names else None,
+                        keypoints=[(int(x), int(y), float(v)) for x, y, v in zip(kx, ky, kv)],
+                    )
+                )
+            results.append(FocoosDetections(detections=dets))
+        return results
+
+    def eval_postprocess(self, output, batched_inputs, **kw):
+        raise NotImplementedError("rtmo evaluation is not ported yet (ROADMAP Queue 1 item 6)")
+
+    def export_postprocess(self, output, inputs, class_names: List[str] = [], **kw):
+        raise NotImplementedError("rtmo export is not ported yet (ROADMAP Queue 1 item 7)")

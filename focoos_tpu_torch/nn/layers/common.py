@@ -184,3 +184,29 @@ def bilinear_resize(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
     """Bilinear NCHW resize with half-pixel centers and no antialiasing — the
     same sampling as the JAX package's ``jax.image.resize(..., antialias=False)``."""
     return F.interpolate(x, size=(int(size[0]), int(size[1])), mode="bilinear", align_corners=False, antialias=False)
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """flax ``lecun_normal``: truncated normal in [-2, 2] std, variance 1/fan_in."""
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    t = torch.empty(w.shape, dtype=torch.float32)
+    nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+    w.copy_(t)
+
+
+@torch.no_grad()
+def init_like_flax_(module: nn.Module, generator: torch.Generator) -> None:
+    """flax's default initializers on every layer of ``module``: lecun-normal
+    conv/dense kernels (and each of q/k/v), zero biases, unit norms with
+    reset running statistics. Draws on the CPU from ``generator``."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            lecun_normal_(m.weight, m.weight[0].numel(), generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, MultiHeadAttention):
+            for w in m.in_proj_weight.chunk(3):
+                lecun_normal_(w, m.embed_dim, generator)
+            m.in_proj_bias.zero_()
+        elif isinstance(m, (nn.LayerNorm, nn.BatchNorm1d, nn.BatchNorm2d)):
+            m.reset_parameters()

@@ -17,8 +17,9 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -56,32 +57,49 @@ def _digest(src: Path) -> str:
     return h.hexdigest()[:16]
 
 
+def _so_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{_digest(CSRC_DIR / f'{name}.cu')}.so"
+
+
+def _build(name: str) -> float:
+    """Compile ``csrc/<name>.cu`` unless its hash has a build; the seconds nvcc took."""
+    src = CSRC_DIR / f"{name}.cu"
+    so = _so_path(name)
+    if so.is_file():
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)], capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stdout}\n{proc.stderr}")
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, so)
+    return seconds
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its hash has no build yet, then load it."""
     with _lock:
         if name in _libs:
             return _libs[name]
-        src = CSRC_DIR / f"{name}.cu"
-        so = BUILD_DIR / f"lib{name}-{_digest(src)}.so"
+        seconds = _build(name)
+        so = _so_path(name)
         log = so.with_suffix(".log")
-        seconds = 0.0
-        if not so.is_file():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)], capture_output=True, text=True
-            )
-            seconds = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stdout}\n{proc.stderr}")
-            log.write_text(proc.stdout + proc.stderr)
-            os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         _libs[name] = lib
-        build_seconds[name] = seconds
+        build_seconds.setdefault(name, seconds)
         build_log[name] = log.read_text() if log.is_file() else ""
         return lib
+
+
+def load_libraries(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
+    """Build every named kernel with one nvcc each, all started together, then load them."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        for name, seconds in zip(names, pool.map(_build, names)):
+            build_seconds[name] = seconds
+    return {name: load_library(name) for name in names}
 
 
 def check(err: int, what: str) -> None:

@@ -1,15 +1,17 @@
 """Carry the JAX package's weights into the port.
 
-``from_jax_variables`` is the inverse of the ``fai_detr``/``resnet`` rules in
-``focoos_tpu/utils/torch_convert.py`` (which imports jax, so the port cannot
-use it): it maps the flat ``params/…``/``batch_stats/…`` arrays of a
+``from_jax_variables`` is the inverse of the ``fai_detr``/``resnet``/``rtmo``/
+``csp_darknet`` rules in ``focoos_tpu/utils/torch_convert.py`` (which imports
+jax, so the port cannot use it): it maps the flat ``params/…``/``batch_stats/…`` arrays of a
 ``model_final.npz`` (``focoos_tpu/utils/checkpoint.py:40-50``) onto a port
 ``state_dict`` with the reference's torch names:
 
 - conv kernels HWIO → OIHW, dense kernels [in, out] → [out, in];
 - ``q_proj``/``k_proj``/``v_proj`` → the merged ``in_proj_weight``/``in_proj_bias``;
 - norm ``scale`` → ``weight``; ``batch_stats`` mean/var → ``running_mean``/``running_var``
-  (plus ``num_batches_tracked``, which the JAX tree has no counterpart for).
+  (plus ``num_batches_tracked``, which the JAX tree has no counterpart for);
+- bare parameters (rtmo's DCC/GAU ``pos_enc``, ``gamma``, ``beta``, ``ln_g``,
+  ``res_scale``, ``sigma_scale``) → the reference's names, as they are.
 """
 
 from __future__ import annotations
@@ -60,9 +62,63 @@ def _fai_detr_rules() -> List[Rule]:
     ]
 
 
+def _csp_darknet_rules(jp: str, tp: str) -> List[Rule]:
+    """CSPDarknet module paths: stage{i}_conv → stage{i}.0, stage4_spp →
+    stage4.1, stage{i}_csp → stage{i}.1 (stage4.2 after the SPP),
+    blocks_{j} → blocks.{j}; the Focus stem keeps stem/conv/{conv,bn}."""
+
+    def csp(m: re.Match) -> str:
+        return f"{tp}stage{m[1]}.{2 if m[1] == '4' else 1}"
+
+    return [
+        (rf"{jp}stage(\d)_csp/blocks_(\d+)", lambda m: f"{csp(m)}.blocks.{m[2]}"),
+        (rf"{jp}stage(\d)_csp", csp),
+        (rf"{jp}stage(\d)_conv", lambda m: f"{tp}stage{m[1]}.0"),
+        (rf"{jp}stage4_spp", lambda m: f"{tp}stage4.1"),
+        (rf"{jp}stem", lambda m: f"{tp}stem"),
+    ]
+
+
+def _rtmo_rules() -> List[Rule]:
+    nk, hm, dcc = "neck.", "head.head_module.", "head.dcc."
+    enc = r"neck/encoder_0_layers_(\d+)"
+    return _csp_darknet_rules("backbone/", "backbone.") + [
+        (r"neck/input_proj_(\d+)", lambda m: f"{nk}input_proj.{m[1]}"),
+        (rf"{enc}/self_attn", lambda m: f"{nk}encoder.0.layers.{m[1]}.self_attn.attn"),
+        (rf"{enc}/ffn_linear1", lambda m: f"{nk}encoder.0.layers.{m[1]}.ffn.layers.0.0"),
+        (rf"{enc}/ffn_linear2", lambda m: f"{nk}encoder.0.layers.{m[1]}.ffn.layers.1"),
+        (rf"{enc}/norm(\d)", lambda m: f"{nk}encoder.0.layers.{m[1]}.norms.{int(m[2]) - 1}"),
+        (r"neck/(lateral_convs|downsample_convs)_(\d+)", lambda m: f"{nk}{m[1]}.{m[2]}"),
+        (r"neck/(fpn_blocks|pan_blocks)_(\d+)/bottlenecks_(\d+)", lambda m: f"{nk}{m[1]}.{m[2]}.bottlenecks.{m[3]}"),
+        (r"neck/(fpn_blocks|pan_blocks)_(\d+)", lambda m: f"{nk}{m[1]}.{m[2]}"),
+        (r"neck/projector_(\d+)_(conv|bn)", lambda m: f"{nk}projector.convs.{m[1]}.{m[2]}"),
+        (r"head_module/(conv_cls|conv_pose)_(\d+)_(\d+)_(conv|bn)", lambda m: f"{hm}{m[1]}.{m[2]}.{m[3]}.{m[4]}"),
+        (r"head_module/(out_cls|out_bbox|out_kpt_reg|out_kpt_vis|out_pose)_(\d+)", lambda m: f"{hm}{m[1]}.{m[2]}"),
+        (r"dcc/(x_fc|y_fc)", lambda m: f"{dcc}{m[1]}"),
+        (r"dcc/pose_to_kpts_fc", lambda m: f"{dcc}pose_to_kpts.0"),
+        (r"dcc/pose_to_kpts_bn", lambda m: f"{dcc}pose_to_kpts.1"),
+        (r"dcc/sigma_fc", lambda m: f"{dcc}sigma_fc.0"),
+        (r"dcc/gau/(uv|o)", lambda m: f"{dcc}gau.{m[1]}"),
+    ]
+
+
 FAMILY_RULES: Dict[str, Callable[[], List[Rule]]] = {
     "fai_detr": _fai_detr_rules,
     "resnet": lambda: _resnet_rules("", ""),
+    "rtmo": _rtmo_rules,
+    "csp_darknet": lambda: _csp_darknet_rules("", ""),
+}
+
+# bare parameters (not a kernel, bias or norm scale): full JAX path → torch name, carried as they are
+FAMILY_PARAMS: Dict[str, Dict[str, str]] = {
+    "rtmo": {
+        "dcc/pos_enc": "head.dcc.pos_enc",
+        "dcc/sigma_scale": "head.dcc.sigma_fc.2.scale",
+        "dcc/gau/gamma": "head.dcc.gau.gamma",
+        "dcc/gau/beta": "head.dcc.gau.beta",
+        "dcc/gau/ln_g": "head.dcc.gau.ln.g",
+        "dcc/gau/res_scale": "head.dcc.gau.res_scale.scale",
+    },
 }
 
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
@@ -84,6 +140,7 @@ def _module_path(path: str, rules: List[Rule]) -> str:
 def from_jax_variables(flat: Dict[str, np.ndarray], family: str) -> Dict[str, torch.Tensor]:
     """Flat ``{"params/…": array, "batch_stats/…": array}`` → port state_dict."""
     rules = FAMILY_RULES[family]()
+    params = FAMILY_PARAMS.get(family, {})
     sd: Dict[str, torch.Tensor] = {}
     qkv: Dict[str, Dict[str, np.ndarray]] = {}
     for key, arr in flat.items():
@@ -93,6 +150,9 @@ def from_jax_variables(flat: Dict[str, np.ndarray], family: str) -> Dict[str, to
         leaf = parts[-1]
         module = "/".join(parts[:-1])
         arr = np.asarray(arr)
+        if module + "/" + leaf in params:
+            sd[params[module + "/" + leaf]] = torch.tensor(arr)  # a copy; keeps 0-d scalars 0-d
+            continue
         proj = re.fullmatch(r"(.*)/([qkv])_proj", module)
         if proj:  # MultiheadAttention: gather q/k/v, merge below
             qkv.setdefault(proj[1], {})[f"{proj[2]}_{leaf}"] = arr

@@ -9,7 +9,7 @@ on the card, with TF32 off. Tolerances, × max|ref|: fp32, 1e-5 for MSDA and
 1e-4 for the stem's three chained 3x3 convs (the same products summed in
 another order); bf16 values, 2^-7 (the kernel accumulates in fp32 and rounds
 its output to bf16 once, against the plain version in fp32 on the same bf16
-inputs).
+inputs). The NMS kernel's keep mask must equal the plain version's exactly.
 """
 
 import numpy as np
@@ -18,6 +18,7 @@ import torch
 
 from focoos_tpu_torch.ops.deformable import ms_deform_attn
 from focoos_tpu_torch.ops.msda import msda_forward
+from focoos_tpu_torch.ops.nms import nms_keep, nms_keep_reference
 from focoos_tpu_torch.ops.stem import fused_resnet_stem, resnet_stem_reference
 
 pytestmark = pytest.mark.cuda
@@ -95,3 +96,56 @@ def test_slice_launches_each_kernel(cuda):
     res = model.infer(np.random.default_rng(0).integers(0, 256, (64, 64, 3), dtype=np.uint8), threshold=0.0)
     assert msda_forward.launches - msda0 == 2 and fused_resnet_stem.launches - stem0 == 1
     assert len(res) == 300
+
+
+def clustered_boxes(g: torch.Generator, b: int, k: int):
+    """[B, K, 4] xyxy boxes around K/8 centres (many overlap) with exact
+    duplicates, zero-area boxes, and descending scores with a zero tail."""
+    centres = torch.rand(b, k // 8 + 1, 2, generator=g) * 600
+    pick = torch.randint(0, centres.shape[1], (b, k), generator=g)
+    xy = torch.gather(centres, 1, pick[..., None].expand(-1, -1, 2)) + torch.randn(b, k, 2, generator=g) * 8
+    boxes = torch.cat([xy, xy + torch.rand(b, k, 2, generator=g) * 80 + 20], -1)
+    boxes[:, 5:9] = boxes[:, 1:5]
+    boxes[:, 10:12, 2:] = boxes[:, 10:12, :2]
+    scores = torch.sort(torch.rand(b, k, generator=g) * 0.95 + 0.05, -1, descending=True).values
+    scores[:, k - k // 6:] = 0
+    return boxes, scores
+
+
+@pytest.mark.parametrize("b,k,thr", [(16, 300, 0.65), (3, 1024, 0.5), (2, 37, 0.65)], ids=["main-path", "k1024", "odd"])
+def test_nms_kernel_matches_plain(cuda, b, k, thr):
+    boxes, scores = clustered_boxes(torch.Generator().manual_seed(k), b, k)
+    boxes, scores = boxes.to(cuda), scores.to(cuda)
+    before = nms_keep.launches
+    keep = nms_keep(boxes, scores, thr)
+    torch.cuda.synchronize()
+    assert nms_keep.launches == before + 1
+    ref = nms_keep_reference(boxes, scores, thr)
+    assert keep.dtype == torch.bool and keep.shape == (b, k)
+    assert torch.equal(keep, ref)
+    assert int(keep.sum()) < int((scores > 0).sum()), "nothing was suppressed: the case tests nothing"
+
+
+def test_nms_kernel_non_finite_boxes_match_plain(cuda):
+    boxes, scores = clustered_boxes(torch.Generator().manual_seed(3), 1, 64)
+    boxes[0, 2] = torch.tensor([float("nan"), 10.0, 50.0, 60.0])
+    boxes[0, 3, 2:] = float("inf")
+    boxes[0, 20:22] = boxes[0, 2:4]
+    boxes[0, 30] = torch.tensor([-float("inf"), -float("inf"), float("inf"), float("inf")])
+    boxes, scores = boxes.to(cuda), scores.to(cuda)
+    assert torch.equal(nms_keep(boxes, scores, 0.65), nms_keep_reference(boxes, scores, 0.65))
+
+
+def test_nms_kernel_refuses_large_k(cuda):
+    with pytest.raises(ValueError):
+        nms_keep(torch.zeros(1, 1025, 4, device=cuda), torch.ones(1, 1025, device=cuda))
+
+
+def test_rtmo_slice_launches_nms_once_per_forward(cuda):
+    from focoos_tpu_torch import ModelManager
+
+    model = ModelManager.get("rtmo-s-coco", device=cuda, image_size=128, nms_pre_topk=50, max_detections=10)
+    before = nms_keep.launches
+    res = model(np.random.default_rng(0).integers(0, 256, (2, 128, 128, 3), dtype=np.uint8), threshold=0.0)
+    assert nms_keep.launches - before == 1
+    assert len(res) == 2 and all(len(d.keypoints) == 17 for r in res for d in r.detections)

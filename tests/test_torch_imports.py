@@ -1,6 +1,6 @@
 """The port stands without JAX: with ``jax``, ``jaxlib``, ``flax``, ``PIL`` and
-``cv2`` made unimportable, every module of focoos_tpu_torch imports and the
-fai-detr slice serves an ndarray image on the CPU."""
+``cv2`` made unimportable, every module of focoos_tpu_torch imports and each
+ported slice (fai-detr, rtmo) serves an ndarray image on the CPU."""
 
 import os
 import subprocess
@@ -8,7 +8,7 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-SCRIPT = r"""
+PRELUDE = r"""
 import importlib, pkgutil, sys
 BLOCKED = ("jax", "jaxlib", "flax", "PIL", "cv2")
 for name in BLOCKED:
@@ -20,6 +20,9 @@ for mod in pkgutil.walk_packages(focoos_tpu_torch.__path__, "focoos_tpu_torch.")
     importlib.import_module(mod.name)
 
 from focoos_tpu_torch import ModelManager
+"""
+
+SCRIPT = PRELUDE + r"""
 model = ModelManager.get(
     "fai-detr-l-coco", device="cpu", image_size=64, num_queries=10, transformer_predictor_dec_layers=1,
     backbone_config={"model_type": "resnet", "depth": 18, "variant": "d", "freeze_norm": False},
@@ -34,9 +37,31 @@ print("OK", len(res))
 """
 
 
-def test_port_imports_and_serves_without_jax_pil_cv2():
+RTMO_SCRIPT = PRELUDE + r"""
+model = ModelManager.get("rtmo-s-coco", device="cpu", image_size=128, nms_pre_topk=50, max_detections=10)
+img = np.random.default_rng(0).integers(0, 256, (100, 120, 3), dtype=np.uint8)
+res = model.infer(img, threshold=0.0)
+assert 0 < len(res) <= 10, len(res)
+for d in res.detections:
+    assert d.cls_id == 0 and np.isfinite(d.conf) and len(d.keypoints) == 17
+    assert all(isinstance(v, int) for v in d.bbox)
+loaded = sorted(k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in BLOCKED)
+assert not loaded, loaded
+print("OK", len(res))
+"""
+
+
+def _run(script: str) -> str:
     proc = subprocess.run(
-        [sys.executable, "-c", SCRIPT], cwd=REPO, capture_output=True, text=True, timeout=300,
+        [sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.strip().endswith("OK 300")
+    return proc.stdout.strip()
+
+
+def test_port_imports_and_serves_without_jax_pil_cv2():
+    assert _run(SCRIPT).endswith("OK 300")
+
+
+def test_rtmo_serves_without_jax_pil_cv2():
+    assert _run(RTMO_SCRIPT).split()[-2] == "OK"
