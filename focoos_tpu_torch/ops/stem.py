@@ -73,8 +73,6 @@ def _check(x, params) -> None:
                 raise ValueError(f"{name} is on {t.device}, x on {x.device}")
             if not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
-        if k.data_ptr() % 16:
-            raise ValueError(f"k{i + 1} must be 16-byte aligned (the kernel reads it as float4)")
 
 
 def fused_resnet_stem(

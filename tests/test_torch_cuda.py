@@ -6,10 +6,12 @@ test configuration (tests/conftest.py imports jax):
 
 Each CUDA kernel is held against its plain PyTorch version on the same inputs
 on the card, with TF32 off. Tolerances, × max|ref|: fp32, 1e-5 for MSDA and
-1e-4 for the stem's three chained 3x3 convs (the same products summed in
-another order); bf16 values, 2^-7 (the kernel accumulates in fp32 and rounds
-its output to bf16 once, against the plain version in fp32 on the same bf16
-inputs). The NMS kernel's keep mask must equal the plain version's exactly.
+1e-4 for the stem's three chained 3x3 convs (its tensor-core products carry
+each fp32 operand as a bf16 hi + lo pair, ~16 bits: ~1e-5 over the chain);
+bf16 values, 2^-7 (the kernels accumulate in fp32 and round the output to
+bf16 once; the stem also rounds its weights and y1/y2 to bf16, ~5e-3 at
+most, against the plain version in fp32 on the same bf16 inputs). The NMS
+kernel's keep mask must equal the plain version's exactly.
 """
 
 import numpy as np
@@ -57,25 +59,54 @@ def test_msda_kernel_matches_plain(cuda, dtype, b, lq, hh, d, ss):
     assert float((out.float() - ref).abs().max()) <= MSDA_TOL[dtype] * float(ref.abs().max())
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("b,h,w", [(2, 640, 640), (1, 97, 70), (1, 5, 6)])
-def test_stem_kernel_matches_plain(cuda, dtype, b, h, w):
-    g = torch.Generator().manual_seed(1)
+def _stem_params(device, seed=1):
+    g = torch.Generator().manual_seed(seed)
     params = []
     for cin, cout in ((3, 32), (32, 32), (32, 64)):
         params += [
-            (torch.randn(3, 3, cin, cout, generator=g) * (2.0 / (9 * cin)) ** 0.5).to(cuda),
-            (1 + 0.1 * torch.randn(cout, generator=g)).to(cuda),
-            (0.1 * torch.randn(cout, generator=g)).to(cuda),
+            (torch.randn(3, 3, cin, cout, generator=g) * (2.0 / (9 * cin)) ** 0.5).to(device),
+            (1 + 0.1 * torch.randn(cout, generator=g)).to(device),
+            (0.1 * torch.randn(cout, generator=g)).to(device),
         ]
-    x = torch.randn(b, h, w, 3, generator=g).to(cuda, dtype)
+    return g, params
+
+
+def _check_stem(x, params):
     before = fused_resnet_stem.launches
     out = fused_resnet_stem(x, *params)
     torch.cuda.synchronize()
     assert fused_resnet_stem.launches == before + 1
     ref = resnet_stem_reference(x.float(), *params)
-    assert out.dtype == dtype and out.shape == ref.shape
-    assert float((out.float() - ref).abs().max()) <= STEM_TOL[dtype] * float(ref.abs().max())
+    assert out.dtype == x.dtype and out.shape == ref.shape
+    assert float((out.float() - ref).abs().max()) <= STEM_TOL[x.dtype] * float(ref.abs().max())
+    return ref
+
+
+# 640²: the main path; 1x1, 2x3: a single pixel / a sub-tile image; 9x17 and
+# 97x70: the CPU parity shapes, tiles ragged in both directions; 641x479, B=3:
+# odd sizes and several images in the persistent grid; 75x101: 19x26 pooled
+# outputs, ragged 8x8 tiles in both directions; inputs x64: activations reach
+# ~4e2, so at the f32 tolerance the lo half of every split operand counts
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "b,h,w,scale",
+    [(2, 640, 640, 1), (1, 97, 70, 1), (1, 5, 6, 1), (1, 1, 1, 1), (1, 2, 3, 1), (1, 9, 17, 1), (3, 641, 479, 1),
+     (2, 75, 101, 1), (2, 131, 67, 64)],
+)
+def test_stem_kernel_matches_plain(cuda, dtype, b, h, w, scale):
+    g, params = _stem_params(cuda)
+    _check_stem((torch.randn(b, h, w, 3, generator=g) * scale).to(cuda, dtype), params)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_stem_kernel_all_negative_pool_windows(cuda, dtype):
+    """conv3's bias lowered by 3 on half the channels: on those, most 3x3 pool
+    windows are negative throughout before the ReLU, and their output is 0."""
+    g, params = _stem_params(cuda, seed=3)
+    params[8] = params[8].clone()
+    params[8][:32] -= 3.0
+    ref = _check_stem(torch.randn(1, 160, 96, 3, generator=g).to(cuda, dtype), params)
+    assert float((ref[..., :32] == 0).float().mean()) > 0.5, "too few all-negative windows: the case tests nothing"
 
 
 def test_wrappers_refuse_autograd(cuda):
@@ -84,6 +115,10 @@ def test_wrappers_refuse_autograd(cuda):
     aw = torch.zeros(1, 1, 1, 1, 1, device=cuda)
     with pytest.raises(NotImplementedError):
         msda_forward(v, [(2, 2)], loc, aw)
+    _, params = _stem_params(cuda)
+    params[3].requires_grad_(True)
+    with pytest.raises(NotImplementedError):
+        fused_resnet_stem(torch.zeros(1, 8, 8, 3, device=cuda), *params)
 
 
 def test_slice_launches_each_kernel(cuda):

@@ -49,7 +49,7 @@ def _port(x, folded):
     return fused_resnet_stem(torch.from_numpy(x), *[torch.from_numpy(p) for p in folded]).numpy()
 
 
-@pytest.mark.parametrize("b,h,w", [(1, 33, 47), (2, 64, 64), (1, 30, 31), (1, 5, 6)])
+@pytest.mark.parametrize("b,h,w", [(1, 33, 47), (2, 64, 64), (1, 30, 31), (1, 5, 6), (1, 1, 1), (1, 2, 3), (1, 9, 17)])
 def test_plain_stem_matches_jax_convnorm_stem(b, h, w):
     rng = np.random.default_rng(h * 100 + w)
     folded, raw = _stem_params(rng)
