@@ -8,11 +8,13 @@ non-zero:
 
 1. device — asserts CUDA, prints the card and its power limit, turns TF32 off
    for cuDNN convolutions and matmuls (every number below is full fp32);
-2. build  — compiles the three kernels from focoos_tpu_torch/csrc, one nvcc
+2. build  — compiles the four kernels from focoos_tpu_torch/csrc, one nvcc
    each, all started together;
 3. msda   — the MSDA kernel against its plain PyTorch version at the main
    path's shapes (B=16, f32 and bf16 values, locations in [-0.2, 1.2]) and at
    one odd shape; errors and kernel/plain times (CUDA events, median of 20);
+   msda_backward — the MSDA backward kernel against the plain version's
+   autograd, the same way (main shape; odd D=48, Lq=37, two unequal levels);
 4. stem   — the fused stem kernel against its plain version at 640², B=1 and
    16, at an odd 641x479 B=3 and on inputs scaled x64 (131x67 B=2), each in
    f32 and bf16; errors and both times;
@@ -22,6 +24,14 @@ non-zero:
    answers infer() on three 480x640 images and model(batch) on 16 at 640²,
    checks each kernel ran 6x / 1x per forward, compares a B=2 forward against
    the same weights on the CPU (plain versions), and times b1 and b16;
+   train  — fai-detr-l at full width (seeded weights perturbed as for the
+   slice) on 32 seeded 640² images with 1-20 boxes each: first one training
+   step on the card against the same step on the CPU at B=2 (every loss key,
+   the gradient norm; the matcher's assignments compared first); then
+   FocoosModel.train with B=8, AdamW + EMA, checking that both MSDA kernels
+   ran once per decoder layer per step and every loss is finite; then step
+   p50, images/s and peak memory over timed steps, one profiled step (device
+   idle share, the MSDA kernels' share) and the auction timed alone;
 6. nms    — the greedy NMS kernel against its plain version on clustered
    boxes (duplicates, zero-area boxes, a zero-score tail): B=16 K=300 thr
    0.65 (the main path's shape), K=1024, an odd K=37, and boxes with NaN
@@ -53,6 +63,10 @@ import torch
 MSDA_SHAPES = ((20, 20), (40, 40), (80, 80))  # fai-detr-l at 640²: p5, p4, p3
 # × max|ref|: fp32 sums in another order; bf16 output rounded once (2^-8) by the kernel
 MSDA_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
+# (d value, d loc, d aw) × max|ref|. fp32: d value and d aw 1e-5 (sums in another
+# order; the kernel's atomics add in a run-dependent order), d loc 1e-4 (a
+# difference of corner values scaled by the map size); bf16 values: 2^-7 for all three
+MSDA_BWD_TOL = {torch.float32: (1e-5, 1e-4, 1e-5), torch.bfloat16: (2.0**-7,) * 3}
 # × max|ref|: f32 operands carried as bf16 hi + lo pairs on the tensor cores (~16
 # bits, ~1e-5 over three convs); bf16 weights, y1, y2 and output rounded (~5e-3)
 STEM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-7}
@@ -65,6 +79,11 @@ NEAR_TIE = 1e-4
 # rtmo-l card vs CPU, fp32 both sides: absolute on sigmoid scores and
 # keypoint visibilities, × max|ref| on absolute-pixel boxes and keypoints
 RTMO_TOL = 1e-3
+# one training step, card vs CPU, fp32 both sides, TF32 off: each loss key
+# (relative) and the global norm of the gradients (relative)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_NORM_RTOL = 1e-3
+TRAIN_BATCH = 8  # images per step in the timed training run
 
 
 def log(msg: str) -> None:
@@ -121,6 +140,38 @@ def phase_msda(dev) -> dict:
                 f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
             if b == 16 and dtype == torch.float32:
                 record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return record
+
+
+def phase_msda_backward(dev) -> dict:
+    from focoos_tpu_torch.ops.deformable import ms_deform_attn_backward_reference
+    from focoos_tpu_torch.ops.msda import msda_backward
+
+    g = torch.Generator().manual_seed(5)
+    record = {}
+    for b, lq, hh, d, ss, label in (
+        (16, 300, 8, 32, MSDA_SHAPES, "main path B=16 Lq=300 Hh=8 D=32 levels 20²,40²,80² P=4"),
+        (2, 37, 3, 48, ((9, 11), (5, 6)), "odd B=2 Lq=37 Hh=3 D=48 levels 9x11,5x6 P=4"),
+    ):
+        s = sum(h * w for h, w in ss)
+        v32 = (torch.rand(b, s, hh, d, generator=g) - 0.5).to(dev)
+        loc = (torch.rand(b, lq, hh, len(ss), 4, 2, generator=g) * 1.4 - 0.2).to(dev)
+        aw = torch.softmax(torch.randn(b, lq, hh, len(ss) * 4, generator=g), -1).reshape(b, lq, hh, len(ss), 4).to(dev)
+        grad32 = torch.randn(b, lq, hh * d, generator=g).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            v, grad = v32.to(dtype), grad32.to(dtype)
+            got = msda_backward(v, ss, loc, aw, grad)
+            torch.cuda.synchronize()
+            ref = ms_deform_attn_backward_reference(v.float(), ss, loc, aw, grad.float())
+            errs = [max_err(o, r, tol, f"msda_backward {label} {dtype} {name}")
+                    for o, r, tol, name in zip(got, ref, MSDA_BWD_TOL[dtype], ("d value", "d loc", "d aw"))]
+            ms = time_ms(lambda: msda_backward(v, ss, loc, aw, grad))
+            plain_ms = time_ms(lambda: ms_deform_attn_backward_reference(v, ss, loc, aw, grad))
+            log(f"[msda_backward] {label} {str(dtype)[6:]}: max_abs_err d value {errs[0]:.3e}, d loc {errs[1]:.3e},"
+                f" d aw {errs[2]:.3e} (tol {' / '.join(f'{t:.1e}' for t in MSDA_BWD_TOL[dtype])} x max|ref|)"
+                f" | kernel {ms:.4f} ms, plain (autograd) {plain_ms:.4f} ms")
+            if b == 16 and dtype == torch.float32:
+                record = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms}
     return record
 
 
@@ -319,6 +370,253 @@ def phase_slice(dev, smi: str) -> dict:
         f" infer() 480x640 end to end p50 {np.median(e2e) * 1e3:.2f} ms")
     bench = model.benchmark(iterations=20)
     log(f"[slice] FocoosModel.benchmark(): {bench}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+@torch.no_grad()
+def condition_for_training(module: torch.nn.Module) -> None:
+    """Make the random model as well-conditioned as a trained one, so that a
+    card-vs-CPU comparison of a training step measures the port and not
+    chaos. At random init, train-mode BatchNorm over ~90 layers and box
+    refinements of O(1) per decoder layer amplify fp32 rounding: before
+    this, the CPU's own fp32 and fp64 runs of one step differ in the
+    decoder's last logits by 1.3 (max 8), as much as card and CPU do (an
+    H100 and its host's CPU, B=2 640²). Each residual branch's last
+    BatchNorm scale goes to a tenth
+    (near-identity blocks, as a zero-γ init) and so does each decoder box
+    head's last layer (small refinements, as a trained model makes)."""
+    from focoos_tpu_torch.nn.backbone.resnet import BottleNeck
+
+    for m in module.modules():
+        if isinstance(m, BottleNeck):
+            m.branch2c.norm.weight.mul_(0.1)
+    for head in module.predictor.dec_bbox_classifier:
+        head.layers[-1].weight.mul_(0.1)
+        head.layers[-1].bias.mul_(0.1)
+
+
+def train_dataset(n: int, size: int, seed: int) -> list:
+    """n seeded size² uint8 images with 1-20 boxes each, 80 classes (in memory)."""
+    from focoos_tpu.ports import DatasetEntry
+    from focoos_tpu.structures import Boxes, Instances
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        k = int(rng.integers(1, 21))
+        xy = rng.uniform(0, size * 0.8, (k, 2))
+        boxes = np.concatenate([xy, np.minimum(xy + rng.uniform(16, size * 0.4, (k, 2)), size - 1)], 1)
+        inst = Instances((size, size), boxes=Boxes(boxes.astype(np.float32)), classes=rng.integers(0, 80, k))
+        out.append(DatasetEntry(image=rng.integers(0, 256, (size, size, 3), dtype=np.uint8), height=size,
+                                width=size, instances=inst))
+    return out
+
+
+def one_step_on(module, cfg, images: np.ndarray, targets, dev, assign=None) -> tuple:
+    """One train-mode forward + criterion + backward of ``module`` on ``dev``,
+    the losses taken on ``assign`` when given → (losses, global grad norm,
+    the matcher's own assignment [L+1, B, N] and the selected anchors [B, Q],
+    both on the CPU)."""
+    from focoos_tpu_torch.models.fai_detr.loss import detr_criterion, match
+
+    module.train()
+    for p in module.parameters():
+        p.grad = None
+    t = targets.to(dev)
+    feats = []
+    hook = module.predictor.register_forward_pre_hook(lambda mod, args: feats.append(args[0]))
+    _, aux = module(torch.from_numpy(images).to(dev))
+    hook.remove()
+    own = match(aux, t, cfg)
+    losses = detr_criterion(aux, t, cfg, own if assign is None else assign.to(dev))
+    losses["total"].backward()
+    norm = float(torch.sqrt(sum(torch.dot(p.grad.flatten(), p.grad.flatten()) for p in module.parameters()
+                                if p.grad is not None)))
+    with torch.no_grad():  # the query selection again, on the same train-mode features
+        anchors = module.predictor.select_queries(*module.predictor.flatten_levels(feats[0]))[0]
+    module.eval()
+    return {k: float(v.detach()) for k, v in losses.items()}, norm, own.cpu(), anchors.cpu()
+
+
+def compare_train_step(gpu_model, cpu_model, cfg, ds) -> None:
+    """Card vs CPU on one training step, same weights and batch of two.
+
+    At random init the encoder's selection scores of 8400 anchors lie closer
+    than the two devices' fp32 differences (~1e-5 relative), so the top-300
+    may come out in another order, or with another anchor at the cut-off;
+    and the auction is exact only to eps (1e-2 of each cost range), so a cost
+    that differs in the last bits can move a bid. Hence: the CPU step
+    matches; its assignment is carried to the card by anchor identity; the
+    card takes its losses on that assignment; every loss key and the
+    gradient norm are compared. A pair whose selected sets differ is reported
+    and the next pair of images is tried."""
+    for start in range(0, len(ds) - 1, 2):
+        images, targets = cpu_model.processor.train(True).preprocess_entries(ds[start:start + 2], max_instances=100)
+        cpu_model.processor.train(False)
+        c_losses, c_norm, c_assign, c_anchor = one_step_on(cpu_model.module, cfg, images, targets, torch.device("cpu"))
+        g_dev = next(gpu_model.module.parameters()).device
+        _, _, g_own, g_anchor = one_step_on(gpu_model.module, cfg, images, targets, g_dev)
+        reordered = int((g_anchor != c_anchor).sum())
+        only_one = sum(len(set(g_anchor[b].tolist()) ^ set(c_anchor[b].tolist())) for b in range(images.shape[0]))
+        valid = targets.valid[None].expand_as(c_assign)
+        mapped = torch.zeros_like(c_assign)
+        for b in range(images.shape[0]):
+            pos = {int(a): q for q, a in enumerate(g_anchor[b])}
+            for s_ in range(c_assign.shape[0]):
+                for n in range(c_assign.shape[2]):
+                    if valid[s_, b, n]:
+                        mapped[s_, b, n] = pos.get(int(c_anchor[b, c_assign[s_, b, n]]), 0)
+        flips = int(((g_own != mapped) & valid).sum())
+        log(f"[train] card vs CPU, images {start}-{start + 1}: {reordered} of {c_anchor.numel()} selected-query"
+            f" positions hold another anchor, {only_one} anchors are selected on one device only; the card's own"
+            f" matcher differs from the carried assignment on {flips} of {int(valid.sum())}")
+        if only_one:  # every query attends to every other: a different set changes every output
+            log("[train] a near-tie at the top-300 cut-off: this pair is not compared")
+            continue
+        g_losses, g_norm, _, _ = one_step_on(gpu_model.module, cfg, images, targets, g_dev, assign=mapped)
+        errs = {k: abs(g_losses[k] - c_losses[k]) / max(abs(c_losses[k]), 1e-12) for k in c_losses}
+        worst = max(errs, key=errs.get)
+        norm_rel = abs(g_norm - c_norm) / c_norm
+        log(f"[train] card vs CPU on the CPU's assignment: {len(errs)} loss keys, max rel err {errs[worst]:.3e}"
+            f" ({worst}, tol {TRAIN_LOSS_RTOL:.0e}); total card {g_losses['total']:.6f}, CPU {c_losses['total']:.6f};"
+            f" grad_norm card {g_norm:.6f}, CPU {c_norm:.6f}, rel err {norm_rel:.3e} (tol {TRAIN_GRAD_NORM_RTOL:.0e})")
+        assert errs[worst] <= TRAIN_LOSS_RTOL, f"{worst}: card {g_losses[worst]} vs CPU {c_losses[worst]}"
+        assert norm_rel <= TRAIN_GRAD_NORM_RTOL, f"grad_norm: card {g_norm} vs CPU {c_norm}"
+        return
+    raise AssertionError("no pair of images could be compared between card and CPU")
+
+
+def device_busy(prof) -> tuple:
+    """(union of the CUDA kernel intervals in µs, {kernel name: summed µs})."""
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    iv = sorted((e.time_range.start, e.time_range.end) for e in kern)
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in iv:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.end - e.time_range.start
+    return busy, by_name
+
+
+def phase_train(dev, smi: str) -> dict:
+    import os
+    import shutil
+    import tempfile
+
+    from focoos_tpu.ports import TrainerArgs
+    from focoos_tpu_torch import ModelManager
+    from focoos_tpu_torch.models.fai_detr.loss import compute_cost_matrix
+    from focoos_tpu_torch.ops.matching import batched_auction_assign
+    from focoos_tpu_torch.ops.msda import msda_backward, msda_forward
+    from focoos_tpu_torch.trainer.trainer import FocoosTrainer
+
+    t0 = time.perf_counter()
+    model = ModelManager.get("fai-detr-l-coco", device=dev, seed=0)
+    perturb(model.module, seed=1)
+    condition_for_training(model.module)
+    cfg = model.config
+    n_dec = cfg.transformer_predictor_dec_layers
+    cpu_model = ModelManager.get("fai-detr-l-coco", device="cpu", init_weights=False)
+    cpu_model.module.load_state_dict(model.module.state_dict())
+    ds = train_dataset(4 * TRAIN_BATCH, 640, seed=6)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    log(f"[train] {model.name} at full width and depth (perturbed as for the slice, then conditioned:"
+        f" residual branches' last BatchNorm scale and the decoder box heads' last layer x0.1),"
+        f" {len(ds)} seeded 640² images with 1-20 boxes,"
+        f" B={TRAIN_BATCH}, AdamW + EMA, fp32 with TF32 off ({time.perf_counter() - t0:.1f}s to build)")
+
+    def args(iters: int) -> TrainerArgs:
+        return TrainerArgs(run_name="smoke", output_dir=out_dir, batch_size=TRAIN_BATCH, max_iters=iters,
+                           ema_enabled=True, checkpointer_period=iters, log_period=iters, seed=0)
+
+    try:
+        # card vs CPU on one step at B=2, before any update
+        t0 = time.perf_counter()
+        compare_train_step(model, cpu_model, cfg, ds[:8])
+        log(f"[train] card vs CPU step compared in {time.perf_counter() - t0:.1f}s")
+        model.module.zero_grad(set_to_none=True)
+
+        # the main path: FocoosModel.train; counts at 0 just before, read just after
+        steps = 3
+        msda_forward.launches = 0
+        msda_backward.launches = 0
+        res = model.train(args(steps), ds)
+        torch.cuda.synchronize()
+        launches = {"msda_forward": msda_forward.launches, "msda_backward": msda_backward.launches}
+        log(f"[train] FocoosModel.train ran {res['iterations']} steps: launches msda_forward"
+            f" {launches['msda_forward']}, msda_backward {launches['msda_backward']} ({n_dec} decoder layers)")
+        assert launches["msda_forward"] == n_dec * steps, "the MSDA forward kernel did not run once per decoder layer"
+        assert launches["msda_backward"] == n_dec * steps, "the MSDA backward kernel did not run once per decoder layer"
+        with open(os.path.join(res["run_dir"], "metrics.json")) as f:
+            rows = [json.loads(line) for line in f]
+        losses = {k: v for k, v in rows[-1].items() if "loss" in k}
+        assert len(losses) == 3 * (n_dec + 1) + 1 and all(np.isfinite(v) for v in losses.values()), losses
+        assert os.path.isfile(os.path.join(res["run_dir"], "model_final.npz"))
+        log(f"[train] losses at step {rows[-1]['iteration']}: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in sorted(losses.items())))
+
+        # timing: warm-up steps, then timed steps (host clock per step, IterationTimer)
+        warm, timed = 2, 10
+        torch.cuda.reset_peak_memory_stats()
+        trainer = FocoosTrainer(model, args(warm + timed), ds)
+        trainer.train()
+        torch.cuda.synchronize()
+        times = [v for v, _ in trainer.loop.storage.history("time").values()][warm:]
+        step_s = float(np.median(times))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[train] {smi}, fp32, TF32 off, B={TRAIN_BATCH} 640²: step p50 {step_s * 1e3:.2f} ms"
+            f" (min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}, {timed} steps)"
+            f" = {TRAIN_BATCH / step_s:.1f} images/s; peak memory allocated {peak:.2f} GiB")
+
+        # one more step of the same loop under the profiler
+        model.processor.train(True)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.loop.run_step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e6
+        model.processor.train(False)
+        model.module.eval()
+        busy, by_name = device_busy(prof)
+        fwd = sum(v for k, v in by_name.items() if "msda_forward_kernel" in k)
+        bwd = sum(v for k, v in by_name.items() if "msda_backward_kernel" in k)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        log(f"[train] profiled step: wall {wall / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms, idle share"
+            f" {1 - busy / wall:.3f}, {sum(1 for _ in by_name)} kernel names; MSDA forward kernel {fwd / 1e3:.3f} ms"
+            f" ({fwd / busy:.2%} of busy), MSDA backward kernel {bwd / 1e3:.3f} ms ({bwd / busy:.2%})")
+        for k, v in top:
+            log(f"[train]   {v / 1e3:9.3f} ms {v / busy:6.1%}  {k[:110]}")
+
+        # the auction alone at the step's shape, on the step's costs
+        batch, targets = model.processor.train(True).preprocess_entries(ds[:TRAIN_BATCH], max_instances=100)
+        model.processor.train(False)
+        t = targets.to(dev)
+        model.module.train()
+        with torch.no_grad():
+            _, aux = model.module(torch.from_numpy(batch).to(dev))
+            lg = torch.cat([aux.dec_logits, aux.enc_logits[None]])
+            bx = torch.cat([aux.dec_boxes, aux.enc_boxes[None]])
+            cost = compute_cost_matrix(lg, bx, t, cfg)
+        model.module.eval()
+        s_, b_, n_, q_ = cost.shape
+        flat_cost, flat_valid = cost.reshape(s_ * b_, n_, q_), t.valid.expand(s_, -1, -1).reshape(s_ * b_, n_)
+        auction_ms = time_ms(lambda: batched_auction_assign(flat_cost, flat_valid), reps=5, warmup=1)
+        log(f"[train] auction: {s_ * b_} problems of {n_}x{q_} ({int(t.valid.sum())} valid targets), "
+            f"{batched_auction_assign.rounds} rounds, {auction_ms:.3f} ms alone = {auction_ms / (step_s * 1e3):.2%}"
+            f" of the step")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
     return launches
 
 
@@ -595,7 +893,7 @@ def main() -> int:
     from focoos_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    names = ("msda", "stem", "nms")
+    names = ("msda", "msda_bwd", "stem", "nms")
     cuda_build.load_libraries(names)
     for name in names:
         regs = [ln.strip() for ln in cuda_build.build_log[name].splitlines() if "registers" in ln or "spill" in ln]
@@ -603,14 +901,18 @@ def main() -> int:
     log(f"[build] {len(names)} kernels ready in {time.perf_counter() - t0:.2f}s (one nvcc each, in parallel)")
 
     msda = phase_msda(dev)
+    msda_bwd = phase_msda_backward(dev)
     stem = phase_stem(dev)
     launches = phase_slice(dev, smi)
+    train_launches = phase_train(dev, smi)
     nms = phase_nms(dev)
     launches.update(phase_rtmo(dev, smi))
 
     kernels = [
         {"name": "msda_forward", "route": "cuda", "source": "focoos_tpu_torch/csrc/msda.cu",
          "replaces": "focoos_tpu/ops/pallas/msda.py:132", "launches": launches["msda_forward"], **msda},
+        {"name": "msda_backward", "route": "cuda", "source": "focoos_tpu_torch/csrc/msda_bwd.cu",
+         "replaces": "focoos_tpu/ops/pallas/msda.py:177", "launches": train_launches["msda_backward"], **msda_bwd},
         {"name": "fused_resnet_stem", "route": "cuda", "source": "focoos_tpu_torch/csrc/stem.cu",
          "replaces": "focoos_tpu/ops/pallas/stem.py:224", "launches": launches["fused_resnet_stem"], **stem},
         {"name": "nms_keep", "route": "cuda", "source": "focoos_tpu_torch/csrc/nms.cu",

@@ -8,8 +8,10 @@ names are the reference's torch names (``pixel_decoder.*``,
 maps onto the JAX variables. Images enter NHWC; conv activations are NCHW
 (channels-last views of the NHWC input, so no relayout copy is made).
 
-The slice serves: this module computes the eval forward. The decoder's
-training-time detach of the refined boxes comes with the training step.
+In eval this is the serving forward; in train mode the BatchNorms take batch
+statistics and the decoder's gradient follows the JAX graph: stopped at the
+selected queries and first boxes, and at each layer's refined boxes before
+they feed the next layer (``focoos_tpu/models/fai_detr/modelling.py:360-393``).
 """
 
 from __future__ import annotations
@@ -316,19 +318,29 @@ class TransformerPredictor(nn.Module):
     def forward(self, feats: Sequence[torch.Tensor]) -> DETRAuxOutputs:
         memory, spatial_shapes = self.flatten_levels(feats)
         _, target, ref_unact, enc_topk_logits, enc_topk_boxes = self.select_queries(memory, spatial_shapes)
+        # the decoder's queries and first boxes carry no gradient into the
+        # encoder; enc_topk_logits/boxes do (JAX :360-363)
+        target, ref_unact = target.detach(), ref_unact.detach()
 
-        # decoder with iterative refinement (reference :961-1020); one
-        # query_pos_head shared by every layer
+        # decoder with iterative refinement (reference :961-1020, JAX
+        # :365-393); one query_pos_head shared by every layer. In training
+        # each layer samples and embeds detached boxes, while its supervised
+        # box refines the previous layer's undetached one
         dec_boxes, dec_logits = [], []
-        ref_points = torch.sigmoid(ref_unact)
+        ref_points_detach = torch.sigmoid(ref_unact)
+        ref_points = ref_points_detach
         output = target
         for i, layer in enumerate(self.decoder["layers"]):
-            query_pos = self.query_pos_head(ref_points.to(output.dtype))
-            output = layer(output, ref_points[:, :, None, :], memory, spatial_shapes, query_pos)
+            query_pos = self.query_pos_head(ref_points_detach.to(output.dtype))
+            output = layer(output, ref_points_detach[:, :, None, :], memory, spatial_shapes, query_pos)
             delta = self.dec_bbox_classifier[i](output).float()
-            ref_points = torch.sigmoid(delta + inverse_sigmoid(ref_points))
+            inter_ref = torch.sigmoid(delta + inverse_sigmoid(ref_points_detach))
             dec_logits.append(self.dec_score_classifier[i](output).float())
-            dec_boxes.append(ref_points)
+            # ref_points is ref_points_detach in eval and at layer 0: the same box
+            same = ref_points is ref_points_detach
+            dec_boxes.append(inter_ref if same else torch.sigmoid(delta + inverse_sigmoid(ref_points)))
+            ref_points = inter_ref
+            ref_points_detach = inter_ref.detach() if self.training else inter_ref
 
         return DETRAuxOutputs(
             dec_logits=torch.stack(dec_logits),

@@ -31,3 +31,16 @@ class DETRAuxOutputs:
     dec_boxes: torch.Tensor  # [L, B, Q, 4] cxcywh
     enc_logits: torch.Tensor  # [B, Q, C]
     enc_boxes: torch.Tensor  # [B, Q, 4] cxcywh (sigmoided)
+
+
+@dataclass
+class DETRTargets:
+    """Padded, batched targets: ``labels`` [B, N] int64, ``boxes`` [B, N, 4]
+    cxcywh normalized to [0, 1], ``valid`` [B, N] bool (padding rows False)."""
+
+    labels: torch.Tensor
+    boxes: torch.Tensor
+    valid: torch.Tensor
+
+    def to(self, device, non_blocking: bool = False) -> "DETRTargets":
+        return DETRTargets(*(t.to(device, non_blocking=non_blocking) for t in (self.labels, self.boxes, self.valid)))

@@ -15,7 +15,7 @@ import torch
 from focoos_tpu.ports import DatasetEntry, FocoosDet, FocoosDetections
 from focoos_tpu.structures import Boxes, ImageList, Instances
 from focoos_tpu_torch.models.fai_detr.config import DETRConfig
-from focoos_tpu_torch.models.fai_detr.ports import DETRModelOutput
+from focoos_tpu_torch.models.fai_detr.ports import DETRModelOutput, DETRTargets
 from focoos_tpu_torch.processor.base_processor import Processor
 
 
@@ -36,13 +36,37 @@ class DETRProcessor(Processor):
         self.threshold = config.threshold
 
     def preprocess(self, inputs):
-        """Images → (NHWC uint8/float32 batch, None). A list of DatasetEntry
-        is batched for evaluation; training targets come with the training port."""
-        if self.training:
-            raise NotImplementedError("training preprocess is not ported yet (ROADMAP Queue 1 item 5)")
+        """Images/DatasetEntries → (NHWC uint8/float32 batch, DETRTargets | None)."""
         if isinstance(inputs, (list, tuple)) and len(inputs) > 0 and isinstance(inputs[0], DatasetEntry):
-            return ImageList.from_tensors([e.image for e in inputs]).tensor.astype(np.uint8, copy=False), None
+            return self.preprocess_entries(inputs)
+        if self.training:
+            raise ValueError("training preprocess expects a list of DatasetEntry")
         return self.get_batch(inputs, self._target_size()), None
+
+    def preprocess_entries(
+        self, entries: List[DatasetEntry], max_instances: int = 100
+    ) -> Tuple[np.ndarray, Optional[DETRTargets]]:
+        """Batch entries (uint8 NHWC, padded to the largest) and, in training,
+        build targets padded to ``max_instances`` with a validity mask
+        (focoos_tpu/models/fai_detr/processor.py:51-79)."""
+        batch = ImageList.from_tensors([e.image for e in entries]).tensor.astype(np.uint8, copy=False)
+        if not self.training:
+            return batch, None
+        b = len(entries)
+        h, w = batch.shape[1:3]
+        labels = np.zeros((b, max_instances), np.int64)
+        boxes = np.zeros((b, max_instances, 4), np.float32)
+        valid = np.zeros((b, max_instances), bool)
+        for i, e in enumerate(entries):
+            inst = e.instances
+            if inst is None or len(inst) == 0:
+                continue
+            n = min(len(inst), max_instances)
+            bx = inst.boxes.tensor[:n] / np.array([w, h, w, h], np.float32)
+            boxes[i, :n] = np.concatenate([(bx[:, :2] + bx[:, 2:]) / 2, bx[:, 2:] - bx[:, :2]], axis=1)
+            labels[i, :n] = inst.classes[:n]
+            valid[i, :n] = True
+        return batch, DETRTargets(torch.from_numpy(labels), torch.from_numpy(boxes), torch.from_numpy(valid))
 
     def postprocess(
         self,

@@ -2,8 +2,9 @@
 focoos_tpu/models/focoos_model.py; reference: focoos/models/focoos_model.py).
 
 Owns ``(nn.Module on a device, ModelInfo, Processor)`` and exposes the
-reference's verbs. The forward runs eagerly under ``torch.inference_mode()``.
-Training, evaluation and export are ported in later slices (ROADMAP Queue 1).
+reference's verbs. The forward runs eagerly under ``torch.inference_mode()``;
+``train`` runs the port's trainer (fai_detr). Evaluation and export are
+ported in later slices (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -173,8 +174,14 @@ class FocoosModel:
         )
 
     # ------------------------------------------------------------------
-    def train(self, *args, **kwargs):
-        raise NotImplementedError("training is not ported yet (ROADMAP Queue 1 items 5-6)")
+    def train(self, args, train_dataset, val_dataset=None):
+        """Fine-tune on ``train_dataset`` (a sequence of DatasetEntry) on the
+        model's device (reference: focoos_model.py:221-274) → {"run_dir",
+        "metrics", "iterations"}; the module ends in eval mode holding the
+        final (EMA when enabled) weights."""
+        from focoos_tpu_torch.trainer.trainer import run_train
+
+        return run_train(self, args, train_dataset, val_dataset)
 
     def eval(self, *args, **kwargs):
         raise NotImplementedError("evaluation is not ported yet (ROADMAP Queue 1 item 6)")

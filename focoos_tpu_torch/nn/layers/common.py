@@ -39,18 +39,31 @@ def get_activation(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm over NCHW, eps 1e-5. ``frozen=True`` is the reference's
-    FrozenBatchNorm2d (focoos/nn/layers/norm.py:6): running statistics always,
-    even in train mode. The state_dict keys are BatchNorm2d's either way."""
+    """BatchNorm over NCHW, eps 1e-5, with flax's train-mode semantics
+    (focoos_tpu/nn/layers/common.py:120-143, flax momentum 0.9): normalize
+    with the biased batch variance and move the running statistics 0.1 of
+    the way to the batch mean and the *biased* variance. ``frozen=True`` is
+    the reference's FrozenBatchNorm2d (focoos/nn/layers/norm.py:6): running
+    statistics always, even in train mode. The state_dict keys are
+    BatchNorm2d's either way."""
 
     def __init__(self, num_features: int, frozen: bool = False):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
         self.frozen = frozen
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.frozen:
+        if self.frozen or not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
-        return super().forward(x)
+        m, n = self.momentum, x.numel() // x.shape[1]
+        # torch moves the running variance to (1-m)·old + m·var·n/(n-1), the
+        # unbiased variance, in a copy the graph keeps; the n/(n-1) comes back
+        # out per channel (no second pass over x)
+        moved = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, moved, self.weight, self.bias, True, m, self.eps)
+        with torch.no_grad():
+            old = self.running_var
+            self.running_var.copy_((moved - (1 - m) * old) * ((n - 1) / n) + (1 - m) * old)
+        return y
 
 
 def get_norm(norm: Optional[str], channels: int) -> Optional[nn.Module]:

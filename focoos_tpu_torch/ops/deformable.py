@@ -1,9 +1,10 @@
 """Multi-scale deformable attention, plain PyTorch version.
 
 Port of ``focoos_tpu/ops/deformable.py:59 ms_deform_attn`` (the four-corner
-gather formulation of ``:22-85``). It is the reference the CUDA kernel in
-``csrc/msda.cu`` is held against, and what ``ops/msda.py::msda_forward``
-runs for tensors on the CPU. Semantics: bilinear sampling with zeros padding
+gather formulation of ``:22-85``). It and its autograd (``ms_deform_attn_backward_reference``)
+are the references the CUDA kernels in ``csrc/msda.cu`` and
+``csrc/msda_bwd.cu`` are held against, and what ``ops/msda.py`` runs for
+tensors on the CPU. Semantics: bilinear sampling with zeros padding
 and ``align_corners=False`` (pixel = loc * size - 0.5), weighted by the
 already-softmaxed attention weights.
 """
@@ -67,3 +68,19 @@ def ms_deform_attn(
         w_l = attention_weights[:, :, :, lid].to(value.dtype)  # [B, Lq, Hh, P]
         out = out + torch.einsum("blhpd,blhp->blhd", sampled, w_l)
     return out.reshape(b, lq, hh * d)
+
+
+def ms_deform_attn_backward_reference(
+    value: torch.Tensor,  # [B, S, Hh, D]
+    spatial_shapes: Sequence[Tuple[int, int]],
+    sampling_locations: torch.Tensor,  # [B, Lq, Hh, L, P, 2]
+    attention_weights: torch.Tensor,  # [B, Lq, Hh, L, P]
+    grad_out: torch.Tensor,  # [B, Lq, Hh * D]
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(d value, d sampling_locations, d attention_weights): autograd of
+    ``ms_deform_attn`` — the plain version of ``csrc/msda_bwd.cu``, the
+    counterpart of ``focoos_tpu/ops/pallas/msda.py:177 _fused_bwd``."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in (value, sampling_locations, attention_weights)]
+        out = ms_deform_attn(inputs[0], spatial_shapes, inputs[1], inputs[2])
+        return torch.autograd.grad(out, inputs, grad_out.to(out.dtype))

@@ -1,33 +1,42 @@
-"""Multi-scale deformable attention forward: the wrapper of ``csrc/msda.cu``.
+"""Multi-scale deformable attention: the wrappers of ``csrc/msda.cu`` (forward)
+and ``csrc/msda_bwd.cu`` (backward).
 
-Port of ``focoos_tpu/ops/pallas/msda.py`` (``msda_pallas``). For a tensor on
-the CPU it runs the plain version (``ops/deformable.py::ms_deform_attn``); for
-a CUDA tensor it launches the kernel or raises. There is no fallback.
+Port of ``focoos_tpu/ops/pallas/msda.py``: ``msda_pallas`` and the custom VJP
+of ``ms_deform_attn_fused``. For tensors on the CPU the wrappers run the plain
+versions (``ops/deformable.py``); for CUDA tensors they launch the kernels or
+raise. There is no fallback. ``msda_forward`` on a CUDA tensor that needs a
+gradient goes through ``_MSDAFunction``, which pairs the two kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from focoos_tpu_torch.ops import cuda_build
-from focoos_tpu_torch.ops.deformable import ms_deform_attn
+from focoos_tpu_torch.ops.deformable import ms_deform_attn, ms_deform_attn_backward_reference
 
-_MAX_LEVELS = 8  # kMaxLevels in csrc/msda.cu
-_fn = None
+_MAX_LEVELS = 8  # kMaxLevels in csrc/msda.cu and csrc/msda_bwd.cu
+_fns = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = cuda_build.load_library("msda").msda_forward
-        # value, loc, aw, out | level (h, w) pairs | n_levels, B, S, Lq, Hh, D, P, dtype | stream
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+def _kernel(name: str):
+    """``msda_forward`` from libmsda or ``msda_backward`` from libmsda_bwd, argtypes set."""
+    if name not in _fns:
+        if name == "msda_forward":
+            fn = cuda_build.load_library("msda").msda_forward
+            # value, loc, aw, out | level (h, w) pairs | n_levels, B, S, Lq, Hh, D, P, dtype | stream
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        else:
+            fn = cuda_build.load_library("msda_bwd").msda_backward
+            # value, loc, aw, grad, d_value, d_loc, d_aw | level (h, w) pairs | n_levels, B, S, Lq, Hh, D, P, dtype | stream
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return _fns[name]
 
 
 def _check(value, spatial_shapes, loc, aw) -> None:
@@ -54,38 +63,109 @@ def _check(value, spatial_shapes, loc, aw) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def msda_forward(
-    value: torch.Tensor,  # [B, S, Hh, D] float32 or bfloat16
-    spatial_shapes: Sequence[Tuple[int, int]],
-    sampling_locations: torch.Tensor,  # [B, Lq, Hh, L, P, 2] float32
-    attention_weights: torch.Tensor,  # [B, Lq, Hh, L, P] float32
-) -> torch.Tensor:
-    """Fused MSDA → [B, Lq, Hh * D] in value's dtype, fp32 accumulation."""
-    spatial_shapes = [(int(h), int(w)) for h, w in spatial_shapes]
-    if not value.is_cuda:
-        return ms_deform_attn(value, spatial_shapes, sampling_locations, attention_weights)
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (value, sampling_locations, attention_weights)
-    ):
-        raise NotImplementedError(
-            "msda_forward has no backward kernel yet (ROADMAP Queue 2, MSDA backward)"
-        )
-    _check(value, spatial_shapes, sampling_locations, attention_weights)
+def _level_hw(spatial_shapes):
+    return (ctypes.c_int * (2 * len(spatial_shapes)))(*[v for hw in spatial_shapes for v in hw])
+
+
+def _dtype_code(t: torch.Tensor) -> int:
+    return cuda_build.DTYPE_CODES[str(t.dtype).removeprefix("torch.")]
+
+
+def _launch_forward(value, spatial_shapes, loc, aw) -> torch.Tensor:
+    _check(value, spatial_shapes, loc, aw)
     b, s, hh, d = value.shape
-    lq, p = sampling_locations.shape[1], sampling_locations.shape[4]
+    lq, p = loc.shape[1], loc.shape[4]
     out = torch.empty((b, lq, hh * d), dtype=value.dtype, device=value.device)
-    level_hw = (ctypes.c_int * (2 * len(spatial_shapes)))(*[v for hw in spatial_shapes for v in hw])
-    fn = _kernel()
+    fn = _kernel("msda_forward")
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
-            value.data_ptr(), sampling_locations.data_ptr(), attention_weights.data_ptr(), out.data_ptr(),
-            level_hw, len(spatial_shapes), b, s, lq, hh, d, p,
-            cuda_build.DTYPE_CODES[str(value.dtype).removeprefix("torch.")], stream,
+            value.data_ptr(), loc.data_ptr(), aw.data_ptr(), out.data_ptr(),
+            _level_hw(spatial_shapes), len(spatial_shapes), b, s, lq, hh, d, p, _dtype_code(value), stream,
         )
     cuda_build.check(err, "msda_forward")
     msda_forward.launches += 1
     return out
 
 
+def msda_backward(
+    value: torch.Tensor,  # [B, S, Hh, D] float32 or bfloat16
+    spatial_shapes: Sequence[Tuple[int, int]],
+    sampling_locations: torch.Tensor,  # [B, Lq, Hh, L, P, 2] float32
+    attention_weights: torch.Tensor,  # [B, Lq, Hh, L, P] float32
+    grad_out: torch.Tensor,  # [B, Lq, Hh * D]
+    needs: Tuple[bool, bool, bool] = (True, True, True),
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """(d value in value's dtype, d loc fp32, d aw fp32); a gradient whose
+    ``needs`` flag is False is None. d value accumulates in fp32."""
+    spatial_shapes = [(int(h), int(w)) for h, w in spatial_shapes]
+    if not value.is_cuda:
+        grads = ms_deform_attn_backward_reference(value, spatial_shapes, sampling_locations, attention_weights, grad_out)
+        return tuple(g if n else None for g, n in zip(grads, needs))
+    _check(value, spatial_shapes, sampling_locations, attention_weights)
+    b, s, hh, d = value.shape
+    lq, p = sampling_locations.shape[1], sampling_locations.shape[4]
+    if tuple(grad_out.shape) != (b, lq, hh * d) or grad_out.device != value.device:
+        raise ValueError(f"grad_out must be [{b}, {lq}, {hh * d}] on {value.device}, got {tuple(grad_out.shape)}"
+                         f" on {grad_out.device}")
+    g = grad_out.float().contiguous()
+    d_value = torch.zeros((b, s, hh, d), dtype=torch.float32, device=value.device) if needs[0] else None
+    d_loc = torch.empty_like(sampling_locations) if needs[1] else None
+    d_aw = torch.empty_like(attention_weights) if needs[2] else None
+    fn = _kernel("msda_backward")
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(
+            value.data_ptr(), sampling_locations.data_ptr(), attention_weights.data_ptr(), g.data_ptr(),
+            *(0 if t is None else t.data_ptr() for t in (d_value, d_loc, d_aw)),
+            _level_hw(spatial_shapes), len(spatial_shapes), b, s, lq, hh, d, p, _dtype_code(value), stream,
+        )
+    cuda_build.check(err, "msda_backward")
+    msda_backward.launches += 1
+    if d_value is not None and value.dtype != torch.float32:
+        d_value = d_value.to(value.dtype)
+    return d_value, d_loc, d_aw
+
+
+class _MSDAFunction(torch.autograd.Function):
+    """The forward kernel with the backward kernel as its gradient. Saves only
+    value, loc and aw: the backward recomputes the corner weights."""
+
+    @staticmethod
+    def forward(ctx, value, spatial_shapes, loc, aw):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, loc, aw)
+        if not value.is_cuda:  # the plain version, for the CPU tests of this route
+            return ms_deform_attn(value, spatial_shapes, loc, aw)
+        return _launch_forward(value, spatial_shapes, loc, aw)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        value, loc, aw = ctx.saved_tensors
+        needs = (ctx.needs_input_grad[0], ctx.needs_input_grad[2], ctx.needs_input_grad[3])
+        d_value, d_loc, d_aw = msda_backward(value, ctx.spatial_shapes, loc, aw, grad_out, needs)
+        return d_value, None, d_loc, d_aw
+
+
+def msda_forward(
+    value: torch.Tensor,  # [B, S, Hh, D] float32 or bfloat16
+    spatial_shapes: Sequence[Tuple[int, int]],
+    sampling_locations: torch.Tensor,  # [B, Lq, Hh, L, P, 2] float32
+    attention_weights: torch.Tensor,  # [B, Lq, Hh, L, P] float32
+) -> torch.Tensor:
+    """Fused MSDA → [B, Lq, Hh * D] in value's dtype, fp32 accumulation.
+    Differentiable: on the card through the backward kernel, on the CPU
+    through the plain version's own autograd."""
+    spatial_shapes = [(int(h), int(w)) for h, w in spatial_shapes]
+    if not value.is_cuda:
+        return ms_deform_attn(value, spatial_shapes, sampling_locations, attention_weights)
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (value, sampling_locations, attention_weights)
+    ):
+        return _MSDAFunction.apply(value, spatial_shapes, sampling_locations, attention_weights)
+    return _launch_forward(value, spatial_shapes, sampling_locations, attention_weights)
+
+
 msda_forward.launches = 0
+msda_backward.launches = 0

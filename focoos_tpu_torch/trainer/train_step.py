@@ -1,0 +1,69 @@
+"""One training step (port of focoos_tpu/trainer/train_step.py; reference:
+focoos/trainer/trainer.py:723-773 run_step).
+
+forward in train mode → criterion → backward → clip → AdamW update → EMA.
+PyTorch runs it eagerly, so the step is a Python function over a
+``TrainState`` that owns the module, the solver and the EMA copy. The metrics
+stay on the device as one stacked fp32 tensor (JAX's ``_pack_metrics``), so a
+step does not wait on a dozen scalar copies.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from focoos_tpu_torch.trainer.solver import Solver
+
+
+@dataclass
+class TrainState:
+    """The module (params and batch statistics, updated in place), its solver,
+    the 0-based step, and the EMA of the params (not of the batch statistics)."""
+
+    module: nn.Module
+    solver: Solver
+    step: int = 0
+    ema_params: Optional[List[torch.Tensor]] = None
+
+
+def create_train_state(module: nn.Module, solver: Solver, ema_enabled: bool = False) -> TrainState:
+    ema = [p.detach().clone() for p in module.parameters()] if ema_enabled else None
+    return TrainState(module=module, solver=solver, ema_params=ema)
+
+
+def build_train_step(
+    loss_fn: Callable,  # (images, targets) -> (total, {key: 0-d tensor})
+    ema_decay_fn: Optional[Callable[[int], float]] = None,
+) -> Callable:
+    """→ ``step_fn(state, images, targets) -> (keys, metrics [K] fp32 on the
+    device)``; the metrics are the losses, ``total_loss`` and ``grad_norm``
+    (the global norm of the unclipped gradients), in sorted key order."""
+
+    def step_fn(state: TrainState, images: torch.Tensor, targets) -> Tuple[Tuple[str, ...], torch.Tensor]:
+        module = state.module
+        module.train()
+        for p in module.parameters():
+            p.grad = None
+        total, metrics = loss_fn(images, targets)
+        total.backward()
+        grad_norm = state.solver.step(state.step)
+        if state.ema_params is not None and ema_decay_fn is not None:
+            d = ema_decay_fn(state.step)  # from the pre-increment step
+            params = [p.detach() for p in module.parameters()]
+            torch._foreach_mul_(state.ema_params, d)
+            torch._foreach_add_(state.ema_params, params, alpha=1.0 - d)
+        state.step += 1
+        metrics = dict(metrics, total_loss=total.detach(), grad_norm=grad_norm)
+        keys = tuple(sorted(metrics))
+        return keys, torch.stack([metrics[k].detach().float() for k in keys])
+
+    return step_fn
+
+
+def unpack_metrics(keys: Tuple[str, ...], packed: torch.Tensor) -> Dict[str, float]:
+    """One device→host copy for every scalar of a step."""
+    return dict(zip(keys, packed.cpu().tolist()))

@@ -1,4 +1,5 @@
-"""Carry the JAX package's weights into the port.
+"""Carry weights between the JAX package and the port (``to_jax_variables``
+is the way back, for fai_detr).
 
 ``from_jax_variables`` is the inverse of the ``fai_detr``/``resnet``/``rtmo``/
 ``csp_darknet`` rules in ``focoos_tpu/utils/torch_convert.py`` (which imports
@@ -170,3 +171,74 @@ def from_jax_variables(flat: Dict[str, np.ndarray], family: str) -> Dict[str, to
         )
         sd[f"{prefix}.in_proj_bias"] = torch.from_numpy(np.concatenate([t["q_bias"], t["k_bias"], t["v_bias"]]))
     return sd
+
+
+# torch module path → JAX module path, the inverse of FAMILY_RULES: a rule
+# names a module; below it, "name.<i>" becomes "name_<i>" and "." becomes "/"
+# (and a ResNet-D block's pooled shortcut "short.conv.*" is JAX's "short_conv/*")
+INVERSE_RULES: Dict[str, Callable[[], List[Rule]]] = {
+    "fai_detr": lambda: [
+        (r"pixel_decoder\.backbone\.conv1\.(conv1_\d)", lambda m: f"backbone/{m[1]}"),
+        (r"pixel_decoder\.backbone\.res_layers\.(\d+)\.blocks\.(\d+)",
+         lambda m: f"backbone/res{int(m[1]) + 2}_block{m[2]}"),
+        (r"pixel_decoder\.input_proj\.(\d+)\.0", lambda m: f"pixel_decoder/input_proj_{m[1]}_conv"),
+        (r"pixel_decoder\.input_proj\.(\d+)\.1", lambda m: f"pixel_decoder/input_proj_{m[1]}_bn"),
+        (r"pixel_decoder\.encoder\.(\d+)\.layers\.(\d+)", lambda m: f"pixel_decoder/encoder_{m[1]}_layers_{m[2]}"),
+        (r"pixel_decoder\.(\w+)\.(\d+)", lambda m: f"pixel_decoder/{m[1]}_{m[2]}"),
+        (r"pixel_decoder\.mask_features", lambda m: "pixel_decoder/mask_features"),
+        (r"head\.predictor\.input_proj\.(\d+)\.conv", lambda m: f"predictor/input_proj_{m[1]}_conv"),
+        (r"head\.predictor\.input_proj\.(\d+)\.norm", lambda m: f"predictor/input_proj_{m[1]}_bn"),
+        (r"head\.predictor\.decoder\.layers\.(\d+)", lambda m: f"predictor/decoder_layers_{m[1]}"),
+        (r"head\.predictor\.(\w+)\.(\d+)", lambda m: f"predictor/{m[1]}_{m[2]}"),
+        (r"head\.predictor\.(\w+)", lambda m: f"predictor/{m[1]}"),
+    ],
+}
+
+
+def _jax_module_path(name: str, rules: List[Rule], family: str) -> str:
+    for pat, fn in rules:
+        m = re.fullmatch(pat, name) or re.match(pat + r"\.", name)
+        if m:
+            rest = re.sub(r"^short\.conv\.", "short_conv.", name[m.end():].lstrip("."))
+            path = fn(m) + ("/" + re.sub(r"\.(\d+)", r"_\1", rest).replace(".", "/") if rest else "")
+            break
+    else:
+        raise KeyError(f"no inverse rule maps the torch module '{name}'")
+    if path.endswith("/norm"):
+        path += "/bn"  # a ConvNorm's norm (a BatchNorm in the port) sits under norm/bn in JAX
+    # each inverse must land where the forward rules map back from
+    back = _module_path(path, FAMILY_RULES[family]())
+    if back != name:
+        raise KeyError(f"torch module '{name}' → JAX '{path}' → torch '{back}'")
+    return path
+
+
+def to_jax_variables(state: Dict[str, np.ndarray], family: str) -> Dict[str, np.ndarray]:
+    """Port state_dict (numpy) → flat ``{"params/…", "batch_stats/…"}`` of
+    the JAX package's ``model_final.npz``; the inverse of
+    ``from_jax_variables``. A 1-D ``weight`` is a norm scale; the merged
+    ``in_proj_*`` split into q/k/v; ``num_batches_tracked`` has no JAX
+    counterpart and is dropped."""
+    if family not in INVERSE_RULES:
+        raise NotImplementedError(f"to_jax_variables covers {sorted(INVERSE_RULES)}, not {family}")
+    rules = INVERSE_RULES[family]()
+    flat: Dict[str, np.ndarray] = {}
+    for key, arr in state.items():
+        module, leaf = key.rsplit(".", 1)
+        if leaf == "num_batches_tracked":
+            continue
+        path = _jax_module_path(module, rules, family)
+        arr = np.asarray(arr)
+        if leaf in ("in_proj_weight", "in_proj_bias"):
+            for name, part in zip("qkv", np.split(arr, 3)):
+                flat[f"params/{path}/{name}_proj/" + ("kernel" if leaf == "in_proj_weight" else "bias")] = (
+                    np.ascontiguousarray(part.T) if part.ndim == 2 else part)
+        elif leaf in ("running_mean", "running_var"):
+            flat[f"batch_stats/{path}/{leaf.removeprefix('running_')}"] = arr
+        elif leaf == "weight" and arr.ndim == 1:
+            flat[f"params/{path}/scale"] = arr
+        elif leaf == "weight":
+            flat[f"params/{path}/kernel"] = np.ascontiguousarray(arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T)
+        else:
+            flat[f"params/{path}/{leaf}"] = arr
+    return flat

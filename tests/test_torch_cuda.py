@@ -18,14 +18,19 @@ import numpy as np
 import pytest
 import torch
 
-from focoos_tpu_torch.ops.deformable import ms_deform_attn
-from focoos_tpu_torch.ops.msda import msda_forward
+from focoos_tpu_torch.ops.deformable import ms_deform_attn, ms_deform_attn_backward_reference
+from focoos_tpu_torch.ops.msda import msda_backward, msda_forward
 from focoos_tpu_torch.ops.nms import nms_keep, nms_keep_reference
 from focoos_tpu_torch.ops.stem import fused_resnet_stem, resnet_stem_reference
 
 pytestmark = pytest.mark.cuda
 
 MSDA_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
+# (d value, d loc, d aw) x max|ref|. fp32: d value and d aw 1e-5 (sums in
+# another order, and the kernel's atomics add in a run-dependent order); d loc
+# 1e-4 (a difference of corner values scaled by the map size). bf16 values:
+# 2^-7 for all three (d value is rounded to bf16 once).
+MSDA_BWD_TOL = {torch.float32: (1e-5, 1e-4, 1e-5), torch.bfloat16: (2.0**-7,) * 3}
 STEM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-7}
 
 
@@ -109,12 +114,100 @@ def test_stem_kernel_all_negative_pool_windows(cuda, dtype):
     assert float((ref[..., :32] == 0).float().mean()) > 0.5, "too few all-negative windows: the case tests nothing"
 
 
+def _msda_inputs(device, b, lq, hh, d, ss, dtype=torch.float32, seed=0):
+    """Values, locations in [-0.2, 1.2] (some corners outside), softmaxed weights, a gradient."""
+    g = torch.Generator().manual_seed(seed)
+    s = sum(h * w for h, w in ss)
+    v = (torch.rand(b, s, hh, d, generator=g) - 0.5).to(device, dtype)
+    loc = (torch.rand(b, lq, hh, len(ss), 4, 2, generator=g) * 1.4 - 0.2).to(device)
+    aw = torch.softmax(torch.randn(b, lq, hh, len(ss) * 4, generator=g), -1).reshape(b, lq, hh, len(ss), 4).to(device)
+    grad = torch.randn(b, lq, hh * d, generator=g).to(device, dtype)
+    return v, loc, aw, grad
+
+
+def _assert_msda_grads(got, ref, dtype):
+    for name, gt, rf, tol in zip(("d value", "d loc", "d aw"), got, ref, MSDA_BWD_TOL[dtype]):
+        assert gt.shape == rf.shape, name
+        err, bound = float((gt.float() - rf.float()).abs().max()), tol * float(rf.float().abs().max())
+        assert err <= bound, f"{name}: {err} > {bound}"
+
+
+# main path; D=48 (two lane chunks, the second half empty), Lq not a
+# multiple of 8, two levels of unequal size; D=16 (half the lanes idle)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "b,lq,hh,d,ss",
+    [(16, 300, 8, 32, ((20, 20), (40, 40), (80, 80))), (2, 37, 3, 48, ((9, 11), (5, 6))),
+     (3, 13, 2, 16, ((7, 3), (4, 9), (2, 2)))],
+    ids=["main-path", "odd-d48", "odd-d16"],
+)
+def test_msda_backward_kernel_matches_plain(cuda, dtype, b, lq, hh, d, ss):
+    v, loc, aw, grad = _msda_inputs(cuda, b, lq, hh, d, ss, dtype)
+    before = msda_backward.launches
+    got = msda_backward(v, ss, loc, aw, grad)
+    torch.cuda.synchronize()
+    assert msda_backward.launches == before + 1
+    assert got[0].dtype == dtype and got[1].dtype == got[2].dtype == torch.float32
+    _assert_msda_grads(got, ms_deform_attn_backward_reference(v.float(), ss, loc, aw, grad.float()), dtype)
+
+
+def test_msda_backward_kernel_finite_differences(cuda):
+    """d loc and d aw against central differences of the forward kernel, fp32
+    (the kernels take no fp64). Pixel coordinates keep a fraction in [0.1, 0.9]
+    (one corner row or column may lie outside the map), so a step of 1e-3 in
+    normalized units never crosses a pixel: the sampled value is linear in
+    each coordinate there and the differences are exact up to fp32 rounding of
+    the O(1) outputs (~1e-4 relative at this step), hence 5e-3 x max|ref|."""
+    b, lq, hh, d, ss = 2, 5, 2, 32, ((6, 7), (3, 4))
+    g = torch.Generator().manual_seed(7)
+    v, _, _, grad = _msda_inputs(cuda, b, lq, hh, d, ss, seed=7)
+    sizes = torch.tensor([[w, h] for h, w in ss], dtype=torch.float32)[:, None, :]  # [L, 1, 2] as (W, H)
+    pix = torch.floor(torch.rand(b, lq, hh, len(ss), 4, 2, generator=g) * (sizes + 1)) - 1
+    pix = pix + 0.1 + 0.8 * torch.rand(pix.shape, generator=g)
+    loc = ((pix + 0.5) / sizes).to(cuda)
+    aw = torch.rand(b, lq, hh, len(ss), 4, generator=g).to(cuda)
+    _, d_loc, d_aw = msda_backward(v, ss, loc, aw, grad)
+
+    def per_warp(lc, a):  # sum_d g * out for each (b, q, h)
+        return (msda_forward(v, ss, lc, a) * grad).reshape(b, lq, hh, d).sum(-1)
+
+    step = 1e-3
+    fd_loc, fd_aw = torch.zeros_like(d_loc), torch.zeros_like(d_aw)
+    for lvl in range(len(ss)):
+        for p in range(4):
+            for c in range(2):
+                e = torch.zeros_like(loc)
+                e[:, :, :, lvl, p, c] = step
+                fd_loc[:, :, :, lvl, p, c] = (per_warp(loc + e, aw) - per_warp(loc - e, aw)) / (2 * step)
+            e = torch.zeros_like(aw)
+            e[:, :, :, lvl, p] = step
+            fd_aw[:, :, :, lvl, p] = (per_warp(loc, aw + e) - per_warp(loc, aw - e)) / (2 * step)
+    for name, got, ref in (("d loc", d_loc, fd_loc), ("d aw", d_aw, fd_aw)):
+        err, bound = float((got - ref).abs().max()), 5e-3 * float(ref.abs().max())
+        assert err <= bound, f"{name}: {err} > {bound}"
+
+
+def test_msda_autograd_launches_both_kernels(cuda):
+    """Autograd through msda_forward on the card launches the forward kernel,
+    and backward() the backward kernel; no_grad runs the forward alone."""
+    ss = ((9, 11), (5, 6), (3, 2))
+    v, loc, aw, grad = _msda_inputs(cuda, 2, 37, 3, 32, ss)
+    leaves = [t.clone().requires_grad_() for t in (v, loc, aw)]
+    f0, b0 = msda_forward.launches, msda_backward.launches
+    out = msda_forward(leaves[0], ss, leaves[1], leaves[2])
+    assert msda_forward.launches == f0 + 1 and out.grad_fn is not None
+    out.backward(grad)
+    torch.cuda.synchronize()
+    assert msda_backward.launches == b0 + 1
+    _assert_msda_grads([t.grad for t in leaves], ms_deform_attn_backward_reference(v, ss, loc, aw, grad),
+                       torch.float32)
+    with torch.no_grad():
+        assert msda_forward(leaves[0], ss, leaves[1], leaves[2]).grad_fn is None
+    assert msda_forward.launches == f0 + 2 and msda_backward.launches == b0 + 1
+
+
 def test_wrappers_refuse_autograd(cuda):
-    v = torch.zeros(1, 4, 1, 32, device=cuda, requires_grad=True)
-    loc = torch.zeros(1, 1, 1, 1, 1, 2, device=cuda)
-    aw = torch.zeros(1, 1, 1, 1, 1, device=cuda)
-    with pytest.raises(NotImplementedError):
-        msda_forward(v, [(2, 2)], loc, aw)
+    """The stem stays inference-only: a weight that needs a gradient is refused."""
     _, params = _stem_params(cuda)
     params[3].requires_grad_(True)
     with pytest.raises(NotImplementedError):
@@ -184,3 +277,25 @@ def test_rtmo_slice_launches_nms_once_per_forward(cuda):
     res = model(np.random.default_rng(0).integers(0, 256, (2, 128, 128, 3), dtype=np.uint8), threshold=0.0)
     assert nms_keep.launches - before == 1
     assert len(res) == 2 and all(len(d.keypoints) == 17 for r in res for d in r.detections)
+
+
+def test_train_step_launches_both_msda_kernels(cuda, tmp_path):
+    """FocoosModel.train on the card: each decoder layer launches the MSDA
+    forward kernel, and its backward the MSDA backward kernel, once per step."""
+    from focoos_tpu.ports import DatasetEntry, TrainerArgs
+    from focoos_tpu.structures import Boxes, Instances
+    from focoos_tpu_torch import ModelManager
+
+    model = ModelManager.get(
+        "fai-detr-l-coco", device=cuda, image_size=64, num_queries=10, transformer_predictor_dec_layers=2,
+    )
+    rng = np.random.default_rng(0)
+    boxes = np.array([[4, 6, 30, 40], [20, 10, 60, 50]], np.float32)
+    ds = [DatasetEntry(image=rng.integers(0, 256, (64, 64, 3), dtype=np.uint8), height=64, width=64,
+                       instances=Instances((64, 64), boxes=Boxes(boxes), classes=np.array([3, 7]))) for _ in range(2)]
+    f0, b0 = msda_forward.launches, msda_backward.launches
+    args = TrainerArgs(run_name="t", output_dir=str(tmp_path), batch_size=2, max_iters=2, checkpointer_period=2)
+    res = model.train(args, ds)
+    torch.cuda.synchronize()
+    assert res["iterations"] == 2
+    assert msda_forward.launches - f0 == 4 and msda_backward.launches - b0 == 4

@@ -1,6 +1,7 @@
 """The port stands without JAX: with ``jax``, ``jaxlib``, ``flax``, ``PIL`` and
-``cv2`` made unimportable, every module of focoos_tpu_torch imports and each
-ported slice (fai-detr, rtmo) serves an ndarray image on the CPU."""
+``cv2`` made unimportable, every module of focoos_tpu_torch imports, each
+ported slice (fai-detr, rtmo) serves an ndarray image on the CPU, and
+fai-detr trains two steps on the CPU."""
 
 import os
 import subprocess
@@ -51,6 +52,28 @@ print("OK", len(res))
 """
 
 
+TRAIN_SCRIPT = PRELUDE + r"""
+import os, tempfile
+from focoos_tpu.ports import DatasetEntry, TrainerArgs
+from focoos_tpu.structures import Boxes, Instances
+model = ModelManager.get(
+    "fai-detr-l-coco", device="cpu", image_size=64, num_queries=10, transformer_predictor_dec_layers=1,
+    backbone_config={"model_type": "resnet", "depth": 18, "variant": "d", "freeze_norm": False},
+)
+rng = np.random.default_rng(0)
+boxes = np.array([[4, 6, 30, 40], [20, 10, 60, 50]], np.float32)
+ds = [DatasetEntry(image=rng.integers(0, 256, (64, 64, 3), dtype=np.uint8), height=64, width=64,
+                   instances=Instances((64, 64), boxes=Boxes(boxes), classes=np.array([3, 7])))
+      for _ in range(2)]
+out = tempfile.mkdtemp()
+res = model.train(TrainerArgs(run_name="t", output_dir=out, batch_size=2, max_iters=2, checkpointer_period=2), ds)
+assert os.path.isfile(os.path.join(res["run_dir"], "model_final.npz"))
+loaded = sorted(k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in BLOCKED)
+assert not loaded, loaded
+print("OK", res["iterations"])
+"""
+
+
 def _run(script: str) -> str:
     proc = subprocess.run(
         [sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True, timeout=300,
@@ -61,6 +84,10 @@ def _run(script: str) -> str:
 
 def test_port_imports_and_serves_without_jax_pil_cv2():
     assert _run(SCRIPT).endswith("OK 300")
+
+
+def test_fai_detr_trains_without_jax_pil_cv2():
+    assert _run(TRAIN_SCRIPT).split()[-2:] == ["OK", "2"]
 
 
 def test_rtmo_serves_without_jax_pil_cv2():
