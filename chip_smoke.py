@@ -12,9 +12,12 @@ non-zero:
    each, all started together;
 3. msda   — the MSDA kernel against its plain PyTorch version at the main
    path's shapes (B=16, f32 and bf16 values, locations in [-0.2, 1.2]) and at
-   one odd shape; errors and kernel/plain times (CUDA events, median of 20);
+   two odd shapes (D=8: vector path, D=24: general path); errors, kernel and
+   plain device times (``time_ms``), the bound from these inputs (value rows
+   touched, counted on the card) and the share of it the kernel reaches;
    msda_backward — the MSDA backward kernel against the plain version's
-   autograd, the same way (main shape; odd D=48, Lq=37, two unequal levels);
+   autograd, the same way (main shape; the training batch B=8; odd D=48,
+   Lq=37, two unequal levels);
 4. stem   — the fused stem kernel against its plain version at 640², B=1 and
    16, at an odd 641x479 B=3 and on inputs scaled x64 (131x67 B=2), each in
    f32 and bf16; errors and both times;
@@ -23,7 +26,9 @@ non-zero:
    sampling kernels and the BatchNorms perturbed so that they do work;
    answers infer() on three 480x640 images and model(batch) on 16 at 640²,
    checks each kernel ran 6x / 1x per forward, compares a B=2 forward against
-   the same weights on the CPU (plain versions), and times b1 and b16;
+   the same weights on the CPU (plain versions), times b1 and b16, and
+   holds both MSDA kernels against their plain versions on the locations and
+   weights its last decoder layer samples in the b16 forward;
    train  — fai-detr-l at full width (seeded weights perturbed as for the
    slice) on 32 seeded 640² images with 1-20 boxes each: first one training
    step on the card against the same step on the CPU at B=2 (every loss key,
@@ -35,8 +40,8 @@ non-zero:
 6. nms    — the greedy NMS kernel against its plain version on clustered
    boxes (duplicates, zero-area boxes, a zero-score tail): B=16 K=300 thr
    0.65 (the main path's shape), K=1024, an odd K=37, and boxes with NaN
-   and infinite coordinates; keep masks must be equal; kernel/plain times
-   (CUDA events, median of 20);
+   and infinite coordinates; keep masks must be equal; kernel/plain device
+   times;
 7. rtmo   — ModelManager.get("rtmo-l-coco") at full width (CSPDarknet-L,
    hybrid neck, 512-wide head, 17 keypoints) with seeded random weights, the
    BatchNorms, the classifier/box biases and DCC's bin logits perturbed so
@@ -84,25 +89,31 @@ RTMO_TOL = 1e-3
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_NORM_RTOL = 1e-3
 TRAIN_BATCH = 8  # images per step in the timed training run
+SLEEP_CYCLES = 20_000_000  # ~11 ms of the card's clock: longer than the host takes to queue 20 kernel calls
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call, CUDA events around each call."""
-    for _ in range(warmup):
-        fn()
+def time_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device time of one call: ``calls`` calls queued behind a sleep kernel,
+    so that the host's time in the wrapper (checks, allocation, the ctypes
+    call) is hidden, between two CUDA events; the median of ``reps`` such
+    runs. One call at a time between events measures the host instead
+    wherever a kernel is shorter than its wrapper's host time."""
+    fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
 
 
@@ -115,64 +126,168 @@ def max_err(out: torch.Tensor, ref: torch.Tensor, tol: float, what: str) -> floa
 
 
 # ---------------------------------------------------------------------------
-def phase_msda(dev) -> dict:
-    from focoos_tpu_torch.ops.deformable import ms_deform_attn
-    from focoos_tpu_torch.ops.msda import msda_forward
+# least times of the card (NVIDIA's H100 SXM data sheet, dense, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"fp32": 67e12, "tf32": 495e12}
 
+
+def bound(nbytes: float, ops: float, kind: str = "fp32") -> dict:
+    """The least time for moving ``nbytes`` (each input read once, each output
+    written once) and doing ``ops`` operations of ``kind``: the larger of the two."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[kind]
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def msda_rows_touched(value: torch.Tensor, ss, loc: torch.Tensor) -> int:
+    """Distinct value rows (b, s, h) that a valid bilinear corner reads: the
+    rows the kernels must read at least once for these locations."""
+    b, s, hh, _ = value.shape
+    bi = torch.arange(b, device=loc.device)[:, None, None, None]
+    hi = torch.arange(hh, device=loc.device)[None, None, :, None]
+    rows, start = [], 0
+    for lid, (h, w) in enumerate(ss):
+        x = torch.floor(loc[:, :, :, lid, :, 0] * w - 0.5)  # [B, Lq, Hh, P]
+        y = torch.floor(loc[:, :, :, lid, :, 1] * h - 0.5)
+        for dy in (0, 1):
+            for dx in (0, 1):
+                xi, yi = x + dx, y + dy
+                ok = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+                pos = start + (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).long()
+                rows.append(((bi * s + pos) * hh + hi)[ok])
+        start += h * w
+    return int(torch.unique(torch.cat(rows)).numel())
+
+
+def msda_bound(kernel: str, value: torch.Tensor, ss, loc: torch.Tensor, aw: torch.Tensor) -> dict:
+    """Bound of the MSDA forward or backward on these inputs. Bytes: the value
+    rows the samples touch (counted on the card), loc, aw, and the outputs —
+    forward out [B, Lq, Hh*D]; backward the incoming gradient, d value
+    (written whole, zeros included), d loc and d aw. Operations: 2 per corner
+    and channel forward (one FMA), 4 backward (the dot's FMA, the scaled
+    atomic add), fp32."""
+    rows = msda_rows_touched(value, ss, loc)
+    b, s, hh, d = value.shape
+    e = value.element_size()
+    out = b * loc.shape[1] * hh * d * e
+    nbytes = rows * d * e + 4 * (loc.numel() + aw.numel()) + out
+    corners = 4 * aw.numel() * d
+    if kernel == "forward":
+        res = bound(nbytes, 2 * corners)
+    else:
+        res = bound(nbytes + value.numel() * e + 4 * (loc.numel() + aw.numel()), 4 * corners)
+    return {**res, "rows_touched": rows, "rows": b * s * hh}
+
+
+def msda_case(g: torch.Generator, b, lq, hh, d, ss, dev, p: int = 4):
+    """Seeded values in [-0.5, 0.5), uniform locations in [-0.2, 1.2] (some
+    corners outside the map), softmaxed attention weights, a gradient."""
+    s = sum(h * w for h, w in ss)
+    v = (torch.rand(b, s, hh, d, generator=g) - 0.5).to(dev)
+    loc = (torch.rand(b, lq, hh, len(ss), p, 2, generator=g) * 1.4 - 0.2).to(dev)
+    aw = torch.softmax(torch.randn(b, lq, hh, len(ss) * p, generator=g), -1).reshape(b, lq, hh, len(ss), p).to(dev)
+    return v, loc, aw, torch.randn(b, lq, hh * d, generator=g).to(dev)
+
+
+def check_msda_forward(label: str, v, ss, loc, aw) -> dict:
+    """The forward kernel against its plain version on these inputs: error,
+    kernel and plain device times, bound and share."""
+    from focoos_tpu_torch.ops.deformable import ms_deform_attn
+    from focoos_tpu_torch.ops.msda import msda_forward, vector_path
+
+    out = msda_forward(v, ss, loc, aw)
+    torch.cuda.synchronize()
+    err = max_err(out, ms_deform_attn(v.float(), ss, loc, aw), MSDA_TOL[v.dtype], f"msda {label} {v.dtype}")
+    ms = time_ms(lambda: msda_forward(v, ss, loc, aw))
+    plain_ms = time_ms(lambda: ms_deform_attn(v, ss, loc, aw))
+    bd = msda_bound("forward", v, ss, loc, aw)
+    path = "vector" if vector_path("forward", v) else "general"
+    log(f"[msda] {label} {str(v.dtype)[6:]}: max_abs_err {err:.3e} (tol {MSDA_TOL[v.dtype]:.1e} x max|ref|)"
+        f" | {path} path, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms | bound {bd['bound_ms']:.4f} ms"
+        f" ({bd['bound_by']}; {bd['rows_touched']} of {bd['rows']} value rows touched), kernel at"
+        f" {bd['bound_ms'] / ms:.1%} of it")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bd["bound_ms"],
+            "bound_by": bd["bound_by"], "path": path}
+
+
+def check_msda_backward(label: str, v, ss, loc, aw, grad) -> dict:
+    """The backward kernel against the plain version's autograd, as above."""
+    from focoos_tpu_torch.ops.deformable import ms_deform_attn_backward_reference
+    from focoos_tpu_torch.ops.msda import msda_backward, vector_path
+
+    got = msda_backward(v, ss, loc, aw, grad)
+    torch.cuda.synchronize()
+    ref = ms_deform_attn_backward_reference(v.float(), ss, loc, aw, grad.float())
+    tols = MSDA_BWD_TOL[v.dtype]
+    errs = [max_err(o, r, tol, f"msda_backward {label} {v.dtype} {name}")
+            for o, r, tol, name in zip(got, ref, tols, ("d value", "d loc", "d aw"))]
+    ms = time_ms(lambda: msda_backward(v, ss, loc, aw, grad))
+    plain_ms = time_ms(lambda: ms_deform_attn_backward_reference(v, ss, loc, aw, grad))
+    bd = msda_bound("backward", v, ss, loc, aw)
+    path = "vector" if vector_path("backward", v, grad.float()) else "general"
+    log(f"[msda_backward] {label} {str(v.dtype)[6:]}: max_abs_err d value {errs[0]:.3e}, d loc {errs[1]:.3e},"
+        f" d aw {errs[2]:.3e} (tol {' / '.join(f'{t:.1e}' for t in tols)} x max|ref|) | {path} path, kernel"
+        f" {ms:.4f} ms (with the zero fill of d value), plain (autograd) {plain_ms:.4f} ms | bound"
+        f" {bd['bound_ms']:.4f} ms ({bd['bound_by']}; {bd['rows_touched']} of {bd['rows']} value rows touched),"
+        f" kernel at {bd['bound_ms'] / ms:.1%} of it")
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bd["bound_ms"],
+            "bound_by": bd["bound_by"], "path": path}
+
+
+MSDA_MAIN = (16, 300, 8, 32, MSDA_SHAPES)  # B, Lq, Hh, D, levels: fai-detr-l at 640², b16
+MSDA_MAIN_LABEL = "main path B=16 Lq=300 Hh=8 D=32 levels 20²,40²,80² P=4, uniform locations"
+
+
+def phase_msda(dev) -> dict:
     g = torch.Generator().manual_seed(0)
     record = {}
-    for b, lq, hh, d, ss, label in (
-        (16, 300, 8, 32, MSDA_SHAPES, "main path B=16 Lq=300 Hh=8 D=32 levels 20²,40²,80² P=4"),
-        (2, 37, 3, 8, ((9, 11), (5, 6), (3, 2)), "odd B=2 Lq=37 Hh=3 D=8 levels 9x11,5x6,3x2 P=4"),
+    for (b, lq, hh, d, ss), label in (
+        (MSDA_MAIN, MSDA_MAIN_LABEL),
+        ((2, 37, 3, 8, ((9, 11), (5, 6), (3, 2))), "odd B=2 Lq=37 Hh=3 D=8 levels 9x11,5x6,3x2 P=4"),
+        ((2, 37, 3, 24, ((9, 11), (5, 6), (3, 2))), "odd B=2 Lq=37 Hh=3 D=24 levels 9x11,5x6,3x2 P=4"),
     ):
-        s = sum(h * w for h, w in ss)
-        v32 = (torch.rand(b, s, hh, d, generator=g) - 0.5).to(dev)
-        loc = (torch.rand(b, lq, hh, len(ss), 4, 2, generator=g) * 1.4 - 0.2).to(dev)
-        aw = torch.softmax(torch.randn(b, lq, hh, len(ss) * 4, generator=g), -1).reshape(b, lq, hh, len(ss), 4).to(dev)
+        v32, loc, aw, _ = msda_case(g, b, lq, hh, d, ss, dev)
         for dtype in (torch.float32, torch.bfloat16):
-            v = v32.to(dtype)
-            out = msda_forward(v, ss, loc, aw)
-            torch.cuda.synchronize()
-            err = max_err(out, ms_deform_attn(v.float(), ss, loc, aw), MSDA_TOL[dtype], f"msda {label} {dtype}")
-            ms = time_ms(lambda: msda_forward(v, ss, loc, aw))
-            plain_ms = time_ms(lambda: ms_deform_attn(v, ss, loc, aw))
-            log(f"[msda] {label} {str(dtype)[6:]}: max_abs_err {err:.3e} (tol {MSDA_TOL[dtype]:.1e} x max|ref|)"
-                f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            rec = check_msda_forward(label, v32.to(dtype), ss, loc, aw)
             if b == 16 and dtype == torch.float32:
-                record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                record = rec
     return record
 
 
 def phase_msda_backward(dev) -> dict:
-    from focoos_tpu_torch.ops.deformable import ms_deform_attn_backward_reference
-    from focoos_tpu_torch.ops.msda import msda_backward
-
     g = torch.Generator().manual_seed(5)
     record = {}
-    for b, lq, hh, d, ss, label in (
-        (16, 300, 8, 32, MSDA_SHAPES, "main path B=16 Lq=300 Hh=8 D=32 levels 20²,40²,80² P=4"),
-        (2, 37, 3, 48, ((9, 11), (5, 6)), "odd B=2 Lq=37 Hh=3 D=48 levels 9x11,5x6 P=4"),
+    for (b, lq, hh, d, ss), dtypes, label in (
+        (MSDA_MAIN, (torch.float32, torch.bfloat16), MSDA_MAIN_LABEL),
+        ((8, 300, 8, 32, MSDA_SHAPES), (torch.float32,), "training batch B=8 Lq=300 Hh=8 D=32, uniform locations"),
+        ((2, 37, 3, 48, ((9, 11), (5, 6))), (torch.float32, torch.bfloat16), "odd B=2 Lq=37 Hh=3 D=48 levels 9x11,5x6 P=4"),
     ):
-        s = sum(h * w for h, w in ss)
-        v32 = (torch.rand(b, s, hh, d, generator=g) - 0.5).to(dev)
-        loc = (torch.rand(b, lq, hh, len(ss), 4, 2, generator=g) * 1.4 - 0.2).to(dev)
-        aw = torch.softmax(torch.randn(b, lq, hh, len(ss) * 4, generator=g), -1).reshape(b, lq, hh, len(ss), 4).to(dev)
-        grad32 = torch.randn(b, lq, hh * d, generator=g).to(dev)
-        for dtype in (torch.float32, torch.bfloat16):
-            v, grad = v32.to(dtype), grad32.to(dtype)
-            got = msda_backward(v, ss, loc, aw, grad)
-            torch.cuda.synchronize()
-            ref = ms_deform_attn_backward_reference(v.float(), ss, loc, aw, grad.float())
-            errs = [max_err(o, r, tol, f"msda_backward {label} {dtype} {name}")
-                    for o, r, tol, name in zip(got, ref, MSDA_BWD_TOL[dtype], ("d value", "d loc", "d aw"))]
-            ms = time_ms(lambda: msda_backward(v, ss, loc, aw, grad))
-            plain_ms = time_ms(lambda: ms_deform_attn_backward_reference(v, ss, loc, aw, grad))
-            log(f"[msda_backward] {label} {str(dtype)[6:]}: max_abs_err d value {errs[0]:.3e}, d loc {errs[1]:.3e},"
-                f" d aw {errs[2]:.3e} (tol {' / '.join(f'{t:.1e}' for t in MSDA_BWD_TOL[dtype])} x max|ref|)"
-                f" | kernel {ms:.4f} ms, plain (autograd) {plain_ms:.4f} ms")
+        v32, loc, aw, grad32 = msda_case(g, b, lq, hh, d, ss, dev)
+        for dtype in dtypes:
+            rec = check_msda_backward(label, v32.to(dtype), ss, loc, aw, grad32.to(dtype))
             if b == 16 and dtype == torch.float32:
-                record = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms}
+                record = rec
     return record
+
+
+def capture_msda_inputs(module, x: torch.Tensor, layer: int) -> tuple:
+    """(value, spatial shapes, loc, aw) that decoder layer ``layer`` hands the
+    MSDA forward in one inference forward of ``module`` on ``x``."""
+    import focoos_tpu_torch.models.fai_detr.modelling as modelling
+
+    calls, real = [], modelling.msda_forward
+
+    def spy(v, ss, loc, aw):
+        calls.append((v, [tuple(hw) for hw in ss], loc, aw))
+        return real(v, ss, loc, aw)
+
+    modelling.msda_forward = spy
+    try:
+        with torch.inference_mode():
+            module(x)
+    finally:
+        modelling.msda_forward = real
+    v, ss, loc, aw = calls[layer]
+    return v.clone(), ss, loc.clone(), aw.clone()  # clones outside inference mode: ordinary tensors
 
 
 def phase_stem(dev) -> dict:
@@ -204,7 +319,14 @@ def phase_stem(dev) -> dict:
             log(f"[stem] {label} {str(dtype)[6:]}: max_abs_err {err:.3e} (tol {STEM_TOL[dtype]:.1e} x max|ref|)"
                 f" | kernel {ms:.4f} ms, plain (cuDNN convs) {plain_ms:.4f} ms")
             if label == "640x640 B=16" and dtype == torch.float32:
-                record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                # three 3x3 convs (conv1 stride 2, then at its resolution) on the tensor cores
+                # (TF32 peak), the input read and the pooled output written once
+                h1, w1 = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+                ops = 2 * 9 * b * h1 * w1 * (3 * 32 + 32 * 32 + 32 * 64)
+                bd = bound((x.numel() + out.numel()) * x.element_size(), ops, "tf32")
+                log(f"[stem] {label} f32: bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}: {ops / 1e9:.1f} GFLOP at"
+                    f" the TF32 peak), kernel at {bd['bound_ms'] / ms:.1%} of it")
+                record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd}
     return record
 
 
@@ -315,6 +437,7 @@ def phase_slice(dev, smi: str) -> dict:
 
     # the requests: counters start at 0 just before and are read just after
     msda_forward.launches = 0
+    msda_forward.paths = {"vector": 0, "general": 0}
     fused_resnet_stem.launches = 0
     single = [model.infer(img, threshold=0.0) for img in images]
     multi = model(batch, threshold=0.0)
@@ -322,8 +445,10 @@ def phase_slice(dev, smi: str) -> dict:
     launches = {"msda_forward": msda_forward.launches, "fused_resnet_stem": fused_resnet_stem.launches}
     forwards = len(images) + 1
     log(f"[slice] served {len(images)} infer() requests and one batch of {len(batch)}: {forwards} forwards,"
-        f" launches msda_forward {launches['msda_forward']}, fused_resnet_stem {launches['fused_resnet_stem']}")
+        f" launches msda_forward {launches['msda_forward']} (paths {msda_forward.paths}),"
+        f" fused_resnet_stem {launches['fused_resnet_stem']}")
     assert launches["msda_forward"] == n_dec * forwards, "MSDA kernel did not run once per decoder layer"
+    assert msda_forward.paths["vector"] == launches["msda_forward"], "the main path left the MSDA vector path"
     assert launches["fused_resnet_stem"] == forwards, "stem kernel did not run once per forward"
     for r in single:
         check_detections([r], 1, "infer")
@@ -370,6 +495,13 @@ def phase_slice(dev, smi: str) -> dict:
         f" infer() 480x640 end to end p50 {np.median(e2e) * 1e3:.2f} ms")
     bench = model.benchmark(iterations=20)
     log(f"[slice] FocoosModel.benchmark(): {bench}")
+
+    # both MSDA kernels on what the model's last decoder layer samples in the b16 forward
+    v, ss, loc, aw = capture_msda_inputs(model.module, x16, n_dec - 1)
+    label = f"captured from decoder layer {n_dec - 1} of the b16 forward, B=16 Lq=300 Hh=8 D=32"
+    check_msda_forward(label, v, ss, loc, aw)
+    grad = torch.randn(v.shape[0], loc.shape[1], v.shape[2] * v.shape[3], generator=torch.Generator().manual_seed(9))
+    check_msda_backward(label, v, ss, loc, aw, grad.to(dev))
     return launches
 
 
@@ -398,8 +530,8 @@ def condition_for_training(module: torch.nn.Module) -> None:
 
 def train_dataset(n: int, size: int, seed: int) -> list:
     """n seeded size² uint8 images with 1-20 boxes each, 80 classes (in memory)."""
-    from focoos_tpu.ports import DatasetEntry
-    from focoos_tpu.structures import Boxes, Instances
+    from focoos_tpu_torch.ports import DatasetEntry
+    from focoos_tpu_torch.structures import Boxes, Instances
 
     rng = np.random.default_rng(seed)
     out = []
@@ -512,7 +644,7 @@ def phase_train(dev, smi: str) -> dict:
     import shutil
     import tempfile
 
-    from focoos_tpu.ports import TrainerArgs
+    from focoos_tpu_torch.ports import TrainerArgs
     from focoos_tpu_torch import ModelManager
     from focoos_tpu_torch.models.fai_detr.loss import compute_cost_matrix
     from focoos_tpu_torch.ops.matching import batched_auction_assign
@@ -549,13 +681,18 @@ def phase_train(dev, smi: str) -> dict:
         steps = 3
         msda_forward.launches = 0
         msda_backward.launches = 0
+        msda_forward.paths = {"vector": 0, "general": 0}
+        msda_backward.paths = {"vector": 0, "general": 0}
         res = model.train(args(steps), ds)
         torch.cuda.synchronize()
         launches = {"msda_forward": msda_forward.launches, "msda_backward": msda_backward.launches}
         log(f"[train] FocoosModel.train ran {res['iterations']} steps: launches msda_forward"
-            f" {launches['msda_forward']}, msda_backward {launches['msda_backward']} ({n_dec} decoder layers)")
+            f" {launches['msda_forward']} (paths {msda_forward.paths}), msda_backward {launches['msda_backward']}"
+            f" (paths {msda_backward.paths}) ({n_dec} decoder layers)")
         assert launches["msda_forward"] == n_dec * steps, "the MSDA forward kernel did not run once per decoder layer"
         assert launches["msda_backward"] == n_dec * steps, "the MSDA backward kernel did not run once per decoder layer"
+        assert msda_forward.paths["vector"] == n_dec * steps and msda_backward.paths["vector"] == n_dec * steps, \
+            "the training step left the MSDA vector paths"
         with open(os.path.join(res["run_dir"], "metrics.json")) as f:
             rows = [json.loads(line) for line in f]
         losses = {k: v for k, v in rows[-1].items() if "loss" in k}
@@ -589,8 +726,8 @@ def phase_train(dev, smi: str) -> dict:
         model.processor.train(False)
         model.module.eval()
         busy, by_name = device_busy(prof)
-        fwd = sum(v for k, v in by_name.items() if "msda_forward_kernel" in k)
-        bwd = sum(v for k, v in by_name.items() if "msda_backward_kernel" in k)
+        fwd = sum(v for k, v in by_name.items() if "msda_forward_" in k)
+        bwd = sum(v for k, v in by_name.items() if "msda_backward_" in k)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         log(f"[train] profiled step: wall {wall / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms, idle share"
             f" {1 - busy / wall:.3f}, {sum(1 for _ in by_name)} kernel names; MSDA forward kernel {fwd / 1e3:.3f} ms"
@@ -611,7 +748,7 @@ def phase_train(dev, smi: str) -> dict:
         model.module.eval()
         s_, b_, n_, q_ = cost.shape
         flat_cost, flat_valid = cost.reshape(s_ * b_, n_, q_), t.valid.expand(s_, -1, -1).reshape(s_ * b_, n_)
-        auction_ms = time_ms(lambda: batched_auction_assign(flat_cost, flat_valid), reps=5, warmup=1)
+        auction_ms = time_ms(lambda: batched_auction_assign(flat_cost, flat_valid), calls=2, reps=3)
         log(f"[train] auction: {s_ * b_} problems of {n_}x{q_} ({int(t.valid.sum())} valid targets), "
             f"{batched_auction_assign.rounds} rounds, {auction_ms:.3f} ms alone = {auction_ms / (step_s * 1e3):.2%}"
             f" of the step")
@@ -665,7 +802,11 @@ def phase_nms(dev) -> dict:
         log(f"[nms] {label}: keep masks equal ({kept} kept of {valid} valid)"
             f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         if k == 300:
-            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            # boxes and scores read, the keep mask written; ~15 operations an IoU over the K(K-1)/2 pairs
+            bd = bound(boxes.numel() * 4 + scores.numel() * 4 + keep.numel(), 15 * b * k * (k - 1) / 2)
+            log(f"[nms] {label}: bound {bd['bound_ms']:.6f} ms ({bd['bound_by']}), kernel at"
+                f" {bd['bound_ms'] / ms:.2%} of it")
+            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd}
     return record
 
 
@@ -693,13 +834,14 @@ def perturb_rtmo(module: torch.nn.Module, seed: int, size: int = 640) -> None:
         m.running_mean.copy_(torch.randn(c, generator=g) * 0.05)
         m.running_var.copy_(torch.rand(c, generator=g) + 0.5)
     convs = [m for m in bns if isinstance(m, torch.nn.BatchNorm2d)]
+    momenta = [m.momentum for m in convs]
     for m in convs:
         m.reset_running_stats()
-        m.momentum = None  # cumulative: one pass sets the batch statistics
+        m.momentum = 1.0  # one pass sets the batch statistics
         m.train()
     module.raw_outputs(torch.randint(0, 256, (2, size, size, 3), generator=g).to(dev))
-    for m in convs:
-        m.momentum = 0.1
+    for m, momentum in zip(convs, momenta):
+        m.momentum = momentum
         m.eval()
     head, dcc = module.head["head_module"], module.head["dcc"]
     for conv in head.out_cls:
@@ -908,16 +1050,22 @@ def main() -> int:
     nms = phase_nms(dev)
     launches.update(phase_rtmo(dev, smi))
 
+    # library_ms: no single PyTorch call computes any of these functions (MSDA needs a
+    # grid_sample per level and a weighted sum; the stem three convs, BN, ReLU and a
+    # pool; torchvision's NMS is absent on the card's machine and takes one image)
     kernels = [
         {"name": "msda_forward", "route": "cuda", "source": "focoos_tpu_torch/csrc/msda.cu",
          "replaces": "focoos_tpu/ops/pallas/msda.py:132", "launches": launches["msda_forward"], **msda},
         {"name": "msda_backward", "route": "cuda", "source": "focoos_tpu_torch/csrc/msda_bwd.cu",
          "replaces": "focoos_tpu/ops/pallas/msda.py:177", "launches": train_launches["msda_backward"], **msda_bwd},
         {"name": "fused_resnet_stem", "route": "cuda", "source": "focoos_tpu_torch/csrc/stem.cu",
-         "replaces": "focoos_tpu/ops/pallas/stem.py:224", "launches": launches["fused_resnet_stem"], **stem},
+         "replaces": "focoos_tpu/ops/pallas/stem.py:224", "launches": launches["fused_resnet_stem"], **stem,
+         "path": None},
         {"name": "nms_keep", "route": "cuda", "source": "focoos_tpu_torch/csrc/nms.cu",
-         "replaces": "focoos_tpu/ops/pallas/nms_kernel.py:59", "launches": launches["nms_keep"], **nms},
+         "replaces": "focoos_tpu/ops/pallas/nms_kernel.py:59", "launches": launches["nms_keep"], **nms, "path": None},
     ]
+    for k in kernels:
+        k["library_ms"] = None
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -6,8 +6,9 @@ Public surface (mirrors focoos_tpu/__init__.py)::
     model = ModelManager.get("fai-detr-l-coco")      # device="cuda" by default
     detections = model.infer(image_hwc_uint8)
 
-The package imports torch and never jax or flax; it reuses the pure-Python
-modules of focoos_tpu (ports, model_registry, structures, logger, vision).
+The package imports torch and never jax, flax or focoos_tpu: it keeps its
+own copies of the numpy-only modules it needs from focoos_tpu (ports,
+structures, model_registry, trainer events and hooks, logger, vision).
 """
 
 __version__ = "0.1.0"

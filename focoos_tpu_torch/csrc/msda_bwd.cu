@@ -5,42 +5,146 @@
 // of focoos_tpu/ops/deformable.py:323 ms_deform_attn_separable. Semantics are
 // those of the forward in msda.cu: zeros padding, align_corners=False
 // (pixel = loc * size - 0.5), an out-of-range corner contributes nothing to
-// any gradient, floor() has no gradient. From g = dL/dout [B, Lq, Hh*D]:
-//   d value[b, s_c, h, d]  += aw * w_c * g[d]          for each valid corner c
-//   d aw[b, q, h, l, p]     = sum_d g[d] * s[d]         s = sum_c w_c * V_c
-//   d loc_x                 = aw * W_l * sum_d g[d] * ds/dtx,  ds/dtx = (1-ty)(V01-V00) + ty(V11-V10)
-//   d loc_y                 = aw * H_l * sum_d g[d] * ds/dty,  ds/dty = (1-tx)(V10-V00) + tx(V11-V01)
-// (V_c = 0 for an invalid corner).
+// any gradient, floor() has no gradient. From g = dL/dout [B, Lq, Hh*D], with
+// dot_c = sum_d g[d] * V_c[d] for each corner c of a sample (V_c = 0 for an
+// invalid corner) and w_c its bilinear weight:
+//   d value[b, s_c, h, :] += aw * w_c * g            for each valid corner c
+//   d aw[b, q, h, l, p]    = sum_c w_c * dot_c
+//   d loc_x                = aw * W_l * sum_c dw_c/dtx * dot_c
+//   d loc_y                = aw * H_l * sum_c dw_c/dty * dot_c
+// All three are linear in the corners' dot products, so one reduction over D
+// per corner serves them all.
 //
-// What bounds it on this card: the scattered reads of the corners (as in the
-// forward) and the atomic adds into d value: at the main-path shape (B=16,
-// Lq=300, Hh=8, L=3, P=4, D=32) about 59M fp32 atomics per call into a 138 MB
-// d value, most of which misses the 50 MB L2.
+// What bounds it on this card: bytes. The corner rows are read as in the
+// forward, and d value (138 MB in fp32 at the main-path shape B=16, Lq=300,
+// Hh=8, L=3, P=4, D=32) is written whole: the wrapper zero-fills it (a
+// memset) and the kernel adds into it with atomics. Larger than the 50 MB
+// L2, its lines can cross HBM three times (zeros written, read back by the
+// atomics, written again), where the bound counts one. Zeroing and
+// accumulating a few images at a time (a memset and a launch each) measured
+// slower at every chunk size tried (1, 2 and 4 images).
 //
-// Design: the forward's layout, one warp per (b, q, h), lanes over D. Nothing
-// is saved from the forward but value, loc and aw: the corner weights are
-// recomputed here, so no [B, Lq, Hh, L, P, D] intermediate exists (the port's
-// counterpart of the JAX remat default, ops/deformable.py:346-377). Per
-// sample, each lane reads its channel of the four corners once, adds
-// aw * w_c * g[d] into d value with an atomic (fp32; the wrapper casts for a
-// bf16 value), and keeps per-lane partial sums of g*s, g*ds/dtx and g*ds/dty,
-// which three warp shuffle reductions turn into d aw and d loc. D > 32 loops
-// over chunks of 32 channels before the reduction. Atomics sum in a
-// run-dependent order, so d value is not bit-reproducible between runs.
-#include <stdint.h>
-
+// Design: the forward's layout (csrc/msda.cu), one warp per (b, q, h).
+// Vector path (D = 4, 8, 16 or 32; value, grad 16-byte aligned): R = D / 4
+// lanes per row, four channels a lane, so d value takes one 16-byte vector
+// atomic (atomicAdd on float4, sm_90) per lane per corner: a quarter of the
+// scalar atomics. Value rows are read with 16-byte (fp32) or 8-byte (bf16)
+// loads, all of a round's eight samples issued before their arithmetic. Each
+// lane's partial dot products of a round are summed over the R lanes of a row
+// by a reduce-scatter (R - 1 shuffles for R rows), one shuffle hands each
+// corner's dot to the lane that computed that corner, and two shuffle steps
+// over the four corners give the sample's d aw and d loc. General path (any
+// D, any alignment): lanes over D, scalar loads and atomics, four warp sums
+// a sample. Nothing is saved from the forward but value, loc and aw: the
+// corner weights are recomputed here, so no [B, Lq, Hh, L, P, D]
+// intermediate exists (the port's counterpart of the JAX remat default,
+// ops/deformable.py:346-377). Atomics add in a run-dependent order, so
+// d value is not bit-reproducible between runs.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kMaxLevels = 8;
 constexpr int kThreads = 256;
+using focoos::Corner;
+using focoos::LevelTable;
 
-struct LevelTable {
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  int start[kMaxLevels];
-};
+// Corner entry e (= lane) with dc = its dot product: sum the three gradients
+// over the sample's four corner lanes and write them from corner 0's lane.
+__device__ __forceinline__ void write_sample_grads(const Corner& e, float dc, int lane, int base, int n,
+                                                   int warp, const LevelTable& lv, float* __restrict__ d_loc,
+                                                   float* __restrict__ d_aw) {
+  const int c = lane & 3;
+  float s_aw = 0.f, s_tx = 0.f, s_ty = 0.f;
+  if (e.ok) {
+    const float wx = (c & 1) ? e.tx : 1.f - e.tx, wy = (c >> 1) ? e.ty : 1.f - e.ty;
+    s_aw = e.wgeom * dc;
+    s_tx = ((c & 1) ? wy : -wy) * dc;
+    s_ty = ((c >> 1) ? wx : -wx) * dc;
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    s_aw += __shfl_xor_sync(0xffffffffu, s_aw, o);
+    s_tx += __shfl_xor_sync(0xffffffffu, s_tx, o);
+    s_ty += __shfl_xor_sync(0xffffffffu, s_ty, o);
+  }
+  const int i = base + (lane >> 2);
+  if (c == 0 && i < n) {
+    const size_t k = (size_t)warp * n + i;
+    if (d_aw != nullptr) d_aw[k] = s_aw;
+    if (d_loc != nullptr) {
+      d_loc[2 * k] = e.a * (float)lv.w[e.l] * s_tx;
+      d_loc[2 * k + 1] = e.a * (float)lv.h[e.l] * s_ty;
+    }
+  }
+}
+
+template <typename T, int R>  // R lanes per value row, four channels each
+__global__ void __launch_bounds__(kThreads) msda_backward_vector(
+    const T* __restrict__ value,     // [B, S, Hh, D], 16-byte aligned
+    const float* __restrict__ loc,   // [B, Lq, Hh, L, P, 2] (x, y) in [0, 1]
+    const float* __restrict__ aw,    // [B, Lq, Hh, L, P]
+    const float* __restrict__ grad,  // [B, Lq, Hh * D], 16-byte aligned
+    float* __restrict__ d_value,     // [B, S, Hh, D], zeroed by the wrapper; null: not wanted
+    float* __restrict__ d_loc,       // [B, Lq, Hh, L, P, 2]; null: not wanted
+    float* __restrict__ d_aw,        // [B, Lq, Hh, L, P]; null: not wanted
+    LevelTable lv_param, int n_warps, int S, int Lq, int Hh, int L, int P) {
+  constexpr int D = 4 * R;
+  constexpr int G = 32 / R;    // value rows per load instruction
+  const LevelTable& lv = focoos::shared_level_table(lv_param);
+  const int warp = (blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= n_warps) return;  // whole warps leave: the shuffles below see 32 lanes
+  // warp = (b * Lq + q) * Hh + h: the loc/aw/grad rows of this warp are contiguous
+  const int h = warp % Hh;
+  const int b = warp / (Hh * Lq);
+  const int n = L * P;
+  const float* loc_w = loc + (size_t)warp * n * 2;
+  const float* aw_w = aw + (size_t)warp * n;
+  const int r = lane % R;
+  const int row = Hh * D;  // elements between two spatial positions
+  const size_t slice = ((size_t)b * S * Hh + h) * D + r * 4;
+  const T* vb = value + slice;
+  float* dvb = d_value == nullptr ? nullptr : d_value + slice;
+  const float4 g = __ldg(reinterpret_cast<const float4*>(grad + (size_t)warp * D + r * 4));
+  // after the reduce-scatter, lane (e % G) * R + e / G holds the dot of corner entry e
+  const int gather = (lane % G) * R + lane / G;
+
+  for (int base = 0; base < n; base += 8) {
+    const Corner e = focoos::corner(lane, base, n, P, lv, loc_w, aw_w, row);
+    const float w_e = e.ok ? e.a * e.wgeom : 0.f;
+    decltype(focoos::ldg4(vb)) v[R];
+    int off[R];
+    float w[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {  // all loads first
+      const int src = k * G + lane / R;  // the lane that holds this row's corner
+      off[k] = __shfl_sync(0xffffffffu, e.off, src);
+      w[k] = __shfl_sync(0xffffffffu, w_e, src);
+      v[k] = focoos::ldg4(vb + off[k]);
+    }
+    float dot[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      float4 f;
+      focoos::unpack(v[k], f);
+      dot[k] = g.x * f.x + g.y * f.y + g.z * f.z + g.w * f.w;
+      if (dvb != nullptr && w[k] != 0.f)
+        atomicAdd(reinterpret_cast<float4*>(dvb + off[k]), make_float4(w[k] * g.x, w[k] * g.y, w[k] * g.z, w[k] * g.w));
+    }
+    // reduce-scatter over the R lanes of a row: lane r ends with the whole dot of instruction r
+#pragma unroll
+    for (int half = R / 2; half >= 1; half >>= 1) {
+      const bool upper = (r & half) != 0;
+#pragma unroll
+      for (int j = 0; j < half; ++j) {
+        const float send = upper ? dot[j] : dot[j + half];
+        const float keep = upper ? dot[j + half] : dot[j];
+        dot[j] = keep + __shfl_xor_sync(0xffffffffu, send, half);
+      }
+    }
+    write_sample_grads(e, __shfl_sync(0xffffffffu, dot[0], gather), lane, base, n, warp, lv, d_loc, d_aw);
+  }
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -49,128 +153,101 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) msda_backward_kernel(
-    const T* __restrict__ value,     // [B, S, Hh, D]
-    const float* __restrict__ loc,   // [B, Lq, Hh, L, P, 2] (x, y) in [0, 1]
-    const float* __restrict__ aw,    // [B, Lq, Hh, L, P]
-    const float* __restrict__ grad,  // [B, Lq, Hh * D]
-    float* __restrict__ d_value,     // [B, S, Hh, D], zeroed by the wrapper; null: not wanted
-    float* __restrict__ d_loc,       // [B, Lq, Hh, L, P, 2]; null: not wanted
-    float* __restrict__ d_aw,        // [B, Lq, Hh, L, P]; null: not wanted
-    LevelTable lv, int n_warps, int S, int Lq, int Hh, int D, int L, int P) {
-  // kThreads is a multiple of 32: every lane of a warp has the same warp
-  // index, so a warp leaves here whole and the shuffles below see 32 lanes
+__global__ void __launch_bounds__(kThreads) msda_backward_general(
+    const T* __restrict__ value, const float* __restrict__ loc, const float* __restrict__ aw,
+    const float* __restrict__ grad, float* __restrict__ d_value, float* __restrict__ d_loc,
+    float* __restrict__ d_aw, LevelTable lv_param, int n_warps, int S, int Lq, int Hh, int D, int L, int P) {
+  const LevelTable& lv = focoos::shared_level_table(lv_param);
   const int warp = (blockIdx.x * kThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (warp >= n_warps) return;
-  // warp = (b * Lq + q) * Hh + h: the loc/aw/grad rows of this warp are contiguous
   const int h = warp % Hh;
   const int b = warp / (Hh * Lq);
-  const float* loc_w = loc + (size_t)warp * L * P * 2;
-  const float* aw_w = aw + (size_t)warp * L * P;
+  const int n = L * P;
+  const float* loc_w = loc + (size_t)warp * n * 2;
+  const float* aw_w = aw + (size_t)warp * n;
   const float* g_w = grad + (size_t)warp * D;
-  const long long row = (long long)Hh * D;  // elements between two spatial positions
-  const size_t base = (size_t)b * S * row + (size_t)h * D;
-  const T* vb = value + base;
-  float* dvb = d_value == nullptr ? nullptr : d_value + base;
+  const int row = Hh * D;
+  const size_t slice = ((size_t)b * S * Hh + h) * D;
+  const T* vb = value + slice;
+  float* dvb = d_value == nullptr ? nullptr : d_value + slice;
 
-  for (int l = 0; l < L; ++l) {
-    const int hl = lv.h[l], wl = lv.w[l];
-    const long long lstart = (long long)lv.start[l] * row;
-    for (int p = 0; p < P; ++p) {
-      const int i = l * P + p;
-      const float a = __ldg(aw_w + i);
-      const float x = __ldg(loc_w + 2 * i) * wl - 0.5f;
-      const float y = __ldg(loc_w + 2 * i + 1) * hl - 0.5f;
-      const float xf = floorf(x), yf = floorf(y);
-      const float tx = x - xf, ty = y - yf;
-      // validity in float: a far out-of-range location never becomes an int
-      const bool x0ok = xf >= 0.f && xf <= (float)(wl - 1);
-      const bool x1ok = xf + 1.f >= 0.f && xf + 1.f <= (float)(wl - 1);
-      const bool y0ok = yf >= 0.f && yf <= (float)(hl - 1);
-      const bool y1ok = yf + 1.f >= 0.f && yf + 1.f <= (float)(hl - 1);
-      const bool ok00 = y0ok && x0ok, ok01 = y0ok && x1ok, ok10 = y1ok && x0ok, ok11 = y1ok && x1ok;
-      float gs = 0.f, gtx = 0.f, gty = 0.f;  // this lane's share of the sums over d
-      if (ok00 || ok01 || ok10 || ok11) {    // the same for every lane of the warp
-        const long long x0 = (long long)xf, y0 = (long long)yf;
-        // element offsets of the corners; used only where the corner is valid
-        const long long o00 = lstart + (y0 * wl + x0) * row;
-        const long long o01 = o00 + row;
-        const long long o10 = o00 + (long long)wl * row;
-        const long long o11 = o10 + row;
-        const float w00 = (1.f - tx) * (1.f - ty), w01 = tx * (1.f - ty);
-        const float w10 = (1.f - tx) * ty, w11 = tx * ty;
-        for (int d = lane; d - lane < D; d += 32) {
-          if (d < D) {
-            const float gd = __ldg(g_w + d);
-            const float v00 = ok00 ? focoos::load_f32(vb + o00 + d) : 0.f;
-            const float v01 = ok01 ? focoos::load_f32(vb + o01 + d) : 0.f;
-            const float v10 = ok10 ? focoos::load_f32(vb + o10 + d) : 0.f;
-            const float v11 = ok11 ? focoos::load_f32(vb + o11 + d) : 0.f;
-            gs += gd * (w00 * v00 + w01 * v01 + w10 * v10 + w11 * v11);
-            gtx += gd * ((1.f - ty) * (v01 - v00) + ty * (v11 - v10));
-            gty += gd * ((1.f - tx) * (v10 - v00) + tx * (v11 - v01));
-            if (dvb != nullptr) {
-              const float ag = a * gd;
-              if (ok00) atomicAdd(dvb + o00 + d, ag * w00);
-              if (ok01) atomicAdd(dvb + o01 + d, ag * w01);
-              if (ok10) atomicAdd(dvb + o10 + d, ag * w10);
-              if (ok11) atomicAdd(dvb + o11 + d, ag * w11);
-            }
-          }
+  for (int base = 0; base < n; base += 8) {
+    const Corner e = focoos::corner(lane, base, n, P, lv, loc_w, aw_w, row);
+    const float w_e = e.ok ? e.a * e.wgeom : 0.f;
+    float mine = 0.f;  // the dot of this lane's corner entry
+    for (int s = 0; s < 8 && base + s < n; ++s) {
+      int off[4];
+      float w[4], dot[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        off[c] = __shfl_sync(0xffffffffu, e.off, 4 * s + c);
+        w[c] = __shfl_sync(0xffffffffu, w_e, 4 * s + c);
+      }
+      for (int d = lane; d < D; d += 32) {
+        const float gd = __ldg(g_w + d);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          dot[c] = fmaf(gd, focoos::load_f32(vb + off[c] + d), dot[c]);
+          if (dvb != nullptr && w[c] != 0.f) atomicAdd(dvb + off[c] + d, w[c] * gd);
         }
       }
-      gs = warp_sum(gs);
-      gtx = warp_sum(gtx);
-      gty = warp_sum(gty);
-      if (lane == 0) {
-        const size_t k = (size_t)warp * L * P + i;
-        if (d_aw != nullptr) d_aw[k] = gs;
-        if (d_loc != nullptr) {
-          d_loc[2 * k] = a * (float)wl * gtx;
-          d_loc[2 * k + 1] = a * (float)hl * gty;
-        }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float t = warp_sum(dot[c]);
+        if (lane == 4 * s + c) mine = t;
       }
     }
+    write_sample_grads(e, mine, lane, base, n, warp, lv, d_loc, d_aw);
   }
+}
+
+template <typename T>
+int launch(bool vector, const void* value, const void* loc, const void* aw, const void* grad,
+           float* dv, float* dl, float* da, const LevelTable& lv, int n_warps, int S, int Lq, int Hh,
+           int D, int L, int P, cudaStream_t st) {
+  const unsigned blocks = (unsigned)(((long long)n_warps * 32 + kThreads - 1) / kThreads);
+  const T* v = static_cast<const T*>(value);
+  const float* l = static_cast<const float*>(loc);
+  const float* a = static_cast<const float*>(aw);
+  const float* g = static_cast<const float*>(grad);
+  if (!vector) {
+    msda_backward_general<T><<<blocks, kThreads, 0, st>>>(v, l, a, g, dv, dl, da, lv, n_warps, S, Lq, Hh, D, L, P);
+    return (int)cudaGetLastError();
+  }
+  if ((reinterpret_cast<uintptr_t>(value) | reinterpret_cast<uintptr_t>(grad) | reinterpret_cast<uintptr_t>(dv)) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  switch (D % 4 == 0 ? D / 4 : 0) {
+    case 1: msda_backward_vector<T, 1><<<blocks, kThreads, 0, st>>>(v, l, a, g, dv, dl, da, lv, n_warps, S, Lq, Hh, L, P); break;
+    case 2: msda_backward_vector<T, 2><<<blocks, kThreads, 0, st>>>(v, l, a, g, dv, dl, da, lv, n_warps, S, Lq, Hh, L, P); break;
+    case 4: msda_backward_vector<T, 4><<<blocks, kThreads, 0, st>>>(v, l, a, g, dv, dl, da, lv, n_warps, S, Lq, Hh, L, P); break;
+    case 8: msda_backward_vector<T, 8><<<blocks, kThreads, 0, st>>>(v, l, a, g, dv, dl, da, lv, n_warps, S, Lq, Hh, L, P); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// vector: 1 for the vector path (D in {4, 8, 16, 32}; value, grad and d value 16-byte aligned), 0 for the general path
 extern "C" int msda_backward(const void* value, const void* loc, const void* aw, const void* grad,
                              void* d_value, void* d_loc, void* d_aw, const int* level_hw,
                              int n_levels, int B, int S, int Lq, int Hh, int D, int P, int dtype,
-                             void* stream) {
-  if (n_levels < 1 || n_levels > kMaxLevels) return (int)cudaErrorInvalidValue;
+                             int vector, void* stream) {
   LevelTable lv;
-  int start = 0;
-  for (int l = 0; l < n_levels; ++l) {
-    lv.h[l] = level_hw[2 * l];
-    lv.w[l] = level_hw[2 * l + 1];
-    lv.start[l] = start;
-    start += lv.h[l] * lv.w[l];
-  }
-  if (start != S) return (int)cudaErrorInvalidValue;
+  const int err = focoos::make_level_table(level_hw, n_levels, S, Hh, D, &lv);
+  if (err != 0) return err;
   const long long n_warps = (long long)B * Lq * Hh;
   if (n_warps == 0) return (int)cudaSuccess;
-  const long long blocks = (n_warps * 32 + kThreads - 1) / kThreads;
+  if (n_warps > (1LL << 26) || P < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* dv = static_cast<float*>(d_value);
   float* dl = static_cast<float*>(d_loc);
   float* da = static_cast<float*>(d_aw);
-  const float* l = static_cast<const float*>(loc);
-  const float* a = static_cast<const float*>(aw);
-  const float* g = static_cast<const float*>(grad);
-  if (dtype == focoos::kFloat32) {
-    msda_backward_kernel<float><<<(unsigned)blocks, kThreads, 0, st>>>(
-        static_cast<const float*>(value), l, a, g, dv, dl, da, lv, (int)n_warps, S, Lq, Hh, D,
-        n_levels, P);
-  } else if (dtype == focoos::kBFloat16) {
-    msda_backward_kernel<__nv_bfloat16><<<(unsigned)blocks, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(value), l, a, g, dv, dl, da, lv, (int)n_warps, S, Lq,
-        Hh, D, n_levels, P);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == focoos::kFloat32)
+    return launch<float>(vector != 0, value, loc, aw, grad, dv, dl, da, lv, (int)n_warps, S, Lq, Hh, D, n_levels, P, st);
+  if (dtype == focoos::kBFloat16)
+    return launch<__nv_bfloat16>(vector != 0, value, loc, aw, grad, dv, dl, da, lv, (int)n_warps, S, Lq, Hh, D,
+                                 n_levels, P, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -16,7 +16,7 @@ from typing import Iterator, List, Tuple
 import numpy as np
 import torch
 
-from focoos_tpu.ports import DatasetEntry
+from focoos_tpu_torch.ports import DatasetEntry
 
 
 class TrainingSampler:

@@ -2,7 +2,7 @@
 focoos/model_manager.py).
 
 ``ModelManager.get("fai-detr-l-coco")`` resolves a model card from the bundled
-registry (``focoos_tpu.model_registry``, imported, not copied) or a local run
+registry (``focoos_tpu_torch.model_registry``, the port's copy of the cards) or a local run
 dir, builds the family's ``nn.Module``, initializes it from a seeded
 ``torch.Generator`` or loads the JAX package's ``model_final.npz``, and wraps
 it in a ``FocoosModel`` on the requested device.
@@ -18,9 +18,9 @@ from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
-from focoos_tpu.model_registry.model_registry import ModelRegistry
-from focoos_tpu.ports import ArtifactName, ModelConfig, ModelFamily, ModelInfo
-from focoos_tpu.utils.logger import get_logger
+from focoos_tpu_torch.model_registry.model_registry import ModelRegistry
+from focoos_tpu_torch.ports import ArtifactName, ModelConfig, ModelFamily, ModelInfo
+from focoos_tpu_torch.utils.logger import get_logger
 from focoos_tpu_torch.nn.backbone.base import BackboneConfig
 
 logger = get_logger(__name__)

@@ -1,6 +1,6 @@
 """fai_detr family registration (port of focoos_tpu/models/fai_detr/__init__.py)."""
 
-from focoos_tpu.ports import ModelFamily
+from focoos_tpu_torch.ports import ModelFamily
 
 
 def _register():

@@ -6,7 +6,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import List, Optional
 
-from focoos_tpu.ports import ModelConfig
+from focoos_tpu_torch.ports import ModelConfig
 from focoos_tpu_torch.nn.backbone.base import BackboneConfig
 
 

@@ -8,7 +8,7 @@ from typing import Optional
 
 import torch
 
-from focoos_tpu.ports import ModelOutput
+from focoos_tpu_torch.ports import ModelOutput
 
 
 @dataclass

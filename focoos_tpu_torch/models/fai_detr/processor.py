@@ -12,8 +12,8 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from focoos_tpu.ports import DatasetEntry, FocoosDet, FocoosDetections
-from focoos_tpu.structures import Boxes, ImageList, Instances
+from focoos_tpu_torch.ports import DatasetEntry, FocoosDet, FocoosDetections
+from focoos_tpu_torch.structures import Boxes, ImageList, Instances
 from focoos_tpu_torch.models.fai_detr.config import DETRConfig
 from focoos_tpu_torch.models.fai_detr.ports import DETRModelOutput, DETRTargets
 from focoos_tpu_torch.processor.base_processor import Processor

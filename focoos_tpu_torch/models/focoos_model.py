@@ -16,7 +16,7 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from focoos_tpu.ports import (
+from focoos_tpu_torch.ports import (
     ArtifactName,
     FocoosDetections,
     InferLatency,
@@ -25,7 +25,7 @@ from focoos_tpu.ports import (
     ModelInfo,
     Task,
 )
-from focoos_tpu.utils.logger import get_logger
+from focoos_tpu_torch.utils.logger import get_logger
 from focoos_tpu_torch.processor.processor_manager import ProcessorManager
 from focoos_tpu_torch.utils.weights import from_jax_variables
 
@@ -119,20 +119,20 @@ class FocoosModel:
     def infer(self, image, threshold: Optional[float] = None, annotate: bool = False, **kw) -> FocoosDetections:
         """Single-image inference (reference: focoos_model.py:370-416). An
         ndarray needs neither PIL nor cv2; paths, bytes and PIL images, and
-        ``annotate``, go through ``focoos_tpu.utils.vision``."""
+        ``annotate``, go through ``focoos_tpu_torch.utils.vision``."""
         t0 = time.perf_counter()
         if isinstance(image, np.ndarray):
             arr = np.stack([image] * 3, -1) if image.ndim == 2 else image[..., :3]
             arr = arr.astype(np.uint8, copy=False)
         else:
-            from focoos_tpu.utils.vision import image_loader
+            from focoos_tpu_torch.utils.vision import image_loader
 
             arr = image_loader(image)
         t1 = time.perf_counter()
         res = self([arr], threshold=threshold, **kw)[0]
         res.latency.imload = t1 - t0
         if annotate:
-            from focoos_tpu.utils.vision import annotate_image
+            from focoos_tpu_torch.utils.vision import annotate_image
 
             t2 = time.perf_counter()
             res.image = annotate_image(arr, res, task=self.task, classes=self.classes)

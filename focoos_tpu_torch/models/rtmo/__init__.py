@@ -1,6 +1,6 @@
 """rtmo family registration (port of focoos_tpu/models/rtmo/__init__.py)."""
 
-from focoos_tpu.ports import ModelFamily
+from focoos_tpu_torch.ports import ModelFamily
 
 
 def _register():

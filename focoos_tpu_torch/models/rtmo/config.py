@@ -11,7 +11,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import List, Tuple
 
-from focoos_tpu.ports import ModelConfig
+from focoos_tpu_torch.ports import ModelConfig
 from focoos_tpu_torch.nn.backbone.base import BackboneConfig
 
 

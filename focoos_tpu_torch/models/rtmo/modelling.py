@@ -32,7 +32,7 @@ from focoos_tpu_torch.models.rtmo.config import RTMOConfig
 from focoos_tpu_torch.models.rtmo.ports import RTMOAuxOutputs, RTMOModelOutput
 from focoos_tpu_torch.nn.backbone.base import BaseBackbone
 from focoos_tpu_torch.nn.backbone.csp_darknet import ConvModule
-from focoos_tpu_torch.nn.layers.common import MultiHeadAttention, init_like_flax_
+from focoos_tpu_torch.nn.layers.common import BatchNorm, MultiHeadAttention, init_like_flax_
 from focoos_tpu_torch.ops.nms import topk_nms
 
 # ---------------------------------------------------------------------------
@@ -83,7 +83,7 @@ class ProjectionConv(nn.Module):
     def __init__(self, ch_in: int, ch_out: int, kernel_size: int = 1, stride: int = 1, padding: int = 0):
         super().__init__()
         self.conv = nn.Conv2d(ch_in, ch_out, kernel_size, stride, padding, bias=False)
-        self.bn = nn.BatchNorm2d(ch_out, eps=1e-5)
+        self.bn = BatchNorm(ch_out, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.bn(self.conv(x))

@@ -12,7 +12,7 @@ from typing import List, Optional, Tuple, Union
 
 import numpy as np
 
-from focoos_tpu.ports import FocoosDet, FocoosDetections
+from focoos_tpu_torch.ports import FocoosDet, FocoosDetections
 from focoos_tpu_torch.models.rtmo.config import RTMOConfig
 from focoos_tpu_torch.models.rtmo.ports import RTMOModelOutput
 from focoos_tpu_torch.processor.base_processor import Processor

@@ -3,7 +3,9 @@
 Port of ``focoos_tpu/nn/backbone/csp_darknet.py`` (reference:
 focoos/nn/backbone/csp_darknet.py, from MMPose): Focus stem (space-to-depth,
 then a 3x3 conv), four stages of stride-2 conv + (SPP on the last) + CSP
-layers of Darknet bottlenecks. BatchNorm uses the YOLO convention, eps 1e-3.
+layers of Darknet bottlenecks. BatchNorm uses the YOLO convention, eps 1e-3
+and momentum 0.03 (flax's 0.97), with flax's train-mode statistics
+(``nn/layers/common.py::BatchNorm``).
 Parameter names are the reference's (``stem.conv.conv``, ``stage{i}.{j}``,
 ``blocks.{k}.conv1``), which ``torch_convert.csp_darknet_rules`` maps.
 
@@ -23,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from focoos_tpu_torch.nn.backbone.base import BackboneConfig, BaseBackbone, ShapeSpec
+from focoos_tpu_torch.nn.layers.common import BatchNorm
 
 # per stage: in, out, bottlenecks, add_identity, use_spp
 ARCH_SETTINGS = {
@@ -39,13 +42,13 @@ class CSPConfig(BackboneConfig):
 
 
 class ConvModule(nn.Module):
-    """conv (no bias) + BN(eps 1e-3) + SiLU (reference: csp_darknet.py:17-58)."""
+    """conv (no bias) + BN(eps 1e-3, momentum 0.03) + SiLU (reference: csp_darknet.py:17-58)."""
 
     def __init__(self, ch_in: int, ch_out: int, kernel_size: int = 1, stride: int = 1, padding: int = 0,
                  groups: int = 1):
         super().__init__()
         self.conv = nn.Conv2d(ch_in, ch_out, kernel_size, stride, padding, groups=groups, bias=False)
-        self.bn = nn.BatchNorm2d(ch_out, eps=1e-3, momentum=0.03)
+        self.bn = BatchNorm(ch_out, eps=1e-3, momentum=0.03)  # flax momentum 0.97
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.silu(self.bn(self.conv(x)))

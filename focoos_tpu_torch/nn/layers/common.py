@@ -39,16 +39,18 @@ def get_activation(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm over NCHW, eps 1e-5, with flax's train-mode semantics
-    (focoos_tpu/nn/layers/common.py:120-143, flax momentum 0.9): normalize
-    with the biased batch variance and move the running statistics 0.1 of
-    the way to the batch mean and the *biased* variance. ``frozen=True`` is
-    the reference's FrozenBatchNorm2d (focoos/nn/layers/norm.py:6): running
+    """BatchNorm over NCHW with flax's train-mode semantics
+    (focoos_tpu/nn/layers/common.py:120-143): normalize with the biased batch
+    variance and move the running statistics ``momentum`` of the way to the
+    batch mean and the *biased* variance (torch's ``momentum`` is 1 - flax's:
+    the default 0.1 is flax's 0.9, the JAX package's default; YOLO-style
+    layers take eps 1e-3 and 0.03, flax's 0.97). ``frozen=True`` is the
+    reference's FrozenBatchNorm2d (focoos/nn/layers/norm.py:6): running
     statistics always, even in train mode. The state_dict keys are
     BatchNorm2d's either way."""
 
-    def __init__(self, num_features: int, frozen: bool = False):
-        super().__init__(num_features, eps=1e-5, momentum=0.1)
+    def __init__(self, num_features: int, frozen: bool = False, eps: float = 1e-5, momentum: float = 0.1):
+        super().__init__(num_features, eps=eps, momentum=momentum)
         self.frozen = frozen
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

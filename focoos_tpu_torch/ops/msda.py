@@ -5,7 +5,10 @@ Port of ``focoos_tpu/ops/pallas/msda.py``: ``msda_pallas`` and the custom VJP
 of ``ms_deform_attn_fused``. For tensors on the CPU the wrappers run the plain
 versions (``ops/deformable.py``); for CUDA tensors they launch the kernels or
 raise. There is no fallback. ``msda_forward`` on a CUDA tensor that needs a
-gradient goes through ``_MSDAFunction``, which pairs the two kernels.
+gradient goes through ``_MSDAFunction``, which pairs the two kernels. Each
+kernel has a vector path (16-byte loads, and 16-byte atomics backward) and a
+general one for any D and alignment; ``vector_path`` picks, and each
+wrapper counts its launches by path in ``.paths``.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from torch.autograd.function import once_differentiable
 from focoos_tpu_torch.ops import cuda_build
 from focoos_tpu_torch.ops.deformable import ms_deform_attn, ms_deform_attn_backward_reference
 
-_MAX_LEVELS = 8  # kMaxLevels in csrc/msda.cu and csrc/msda_bwd.cu
+_MAX_LEVELS = 8  # kMaxLevels in csrc/common.cuh
 _fns = {}
 
 
@@ -28,12 +31,13 @@ def _kernel(name: str):
     if name not in _fns:
         if name == "msda_forward":
             fn = cuda_build.load_library("msda").msda_forward
-            # value, loc, aw, out | level (h, w) pairs | n_levels, B, S, Lq, Hh, D, P, dtype | stream
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            # value, loc, aw, out | level (h, w) pairs | n_levels, B, S, Lq, Hh, D, P, dtype, vector | stream
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         else:
             fn = cuda_build.load_library("msda_bwd").msda_backward
-            # value, loc, aw, grad, d_value, d_loc, d_aw | level (h, w) pairs | n_levels, B, S, Lq, Hh, D, P, dtype | stream
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            # value, loc, aw, grad, d_value, d_loc, d_aw | level (h, w) pairs | n_levels, B, S, Lq, Hh, D, P, dtype,
+            # vector | stream
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
@@ -71,20 +75,32 @@ def _dtype_code(t: torch.Tensor) -> int:
     return cuda_build.DTYPE_CODES[str(t.dtype).removeprefix("torch.")]
 
 
+def vector_path(kernel: str, value: torch.Tensor, *aligned: torch.Tensor) -> bool:
+    """Whether ``kernel`` ("forward" or "backward") takes its vector path for
+    this value: a row of D values is 16, 32, 64 or 128 bytes (forward; 16-byte
+    loads) or D is 4, 8, 16 or 32 (backward; four channels a lane), and value
+    and the other tensors it reads with vector loads are 16-byte aligned."""
+    d = value.shape[-1]
+    fits = d * value.element_size() in (16, 32, 64, 128) if kernel == "forward" else d in (4, 8, 16, 32)
+    return fits and all(t.data_ptr() % 16 == 0 for t in (value, *aligned))
+
+
 def _launch_forward(value, spatial_shapes, loc, aw) -> torch.Tensor:
     _check(value, spatial_shapes, loc, aw)
     b, s, hh, d = value.shape
     lq, p = loc.shape[1], loc.shape[4]
     out = torch.empty((b, lq, hh * d), dtype=value.dtype, device=value.device)
+    vector = vector_path("forward", value)
     fn = _kernel("msda_forward")
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             value.data_ptr(), loc.data_ptr(), aw.data_ptr(), out.data_ptr(),
-            _level_hw(spatial_shapes), len(spatial_shapes), b, s, lq, hh, d, p, _dtype_code(value), stream,
+            _level_hw(spatial_shapes), len(spatial_shapes), b, s, lq, hh, d, p, _dtype_code(value), int(vector), stream,
         )
     cuda_build.check(err, "msda_forward")
     msda_forward.launches += 1
+    msda_forward.paths["vector" if vector else "general"] += 1
     return out
 
 
@@ -112,16 +128,19 @@ def msda_backward(
     d_value = torch.zeros((b, s, hh, d), dtype=torch.float32, device=value.device) if needs[0] else None
     d_loc = torch.empty_like(sampling_locations) if needs[1] else None
     d_aw = torch.empty_like(attention_weights) if needs[2] else None
+    vector = vector_path("backward", value, g)
     fn = _kernel("msda_backward")
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             value.data_ptr(), sampling_locations.data_ptr(), attention_weights.data_ptr(), g.data_ptr(),
             *(0 if t is None else t.data_ptr() for t in (d_value, d_loc, d_aw)),
-            _level_hw(spatial_shapes), len(spatial_shapes), b, s, lq, hh, d, p, _dtype_code(value), stream,
+            _level_hw(spatial_shapes), len(spatial_shapes), b, s, lq, hh, d, p, _dtype_code(value), int(vector),
+            stream,
         )
     cuda_build.check(err, "msda_backward")
     msda_backward.launches += 1
+    msda_backward.paths["vector" if vector else "general"] += 1
     if d_value is not None and value.dtype != torch.float32:
         d_value = d_value.to(value.dtype)
     return d_value, d_loc, d_aw
@@ -169,3 +188,6 @@ def msda_forward(
 
 msda_forward.launches = 0
 msda_backward.launches = 0
+# launches by path (``vector_path``); the sum is ``launches``
+msda_forward.paths = {"vector": 0, "general": 0}
+msda_backward.paths = {"vector": 0, "general": 0}

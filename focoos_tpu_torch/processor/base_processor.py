@@ -17,7 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from focoos_tpu.ports import DatasetEntry, FocoosDetections, ModelConfig
+from focoos_tpu_torch.ports import DatasetEntry, FocoosDetections, ModelConfig
 
 
 def _to_numpy_rgb(img) -> np.ndarray:

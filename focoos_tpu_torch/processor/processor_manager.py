@@ -5,7 +5,7 @@ from __future__ import annotations
 import importlib
 from typing import Callable, Dict, Optional, Tuple, Union
 
-from focoos_tpu.ports import ModelConfig, ModelFamily
+from focoos_tpu_torch.ports import ModelConfig, ModelFamily
 from focoos_tpu_torch.processor.base_processor import Processor
 
 

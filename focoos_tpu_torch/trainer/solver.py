@@ -22,7 +22,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from focoos_tpu.ports import TrainerArgs
+from focoos_tpu_torch.ports import TrainerArgs
 
 # module types whose parameters take ``weight_decay_norm`` (the reference's
 # isinstance test, solver/build.py:53-67)

@@ -2,7 +2,7 @@
 reference: focoos/trainer/trainer.py).
 
 The loop feeds batches to the eager train step (``train_step.py``), stamps
-its metrics into the JAX package's ``EventStorage`` (plain numpy) one step
+its metrics into ``trainer/events.py``'s ``EventStorage`` (plain numpy) one step
 late, so that the copy of step k's metrics waits on the card only after step
 k+1 has been queued, and stops on a non-finite loss. The trainer writes
 ``model_info.json`` at each status change and the final weights (the EMA's
@@ -22,10 +22,10 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
-from focoos_tpu.ports import ArtifactName, ModelStatus, TrainerArgs
-from focoos_tpu.trainer import hooks as hooks_mod
-from focoos_tpu.trainer.events import EventStorage
-from focoos_tpu.utils.logger import get_logger
+from focoos_tpu_torch.ports import ArtifactName, ModelStatus, TrainerArgs
+from focoos_tpu_torch.trainer import hooks as hooks_mod
+from focoos_tpu_torch.trainer.events import EventStorage
+from focoos_tpu_torch.utils.logger import get_logger
 from focoos_tpu_torch.data.loaders import build_train_loader
 from focoos_tpu_torch.trainer.solver import Solver, ema_decay_schedule
 from focoos_tpu_torch.trainer.train_step import TrainState, build_train_step, create_train_state, unpack_metrics
@@ -53,7 +53,7 @@ class TrainerLoop:
         self.device = device
         self.iter = 0
         self.gather_metric_period = gather_metric_period
-        self.steps_per_call = 1  # read by the shared hooks' period arithmetic
+        self.steps_per_call = 1  # read by the hooks' period arithmetic (trainer/hooks.py)
         self.hooks: List[hooks_mod.HookBase] = []
         self.storage: Optional[EventStorage] = None
         self._pending = None

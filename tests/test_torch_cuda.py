@@ -151,6 +151,104 @@ def test_msda_backward_kernel_matches_plain(cuda, dtype, b, lq, hh, d, ss):
     _assert_msda_grads(got, ms_deform_attn_backward_reference(v.float(), ss, loc, aw, grad.float()), dtype)
 
 
+def _check_msda_both(v, ss, loc, aw, grad, path):
+    """Forward and backward kernels against the plain versions; both took ``path``."""
+    f0, b0 = dict(msda_forward.paths), dict(msda_backward.paths)
+    out = msda_forward(v, ss, loc, aw)
+    got = msda_backward(v, ss, loc, aw, grad)
+    torch.cuda.synchronize()
+    assert msda_forward.paths[path] == f0[path] + 1 and msda_backward.paths[path] == b0[path] + 1
+    ref = ms_deform_attn(v.float(), ss, loc, aw)
+    assert out.dtype == v.dtype and out.shape == ref.shape
+    assert float((out.float() - ref).abs().max()) <= MSDA_TOL[v.dtype] * float(ref.abs().max())
+    _assert_msda_grads(got, ms_deform_attn_backward_reference(v.float(), ss, loc, aw, grad.float()), v.dtype)
+
+
+# the channel widths of both paths: forward vector for 16/32/64/128-byte
+# rows, backward vector for D = 4, 8, 16, 32; D=24 (bf16: 48-byte rows) and
+# D=48 take the general path
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [8, 16, 24, 32, 48])
+def test_msda_kernels_channel_widths(cuda, dtype, d):
+    ss = ((9, 11), (5, 6), (3, 2))
+    v, loc, aw, grad = _msda_inputs(cuda, 2, 37, 3, d, ss, dtype, seed=d)
+    _check_msda_both(v, ss, loc, aw, grad, "vector" if d * v.element_size() in (16, 32, 64, 128) else "general")
+
+
+# one head; one level; eight levels; one sample a level (a round of eight
+# samples spans levels); eight samples a level; B * Hh = 16 below the 132 SMs
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "b,lq,hh,ss,p",
+    [(2, 29, 1, ((9, 11), (5, 6)), 4), (2, 29, 4, ((13, 7),), 4),
+     (1, 11, 2, tuple((2 + i, 9 - i) for i in range(8)), 4), (2, 23, 3, ((9, 11), (5, 6), (3, 2)), 1),
+     (2, 23, 3, ((9, 11), (5, 6)), 8), (2, 300, 8, ((20, 20), (40, 40), (80, 80)), 4)],
+    ids=["hh1", "l1", "l8", "p1", "p8", "b2-hh8"],
+)
+def test_msda_kernels_layouts(cuda, dtype, b, lq, hh, ss, p):
+    g = torch.Generator().manual_seed(11)
+    v, _, _, grad = _msda_inputs(cuda, b, lq, hh, 32, ss, dtype)
+    loc = (torch.rand(b, lq, hh, len(ss), p, 2, generator=g) * 1.4 - 0.2).to(cuda)
+    aw = torch.softmax(torch.randn(b, lq, hh, len(ss) * p, generator=g), -1).reshape(b, lq, hh, len(ss), p).to(cuda)
+    _check_msda_both(v, ss, loc, aw, grad, "vector")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_msda_kernels_out_of_range_locations(cuda, dtype):
+    """Every corner of every sample outside its map (x or y beyond half a
+    pixel past the edge, some by 1e6): output and gradients are exactly 0."""
+    ss = ((8, 16), (4, 4))
+    v, _, aw, grad = _msda_inputs(cuda, 2, 19, 3, 32, ss, dtype)
+    g = torch.Generator().manual_seed(12)
+    far = torch.rand(2, 19, 3, 2, 4, generator=g) * 3 + 1.5  # [1.5, 4.5): past 1 + 0.5 / size on every level
+    far = torch.where(torch.rand(far.shape, generator=g) < 0.5, far, -far)
+    far[0, :3] = 1e6
+    near = torch.rand(far.shape, generator=g)  # in range on the other axis
+    loc = torch.where(torch.rand(far.shape + (1,), generator=g) < 0.5, torch.stack([far, near], -1),
+                      torch.stack([near, far], -1)).to(cuda)
+    _check_msda_both(v, ss, loc, aw, grad, "vector")
+    assert float(msda_forward(v, ss, loc, aw).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_msda_kernels_locations_on_the_edges(cuda, dtype):
+    """Locations whose pixel coordinate is exactly -0.5, 0, size - 1 or
+    size - 0.5 (maps of power-of-two sizes, so loc * size - 0.5 is exact on
+    both sides): one or two corners in, the others out."""
+    ss = ((8, 16), (4, 4))
+    v, _, aw, grad = _msda_inputs(cuda, 2, 19, 3, 32, ss, dtype)
+    g = torch.Generator().manual_seed(13)
+    half = 0.5 / torch.tensor([[w, h] for h, w in ss], dtype=torch.float32)  # [L, 2] as (x, y)
+    edges = torch.stack([torch.zeros_like(half), half, 1 - half, torch.ones_like(half)], -1)  # [L, 2, 4]
+    pick = torch.randint(0, 4, (2, 19, 3, 2, 4, 2, 1), generator=g)
+    loc = edges[None, None, None, :, None].expand(2, 19, 3, 2, 4, 2, 4).gather(-1, pick)[..., 0]
+    inside = torch.rand(loc.shape, generator=g)
+    loc = torch.where(torch.rand(loc.shape, generator=g) < 0.7, loc, inside).to(cuda)
+    _check_msda_both(v, ss, loc, aw, grad, "vector")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_msda_kernels_unaligned_value_takes_general_path(cuda, dtype):
+    """A contiguous value that starts one element into its buffer is not
+    16-byte aligned: both kernels take the general path and still match."""
+    ss = ((9, 11), (5, 6), (3, 2))
+    v, loc, aw, grad = _msda_inputs(cuda, 2, 37, 3, 32, ss, dtype)
+    buf = torch.empty(v.numel() + 1, dtype=dtype, device=cuda)
+    shifted = buf[1:].view(v.shape)
+    shifted.copy_(v)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    _check_msda_both(shifted, ss, loc, aw, grad, "general")
+
+
+def test_msda_main_path_shape_takes_vector_path(cuda):
+    """fai-detr-l at 640² (B=16, Lq=300, Hh=8, D=32 fp32): both kernels run their vector path."""
+    v, loc, aw, grad = _msda_inputs(cuda, 16, 300, 8, 32, ((20, 20), (40, 40), (80, 80)))
+    f0, b0 = msda_forward.paths["vector"], msda_backward.paths["vector"]
+    msda_forward(v, ((20, 20), (40, 40), (80, 80)), loc, aw)
+    msda_backward(v, ((20, 20), (40, 40), (80, 80)), loc, aw, grad)
+    assert msda_forward.paths["vector"] == f0 + 1 and msda_backward.paths["vector"] == b0 + 1
+
+
 def test_msda_backward_kernel_finite_differences(cuda):
     """d loc and d aw against central differences of the forward kernel, fp32
     (the kernels take no fp64). Pixel coordinates keep a fraction in [0.1, 0.9]
@@ -282,9 +380,9 @@ def test_rtmo_slice_launches_nms_once_per_forward(cuda):
 def test_train_step_launches_both_msda_kernels(cuda, tmp_path):
     """FocoosModel.train on the card: each decoder layer launches the MSDA
     forward kernel, and its backward the MSDA backward kernel, once per step."""
-    from focoos_tpu.ports import DatasetEntry, TrainerArgs
-    from focoos_tpu.structures import Boxes, Instances
     from focoos_tpu_torch import ModelManager
+    from focoos_tpu_torch.ports import DatasetEntry, TrainerArgs
+    from focoos_tpu_torch.structures import Boxes, Instances
 
     model = ModelManager.get(
         "fai-detr-l-coco", device=cuda, image_size=64, num_queries=10, transformer_predictor_dec_layers=2,

@@ -1,17 +1,20 @@
-"""The port stands without JAX: with ``jax``, ``jaxlib``, ``flax``, ``PIL`` and
-``cv2`` made unimportable, every module of focoos_tpu_torch imports, each
-ported slice (fai-detr, rtmo) serves an ndarray image on the CPU, and
-fai-detr trains two steps on the CPU."""
+"""The port stands alone: with ``jax``, ``jaxlib``, ``flax``, ``PIL``, ``cv2``
+and the JAX package ``focoos_tpu`` made unimportable, every module of
+focoos_tpu_torch imports, each ported slice (fai-detr, rtmo) serves an
+ndarray image on the CPU, and fai-detr trains two steps on the CPU; and no
+source of the port, nor chip_smoke.py, imports ``focoos_tpu``."""
 
 import os
+import re
 import subprocess
 import sys
+from pathlib import Path
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PRELUDE = r"""
 import importlib, pkgutil, sys
-BLOCKED = ("jax", "jaxlib", "flax", "PIL", "cv2")
+BLOCKED = ("jax", "jaxlib", "flax", "PIL", "cv2", "focoos_tpu")
 for name in BLOCKED:
     sys.modules[name] = None  # any import of these now raises ImportError
 
@@ -54,8 +57,8 @@ print("OK", len(res))
 
 TRAIN_SCRIPT = PRELUDE + r"""
 import os, tempfile
-from focoos_tpu.ports import DatasetEntry, TrainerArgs
-from focoos_tpu.structures import Boxes, Instances
+from focoos_tpu_torch.ports import DatasetEntry, TrainerArgs
+from focoos_tpu_torch.structures import Boxes, Instances
 model = ModelManager.get(
     "fai-detr-l-coco", device="cpu", image_size=64, num_queries=10, transformer_predictor_dec_layers=1,
     backbone_config={"model_type": "resnet", "depth": 18, "variant": "d", "freeze_norm": False},
@@ -92,3 +95,27 @@ def test_fai_detr_trains_without_jax_pil_cv2():
 
 def test_rtmo_serves_without_jax_pil_cv2():
     assert _run(RTMO_SCRIPT).split()[-2] == "OK"
+
+
+# an import statement of focoos_tpu or a module under it (focoos_tpu_torch is
+# another name), or a dynamic import of one
+_JAX_PACKAGE_IMPORT = re.compile(
+    r"^\s*(from|import)\s+focoos_tpu(?!\w)|import_module\(\s*f?[\"']focoos_tpu(?!\w)|__import__\(\s*[\"']focoos_tpu(?!\w)"
+)
+
+
+def test_port_sources_never_import_the_jax_package():
+    sources = sorted(Path(REPO, "focoos_tpu_torch").rglob("*.py")) + [Path(REPO, "chip_smoke.py")]
+    assert len(sources) > 40
+    found = [f"{p.relative_to(REPO)}:{n}: {line.strip()}" for p in sources
+             for n, line in enumerate(p.read_text().splitlines(), 1) if _JAX_PACKAGE_IMPORT.search(line)]
+    assert not found, found
+
+
+def test_jax_package_import_pattern():
+    for line in ("from focoos_tpu.ports import TrainerArgs", "import focoos_tpu", "    import focoos_tpu.structures as s",
+                 'importlib.import_module("focoos_tpu.models.rtmo")', "from focoos_tpu import ModelManager"):
+        assert _JAX_PACKAGE_IMPORT.search(line), line
+    for line in ("from focoos_tpu_torch.ports import TrainerArgs", "import focoos_tpu_torch",
+                 'importlib.import_module(f"focoos_tpu_torch.models.{family}")', "# see focoos_tpu/ports.py"):
+        assert not _JAX_PACKAGE_IMPORT.search(line), line

@@ -86,3 +86,32 @@ def test_kernel_argument_checks_raise(mutate, err):
     args = mutate(torch.from_numpy(v), list(ss), torch.from_numpy(loc), torch.from_numpy(aw))
     with pytest.raises(err):
         msda_mod._check(*args)
+
+
+@pytest.mark.parametrize(
+    "kernel,d,dtype,offset,vector",
+    [
+        ("forward", 32, torch.float32, 0, True),  # the main path: 128-byte rows, 8 lanes a row
+        ("forward", 32, torch.bfloat16, 0, True),
+        ("forward", 8, torch.float32, 0, True),
+        ("forward", 8, torch.bfloat16, 0, True),  # one 16-byte load a row
+        ("forward", 64, torch.bfloat16, 0, True),
+        ("forward", 64, torch.float32, 0, False),  # 256-byte rows: more than 8 lanes a row
+        ("forward", 24, torch.bfloat16, 0, False),  # 48-byte rows
+        ("forward", 48, torch.float32, 0, False),
+        ("forward", 32, torch.float32, 1, False),  # value not 16-byte aligned
+        ("backward", 32, torch.float32, 0, True),
+        ("backward", 32, torch.bfloat16, 0, True),
+        ("backward", 4, torch.float32, 0, True),
+        ("backward", 64, torch.bfloat16, 0, False),  # four channels a lane: D <= 32
+        ("backward", 24, torch.float32, 0, False),
+        ("backward", 32, torch.bfloat16, 1, False),
+    ],
+)
+def test_kernel_path_choice(kernel, d, dtype, offset, vector):
+    """Which path of csrc/msda.cu or csrc/msda_bwd.cu a value takes: its row
+    width and the alignment of what the kernel reads with vector loads."""
+    buf = torch.zeros(2 * 30 * 3 * d + offset, dtype=dtype)
+    value = buf[offset:].view(2, 30, 3, d)
+    assert value.is_contiguous()
+    assert msda_mod.vector_path(kernel, value) is vector

@@ -33,6 +33,8 @@ from focoos_tpu.models.rtmo.ports import RTMOModelOutput as JaxRTMOModelOutput
 from focoos_tpu.models.rtmo.processor import RTMOProcessor as JaxRTMOProcessor
 from focoos_tpu.nn.backbone.csp_darknet import CSPConfig as JaxCSPConfig
 from focoos_tpu.nn.backbone.csp_darknet import CSPDarknet as JaxCSPDarknet
+from focoos_tpu.nn.backbone.csp_darknet import ConvModule as JaxConvModule
+from focoos_tpu.models.rtmo.modelling import ProjectionConv as JaxProjectionConv
 from focoos_tpu.ports import ArtifactName
 from focoos_tpu.utils.checkpoint import flatten_tree, save_variables_npz, unflatten_tree
 from focoos_tpu.utils.torch_convert import convert_state_dict
@@ -40,7 +42,8 @@ from focoos_tpu_torch.model_manager import ModelManager
 from focoos_tpu_torch.models.rtmo.modelling import DCC, RTMOHeadModule, RTMOHybridEncoder
 from focoos_tpu_torch.models.rtmo.ports import RTMOModelOutput
 from focoos_tpu_torch.models.rtmo.processor import RTMOProcessor
-from focoos_tpu_torch.nn.backbone.csp_darknet import CSPConfig, CSPDarknet
+from focoos_tpu_torch.models.rtmo.modelling import ProjectionConv
+from focoos_tpu_torch.nn.backbone.csp_darknet import CSPConfig, CSPDarknet, ConvModule
 from focoos_tpu_torch.ops.nms import topk_nms
 from focoos_tpu_torch.utils.weights import from_jax_variables
 
@@ -344,3 +347,31 @@ def test_preprocess_pads_to_32_without_target_size():
     batch, _ = p.preprocess([np.ones((70, 90, 3), np.uint8), np.ones((50, 100, 3), np.uint8)])
     assert batch.shape == (2, 96, 128, 3) and batch.dtype == np.uint8
     assert batch[0, 70:].sum() == 0 and batch[1, :, 100:].sum() == 0 and batch[0, :70, :90].all()
+
+
+@pytest.mark.parametrize(
+    "jax_cls,port_cls", [(JaxConvModule, ConvModule), (JaxProjectionConv, ProjectionConv)],
+    ids=["csp_darknet-ConvModule-eps1e-3-momentum0.97", "rtmo-ProjectionConv-eps1e-5-momentum0.9"],
+)
+def test_batchnorm_train_step_matches_flax(jax_cls, port_cls):
+    """One train-mode step of a conv + BatchNorm block: the output and the
+    running statistics move as flax's do (toward the biased batch variance,
+    at each block's own momentum and eps), as
+    tests/test_torch_train.py::test_batchnorm_train_step_matches_flax holds
+    fai-detr's BatchNorm. Random statistics are perturbed off their init."""
+    rng = np.random.default_rng(21)
+    x = (rng.standard_normal((2, 5, 6, 3)) * 2 + 0.5).astype(np.float32)
+    jmod = jax_cls(out_channels=4, kernel_size=3, padding=1)
+    flat = _perturb(_flat(jmod.init(jax.random.PRNGKey(0), jnp.asarray(x), train=True)), seed=22)
+    y, new = jmod.apply(unflatten_tree(flat), jnp.asarray(x), train=True, mutable=["batch_stats"])
+    port = port_cls(3, 4, kernel_size=3, padding=1)
+    with torch.no_grad():
+        port.conv.weight.copy_(torch.tensor(flat["params/conv/kernel"]).permute(3, 2, 0, 1))
+        for name, key in (("weight", "params/bn/scale"), ("bias", "params/bn/bias"),
+                          ("running_mean", "batch_stats/bn/mean"), ("running_var", "batch_stats/bn/var")):
+            getattr(port.bn, name).copy_(torch.tensor(flat[key]))
+    got = port.train()(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).detach().numpy()
+    np.testing.assert_allclose(got, np.asarray(y), rtol=0, atol=1e-5 * np.abs(np.asarray(y)).max())
+    stats = new["batch_stats"]["bn"]
+    np.testing.assert_allclose(port.bn.running_mean.numpy(), np.asarray(stats["mean"]), rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(port.bn.running_var.numpy(), np.asarray(stats["var"]), rtol=1e-6)

@@ -33,8 +33,10 @@ from focoos_tpu.nn.backbone.resnet import ResNet as JaxResNet
 from focoos_tpu.nn.backbone.resnet import ResnetConfig as JaxResnetConfig
 from focoos_tpu.nn.layers.common import BatchNorm as JaxBatchNorm
 from focoos_tpu.ops.matching import batched_auction_assign as jax_auction
-from focoos_tpu.ports import DatasetEntry, TrainerArgs
-from focoos_tpu.structures import Boxes, Instances
+from focoos_tpu.ports import DatasetEntry as JaxDatasetEntry
+from focoos_tpu.ports import TrainerArgs as JaxTrainerArgs
+from focoos_tpu.structures import Boxes as JaxBoxes
+from focoos_tpu.structures import Instances as JaxInstances
 from focoos_tpu.trainer.solver import build_optimizer, leaf_hyperparams
 from focoos_tpu.trainer.solver import build_schedule as jax_build_schedule
 from focoos_tpu.trainer.solver import ema_decay_schedule as jax_ema_decay_schedule
@@ -49,6 +51,8 @@ from focoos_tpu_torch.models.fai_detr.processor import DETRProcessor
 from focoos_tpu_torch.nn.backbone.resnet import ResNet, ResnetConfig
 from focoos_tpu_torch.nn.layers.common import BatchNorm
 from focoos_tpu_torch.ops.matching import batched_auction_assign
+from focoos_tpu_torch.ports import DatasetEntry, TrainerArgs
+from focoos_tpu_torch.structures import Boxes, Instances
 from focoos_tpu_torch.trainer.solver import Solver, build_schedule, ema_decay_schedule, param_hyperparams
 from focoos_tpu_torch.trainer.train_step import build_train_step, create_train_state as torch_train_state
 from focoos_tpu_torch.utils.weights import from_jax_variables, to_jax_variables
@@ -85,8 +89,9 @@ def _port_targets(labels, boxes, valid):
     return DETRTargets(torch.from_numpy(labels), torch.from_numpy(boxes), torch.from_numpy(valid))
 
 
-def _trainer_args():
-    return TrainerArgs(run_name="tiny", learning_rate=5e-4, weight_decay=0.02, weight_decay_norm=0.01,
+def _trainer_args(cls=TrainerArgs):
+    """The same arguments as the port's TrainerArgs, or the JAX package's (``cls``)."""
+    return cls(run_name="tiny", learning_rate=5e-4, weight_decay=0.02, weight_decay_norm=0.01,
                        clip_gradients=0.1, backbone_multiplier=0.1, scheduler="MULTISTEP",
                        scheduler_extra={"warmup_iters": 1, "warmup_factor": 0.5}, ema_enabled=True, ema_decay=0.999,
                        ema_warmup=20, max_iters=100)
@@ -138,7 +143,7 @@ def tiny():
     # the rest of the step as focoos_tpu/trainer/train_step.py:_make_step_body
     # composes it (one compile of the model, not two): the optax chain of
     # build_optimizer, apply_updates, the EMA with the decay of step 0
-    args = _trainer_args()
+    args = _trainer_args(JaxTrainerArgs)
     tx, _ = build_optimizer(jvars["params"], args)
     update = jax.jit(tx.update)
     updates, _ = update(grads, tx.init(jvars["params"]), jvars["params"])
@@ -147,7 +152,7 @@ def tiny():
     ema_after = jax.tree.map(lambda e, p: e * d + p * (1.0 - d), jvars["params"], params_after)
     metrics = dict(losses, total_loss=total, grad_norm=jax.jit(optax.global_norm)(grads))
     return dict(
-        jcfg=jcfg, pcfg=pcfg, flat=flat, shapes=shapes, images=images, targets=tgt, args=args,
+        jcfg=jcfg, pcfg=pcfg, flat=flat, shapes=shapes, images=images, targets=tgt, args=_trainer_args(),
         total=float(total), losses={k: float(v) for k, v in losses.items()},
         grads=_flat({"params": grads}), batch_stats=_flat({"batch_stats": new_model_state["batch_stats"]}),
         metrics={k: float(v) for k, v in metrics.items()},
@@ -383,15 +388,19 @@ def test_train_step_matches_jax(tiny):
 
 
 # --------------------------------------------------------------------------- data and the trainer
-def _dataset(n, seed=0):
+def _dataset(n, seed=0, jax_package=False):
+    """n seeded entries, built from the port's DatasetEntry/Instances/Boxes or,
+    with ``jax_package``, from the JAX package's (the same values)."""
+    entry_cls, inst_cls, boxes_cls = (JaxDatasetEntry, JaxInstances, JaxBoxes) if jax_package else (
+        DatasetEntry, Instances, Boxes)
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
         k = int(rng.integers(1, N_TARGETS + 3))  # some images have more boxes than max_instances
         xy = rng.uniform(0, SIZE * 0.7, (k, 2))
         boxes = np.concatenate([xy, np.minimum(xy + rng.uniform(8, SIZE * 0.3, (k, 2)), SIZE)], 1).astype(np.float32)
-        inst = Instances((SIZE, SIZE), boxes=Boxes(boxes), classes=rng.integers(0, NUM_CLASSES, k))
-        out.append(DatasetEntry(image=rng.integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8), height=SIZE,
+        inst = inst_cls((SIZE, SIZE), boxes=boxes_cls(boxes), classes=rng.integers(0, NUM_CLASSES, k))
+        out.append(entry_cls(image=rng.integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8), height=SIZE,
                                 width=SIZE, instances=inst))
     return out
 
@@ -403,13 +412,13 @@ def test_loader_matches_jax_sampler_and_processor():
     got = iter(TrainingSampler(7, seed=3))
     order = [next(got) for _ in range(21)]
     assert order == [next(ref) for _ in range(21)]
-    ds = _dataset(7)
+    ds, jds = _dataset(7), _dataset(7, jax_package=True)
     jcfg, pcfg = _tiny_configs()
     jproc = JaxDETRProcessor(jcfg, SIZE).train(True)
     loader = build_train_loader(ds, DETRProcessor(pcfg, SIZE).train(True), 3, seed=3, max_instances=N_TARGETS)
     for i in range(2):
         images, targets = next(loader)
-        jb, jt = jproc.preprocess_entries([ds[j] for j in order[3 * i: 3 * i + 3]], max_instances=N_TARGETS)
+        jb, jt = jproc.preprocess_entries([jds[j] for j in order[3 * i: 3 * i + 3]], max_instances=N_TARGETS)
         np.testing.assert_array_equal(images.numpy(), jb)
         assert images.dtype == torch.uint8
         for f in ("labels", "boxes", "valid"):
