@@ -39,9 +39,11 @@ non-zero:
    idle share, the MSDA kernels' share) and the auction timed alone;
 6. nms    — the greedy NMS kernel against its plain version on clustered
    boxes (duplicates, zero-area boxes, a zero-score tail): B=16 K=300 thr
-   0.65 (the main path's shape), K=1024, an odd K=37, and boxes with NaN
-   and infinite coordinates; keep masks must be equal; kernel/plain device
-   times;
+   0.65 (the main path's batch), B=1 K=300 (one infer() request), K=1024,
+   an odd K=37, and boxes with NaN and infinite coordinates; keep masks must
+   be equal; kernel/plain device times, the launch floor (``time_ms`` of an
+   empty sleep kernel), the share of the bound beside the time above the
+   floor, and the wrapper's host time per call;
 7. rtmo   — ModelManager.get("rtmo-l-coco") at full width (CSPDarknet-L,
    hybrid neck, 512-wide head, 17 keypoints) with seeded random weights, the
    BatchNorms, the classifier/box biases and DCC's bin logits perturbed so
@@ -115,6 +117,19 @@ def time_ms(fn, calls: int = 20, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
+
+
+def host_ms(fn, calls: int = 1000) -> float:
+    """Host time of one call: the host clock over ``calls`` calls with no
+    sync in between (what a host-bound caller pays per call)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return t
 
 
 def max_err(out: torch.Tensor, ref: torch.Tensor, tol: float, what: str) -> float:
@@ -776,9 +791,12 @@ def phase_nms(dev) -> dict:
     from focoos_tpu_torch.ops.nms import nms_keep, nms_keep_reference
 
     g = torch.Generator().manual_seed(3)
-    record = {}
+    floor_ms = time_ms(lambda: torch.cuda._sleep(0))
+    log(f"[nms] launch floor: {floor_ms:.4f} ms (time_ms of torch.cuda._sleep(0), the least a queued launch takes)")
+    record = {"floor_ms": floor_ms}
     for b, k, thr, label in (
         (16, 300, 0.65, "main path B=16 K=300 thr 0.65"),
+        (1, 300, 0.65, "one infer() request B=1 K=300 thr 0.65"),
         (16, 1024, 0.5, "B=16 K=1024 thr 0.5"),
         (2, 37, 0.65, "odd B=2 K=37 thr 0.65"),
         (2, 64, 0.65, "non-finite boxes B=2 K=64 thr 0.65"),
@@ -804,9 +822,15 @@ def phase_nms(dev) -> dict:
         if k == 300:
             # boxes and scores read, the keep mask written; ~15 operations an IoU over the K(K-1)/2 pairs
             bd = bound(boxes.numel() * 4 + scores.numel() * 4 + keep.numel(), 15 * b * k * (k - 1) / 2)
-            log(f"[nms] {label}: bound {bd['bound_ms']:.6f} ms ({bd['bound_by']}), kernel at"
-                f" {bd['bound_ms'] / ms:.2%} of it")
-            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd}
+            share, above = bd["bound_ms"] / ms, ms - floor_ms
+            log(f"[nms] {label}: bound {bd['bound_ms']:.6f} ms ({bd['bound_by']}): kernel at {share:.2%} of it,"
+                f" {above:.4f} ms above the launch floor")
+            if b == 16:
+                record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bd, bound_share=share, above_floor_ms=above)
+            else:
+                record.update(ms_b1=ms, plain_ms_b1=plain_ms, bound_ms_b1=bd["bound_ms"], bound_share_b1=share,
+                              above_floor_ms_b1=above, host_ms=host_ms(lambda: nms_keep(boxes, scores, thr)))
+                log(f"[nms] {label}: the wrapper's host time {record['host_ms']:.4f} ms a call (1000 calls, no sync)")
     return record
 
 

@@ -338,10 +338,54 @@ def clustered_boxes(g: torch.Generator, b: int, k: int):
     return boxes, scores
 
 
-@pytest.mark.parametrize("b,k,thr", [(16, 300, 0.65), (3, 1024, 0.5), (2, 37, 0.65)], ids=["main-path", "k1024", "odd"])
-def test_nms_kernel_matches_plain(cuda, b, k, thr):
+HALF = np.float32(0.5)
+
+
+def _exact_iou_pairs(boxes: torch.Tensor, at=(0, 31, 100)) -> None:
+    """Pairs whose IoU is exactly 0.5 ([0, 0, 2, 1] and [0, 0, 1, 1]), far from
+    every other box, at rows s, s+1 (the second pair across a 32-box word)."""
+    for p, s in enumerate(at):
+        if s + 1 < boxes.shape[1]:
+            o = 10000.0 + 100.0 * p
+            boxes[:, s] = torch.tensor([o, o, o + 2, o + 1])
+            boxes[:, s + 1] = torch.tensor([o, o, o + 1, o + 1])
+
+
+def _nms_case(kind: str, b: int, k: int):
     boxes, scores = clustered_boxes(torch.Generator().manual_seed(k), b, k)
-    boxes, scores = boxes.to(cuda), scores.to(cuda)
+    if kind == "exact":
+        scores = torch.sort(torch.rand(b, k, generator=torch.Generator().manual_seed(1)) + 0.05, -1, descending=True).values
+        _exact_iou_pairs(boxes)
+    elif kind == "identical":
+        boxes = boxes[:, :1].expand(-1, k, -1).clone()
+        scores = torch.linspace(1.0, 0.05, k).expand(b, -1).clone()
+    elif kind == "disjoint":
+        x = torch.arange(k, dtype=torch.float32)[None, :].expand(b, -1) * 10
+        boxes = torch.stack([x, x, x + 5, x + 5], -1)
+    return boxes, scores
+
+
+@pytest.mark.parametrize(
+    "kind,b,k,thr",
+    [
+        ("clustered", 16, 300, 0.65), ("clustered", 3, 1024, 0.5), ("clustered", 2, 37, 0.65),
+        ("clustered", 1, 300, 0.65), ("clustered", 2, 1, 0.65), ("clustered", 2, 31, 0.65),
+        ("clustered", 2, 32, 0.65), ("clustered", 2, 33, 0.65), ("clustered", 2, 1000, 0.65),
+        ("clustered", 2, 1024, 0.65),
+        ("exact", 2, 300, float(HALF)), ("exact", 2, 300, float(np.nextafter(HALF, np.float32(0)))),
+        ("exact", 2, 300, float(np.nextafter(HALF, np.float32(1)))),
+        ("identical", 2, 300, 0.65), ("disjoint", 2, 300, 0.65), ("clustered", 2, 300, -0.5),
+    ],
+    ids=["main-path", "k1024", "odd", "b1", "k1", "k31", "k32", "k33", "k1000", "k1024-thr0.65",
+         "iou-at-thr", "iou-above-thr-by-1ulp", "iou-below-thr-by-1ulp", "identical", "disjoint", "negative-thr"],
+)
+def test_nms_kernel_matches_plain(cuda, kind, b, k, thr):
+    """Keep masks equal the plain version's bit for bit: the main path's
+    shapes, K on both sides of a 32-box word and up to MAX_K, IoUs exactly at
+    the threshold and one ulp either side, one box repeated, disjoint boxes
+    and a negative threshold."""
+    boxes, scores = _nms_case(kind, b, k)
+    boxes, scores = boxes.to(cuda).contiguous(), scores.to(cuda).contiguous()
     before = nms_keep.launches
     keep = nms_keep(boxes, scores, thr)
     torch.cuda.synchronize()
@@ -349,7 +393,15 @@ def test_nms_kernel_matches_plain(cuda, b, k, thr):
     ref = nms_keep_reference(boxes, scores, thr)
     assert keep.dtype == torch.bool and keep.shape == (b, k)
     assert torch.equal(keep, ref)
-    assert int(keep.sum()) < int((scores > 0).sum()), "nothing was suppressed: the case tests nothing"
+    valid = int((scores > 0).sum())
+    if kind == "exact":  # the second box of a pair falls only where its IoU 0.5 is above the threshold
+        assert bool(keep[:, 1].all()) == (thr >= 0.5) and bool(keep[:, 32].all()) == (thr >= 0.5)
+    elif kind == "identical":
+        assert keep.sum(1).tolist() == [1] * b
+    elif kind == "disjoint":
+        assert int(keep.sum()) == valid
+    elif k >= 37:
+        assert int(keep.sum()) < valid, "nothing was suppressed: the case tests nothing"
 
 
 def test_nms_kernel_non_finite_boxes_match_plain(cuda):

@@ -19,6 +19,7 @@ from focoos_tpu.ops.nms import nms_keep as jax_nms_keep
 from focoos_tpu.ops.nms import topk_nms as jax_topk_nms
 from focoos_tpu.ops.pallas.nms_kernel import nms_keep_pallas
 from focoos_tpu_torch.ops import nms as port_nms
+from focoos_tpu_torch.ops.boxes import box_iou
 
 
 def clustered_boxes(rng: np.random.Generator, b: int, k: int, zero_tail: int):
@@ -64,6 +65,81 @@ def test_nms_keep_non_finite_boxes_match_jax():
     got = port_nms.nms_keep(torch.from_numpy(boxes), torch.from_numpy(scores), 0.65).numpy()
     want = np.asarray(jax_nms_keep(jnp.asarray(boxes[0]), jnp.asarray(scores[0]), 0.65))
     np.testing.assert_array_equal(got[0], want)
+
+
+def exact_iou_pairs(boxes: np.ndarray, scores: np.ndarray, at=(0, 31, 100, 511)) -> list:
+    """Put pairs whose IoU is exactly 0.5 (``[0, 0, 2, 1]`` and ``[0, 0, 1, 1]``,
+    moved far from every other box and from each other) at rows s, s+1 of
+    every image, for each s whose pair has positive scores; the starts used."""
+    starts = [s for s in at if s + 1 < boxes.shape[1] and scores[0, s + 1] > 0]
+    for p, s in enumerate(starts):
+        o = 10000.0 + 100.0 * p
+        boxes[:, s] = [o, o, o + 2, o + 1]
+        boxes[:, s + 1] = [o, o, o + 1, o + 1]
+    return starts
+
+
+def bitmask_model(overlap: np.ndarray) -> np.ndarray:
+    """The overlap bitmask of ``csrc/nms.cu`` as [K, W] uint32 (the kernel
+    stores it by column word): bit t of word l of row r is
+    ``overlap[r, 32l + t]``, set only for columns after the row."""
+    k = overlap.shape[0]
+    w = -(-k // 32)
+    padded = np.zeros((k, 32 * w), bool)
+    padded[:, :k] = np.triu(overlap, 1)
+    return np.packbits(padded.reshape(k, w, 32), axis=-1, bitorder="little").view("<u4")[..., 0]
+
+
+def block_sweep_model(mask: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """The sweep of ``csrc/nms.cu`` over 32 boxes at a time: removed[l] holds
+    word l of the invalid or suppressed boxes; word-block b decides its boxes
+    in order against removed[b] and its diagonal words, then ORs word l of its
+    kept rows into removed[l] for every later l. Returns keep [K]."""
+    k, w = mask.shape
+    padded = np.zeros(32 * w, bool)
+    padded[:k] = valid
+    removed = [~int(v) & 0xFFFFFFFF for v in np.packbits(padded.reshape(w, 32), axis=-1, bitorder="little").view("<u4")[:, 0]]
+    for b in range(w):
+        rows = range(32 * b, min(k, 32 * b + 32))
+        cur = removed[b]
+        for t, r in enumerate(rows):
+            if not (cur >> t) & 1:
+                cur |= int(mask[r, b])
+        kept = [r for t, r in enumerate(rows) if not (cur >> t) & 1]
+        for l in range(b + 1, w):
+            for r in kept:
+                removed[l] |= int(mask[r, l])
+        removed[b] = cur
+    return np.array([not (removed[i >> 5] >> (i & 31)) & 1 for i in range(k)])
+
+
+HALF = np.float32(0.5)
+
+
+@pytest.mark.parametrize(
+    "thr", [HALF, np.nextafter(HALF, np.float32(0)), np.nextafter(HALF, np.float32(1))], ids=["0.5", "0.5-ulp", "0.5+ulp"]
+)
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 300, 1024])
+def test_block_sweep_model_matches_reference_and_jax(k, thr):
+    """A numpy model of the kernel's bitmask and 32-box block sweep, held
+    against the plain version and JAX's XLA loop where there is no card:
+    clustered boxes, word-block boundaries (K = 31, 32, 33, a pair across
+    rows 31/32) and pairs whose IoU is exactly 0.5, at the threshold and one
+    ulp either side of it."""
+    thr = float(thr)
+    boxes, scores = clustered_boxes(np.random.default_rng(k), 1, k, zero_tail=k // 6)
+    starts = exact_iou_pairs(boxes, scores)
+    bt, st = torch.from_numpy(boxes), torch.from_numpy(scores)
+    overlap = (box_iou(bt, bt)[0] > thr)[0].numpy()
+    got = block_sweep_model(bitmask_model(overlap), scores[0] > 0)
+    ref = port_nms.nms_keep_reference(bt, st, thr)[0].numpy()
+    want = np.asarray(jax_nms_keep(jnp.asarray(boxes[0]), jnp.asarray(scores[0]), thr))
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, want)
+    for s in starts:  # the pair's first box is kept; its second falls only below IoU 0.5
+        assert got[s] and got[s + 1] == (thr >= 0.5)
+    if k >= 300:
+        assert got.sum() < (scores > 0).sum(), "the clustered boxes suppressed nothing: the case tests nothing"
 
 
 def test_topk_nms_matches_jax():
