@@ -52,12 +52,26 @@ non-zero:
    once per forward and suppressed something, compares a B=2 forward against
    the same weights on the CPU by anchor index, and times b1 and b16.
 
+Each model path runs again in bf16 compute (``ModelManager.get(...,
+dtype="bfloat16")``, fp32 parameters), right after its fp32 run and with its
+own launch counts: fai-detr-l serving (the requests, the kernels' launches,
+card bf16 and card fp32 each against the CPU's fp32 result on the CPU's query
+selection, b1 with and without the cast-weight cache, b16, a profiled b16
+forward beside an fp32 one, both MSDA kernels on bf16 captured locations),
+fai-detr-l training at B=8 (one step against the CPU's fp32 step on the CPU's
+selection and assignment, FocoosModel.train, step p50, images/s, peak
+memory, a profiled step) and rtmo-l serving (the requests, card bf16 against
+the CPU's fp32 result by anchor index, b1, b16). The msda, msda_backward and
+stem phases time the bf16 kernels beside the fp32 ones (MSDA backward also
+at the training batch B=8), each with its bound and share.
+
 The last three lines are the kernels' JSON record, the card's name and power
 limit as nvidia-smi reports them, and the result JSON.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -72,7 +86,8 @@ MSDA_SHAPES = ((20, 20), (40, 40), (80, 80))  # fai-detr-l at 640²: p5, p4, p3
 MSDA_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
 # (d value, d loc, d aw) × max|ref|. fp32: d value and d aw 1e-5 (sums in another
 # order; the kernel's atomics add in a run-dependent order), d loc 1e-4 (a
-# difference of corner values scaled by the map size); bf16 values: 2^-7 for all three
+# difference of corner values scaled by the map size). bf16 values: 2^-7 for
+# all three (d value accumulates in fp32 and the kernel rounds it to bf16 once)
 MSDA_BWD_TOL = {torch.float32: (1e-5, 1e-4, 1e-5), torch.bfloat16: (2.0**-7,) * 3}
 # × max|ref|: f32 operands carried as bf16 hi + lo pairs on the tensor cores (~16
 # bits, ~1e-5 over three convs); bf16 weights, y1, y2 and output rounded (~5e-3)
@@ -91,6 +106,29 @@ RTMO_TOL = 1e-3
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_NORM_RTOL = 1e-3
 TRAIN_BATCH = 8  # images per step in the timed training run
+# card bf16 vs CPU fp32 (B=2) and vs CPU bf16 (B=1) on the CPU's query
+# selection, fai-detr-l: abs on sigmoid scores and normalized boxes. A bf16
+# model rounds each of ~110 layers' outputs to 8 bits (2^-8 relative); on a
+# tiny ResNet-18 model the port's bf16 result lies 5e-3 from its fp32 one
+SLICE_BF16_TOL = 5e-2
+# rtmo-l in bf16, one image: the card's raw head outputs (every anchor) lie
+# from the CPU's fp32 ones within twice as far as the CPU's own bf16 run does,
+# plus one bf16 step of the output's scale (2^-8 × max|ref|). Two bf16 runs
+# round in other orders, and perturb_rtmo's random CSPDarknet-L amplifies a
+# rounding difference into logits: its keypoint visibilities differ by up to
+# 0.24 after the sigmoid between the card's and the CPU's bf16 runs, so the
+# detections are reported and not held to a fixed tolerance
+# one bf16 training step on the card vs the CPU's fp32 step, both on the CPU's
+# selection and assignment: each loss key within TRAIN_BF16_TOL of the total
+# loss (a small VFL term moves 16% of itself from fp32 to bf16 on a tiny
+# ResNet-18 model, 0.017% of the total), the total and the gradient norm
+# relative (that model: 0.14% and 10%)
+TRAIN_BF16_TOL = 1e-2
+TRAIN_BF16_GRAD_NORM_RTOL = 0.25
+# kernel names of cuDNN's convolutions (implicit GEMM, FFT, Winograd, their
+# data and weight gradients) and of its layout transposes, for the profiles
+CONV_KERNEL_MARKS = ("conv", "fprop", "dgrad", "wgrad", "fft", "winograd", "implicit")
+TRANSPOSE_KERNEL_MARKS = ("nchwtonhwc", "nhwctonchw", "transpose")
 SLEEP_CYCLES = 20_000_000  # ~11 ms of the card's clock: longer than the host takes to queue 20 kernel calls
 
 
@@ -143,7 +181,7 @@ def max_err(out: torch.Tensor, ref: torch.Tensor, tol: float, what: str) -> floa
 # ---------------------------------------------------------------------------
 # least times of the card (NVIDIA's H100 SXM data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"fp32": 67e12, "tf32": 495e12}
+PEAK_OPS_PER_S = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
 
 
 def bound(nbytes: float, ops: float, kind: str = "fp32") -> dict:
@@ -238,9 +276,10 @@ def check_msda_backward(label: str, v, ss, loc, aw, grad) -> dict:
     ms = time_ms(lambda: msda_backward(v, ss, loc, aw, grad))
     plain_ms = time_ms(lambda: ms_deform_attn_backward_reference(v, ss, loc, aw, grad))
     bd = msda_bound("backward", v, ss, loc, aw)
-    path = "vector" if vector_path("backward", v, grad.float()) else "general"
-    log(f"[msda_backward] {label} {str(v.dtype)[6:]}: max_abs_err d value {errs[0]:.3e}, d loc {errs[1]:.3e},"
-        f" d aw {errs[2]:.3e} (tol {' / '.join(f'{t:.1e}' for t in tols)} x max|ref|) | {path} path, kernel"
+    path = "vector" if vector_path("backward", v, grad.to(v.dtype)) else "general"
+    ulps = errs[0] / (2.0**-8 * float(ref[0].abs().max()))
+    log(f"[msda_backward] {label} {str(v.dtype)[6:]}: max_abs_err d value {errs[0]:.3e} ({ulps:.2f} x 2^-8 max|ref|),"
+        f" d loc {errs[1]:.3e}, d aw {errs[2]:.3e} (tol {' / '.join(f'{t:.1e}' for t in tols)} x max|ref|) | {path} path, kernel"
         f" {ms:.4f} ms (with the zero fill of d value), plain (autograd) {plain_ms:.4f} ms | bound"
         f" {bd['bound_ms']:.4f} ms ({bd['bound_by']}; {bd['rows_touched']} of {bd['rows']} value rows touched),"
         f" kernel at {bd['bound_ms'] / ms:.1%} of it")
@@ -253,6 +292,7 @@ MSDA_MAIN_LABEL = "main path B=16 Lq=300 Hh=8 D=32 levels 20²,40²,80² P=4, un
 
 
 def phase_msda(dev) -> dict:
+    """→ {dtype: the main path's record at B=16}."""
     g = torch.Generator().manual_seed(0)
     record = {}
     for (b, lq, hh, d, ss), label in (
@@ -263,24 +303,26 @@ def phase_msda(dev) -> dict:
         v32, loc, aw, _ = msda_case(g, b, lq, hh, d, ss, dev)
         for dtype in (torch.float32, torch.bfloat16):
             rec = check_msda_forward(label, v32.to(dtype), ss, loc, aw)
-            if b == 16 and dtype == torch.float32:
-                record = rec
+            if b == 16:
+                record[dtype] = rec
     return record
 
 
 def phase_msda_backward(dev) -> dict:
+    """→ {dtype: the main path's record at B=16}."""
     g = torch.Generator().manual_seed(5)
     record = {}
     for (b, lq, hh, d, ss), dtypes, label in (
         (MSDA_MAIN, (torch.float32, torch.bfloat16), MSDA_MAIN_LABEL),
-        ((8, 300, 8, 32, MSDA_SHAPES), (torch.float32,), "training batch B=8 Lq=300 Hh=8 D=32, uniform locations"),
+        ((8, 300, 8, 32, MSDA_SHAPES), (torch.float32, torch.bfloat16),
+         "training batch B=8 Lq=300 Hh=8 D=32, uniform locations"),
         ((2, 37, 3, 48, ((9, 11), (5, 6))), (torch.float32, torch.bfloat16), "odd B=2 Lq=37 Hh=3 D=48 levels 9x11,5x6 P=4"),
     ):
         v32, loc, aw, grad32 = msda_case(g, b, lq, hh, d, ss, dev)
         for dtype in dtypes:
             rec = check_msda_backward(label, v32.to(dtype), ss, loc, aw, grad32.to(dtype))
-            if b == 16 and dtype == torch.float32:
-                record = rec
+            if b == 16:
+                record[dtype] = rec
     return record
 
 
@@ -306,6 +348,7 @@ def capture_msda_inputs(module, x: torch.Tensor, layer: int) -> tuple:
 
 
 def phase_stem(dev) -> dict:
+    """→ {dtype: the record at 640² B=16}."""
     from focoos_tpu_torch.ops.stem import fused_resnet_stem, resnet_stem_reference
 
     g = torch.Generator().manual_seed(1)
@@ -333,15 +376,16 @@ def phase_stem(dev) -> dict:
             plain_ms = time_ms(lambda: resnet_stem_reference(x, *params))
             log(f"[stem] {label} {str(dtype)[6:]}: max_abs_err {err:.3e} (tol {STEM_TOL[dtype]:.1e} x max|ref|)"
                 f" | kernel {ms:.4f} ms, plain (cuDNN convs) {plain_ms:.4f} ms")
-            if label == "640x640 B=16" and dtype == torch.float32:
+            if label == "640x640 B=16":
                 # three 3x3 convs (conv1 stride 2, then at its resolution) on the tensor cores
-                # (TF32 peak), the input read and the pooled output written once
+                # (the TF32 peak for f32, bf16's for bf16), the input read and the pooled output written once
                 h1, w1 = (h - 1) // 2 + 1, (w - 1) // 2 + 1
                 ops = 2 * 9 * b * h1 * w1 * (3 * 32 + 32 * 32 + 32 * 64)
-                bd = bound((x.numel() + out.numel()) * x.element_size(), ops, "tf32")
-                log(f"[stem] {label} f32: bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}: {ops / 1e9:.1f} GFLOP at"
-                    f" the TF32 peak), kernel at {bd['bound_ms'] / ms:.1%} of it")
-                record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd}
+                kind = "tf32" if dtype == torch.float32 else "bf16"
+                bd = bound((x.numel() + out.numel()) * x.element_size(), ops, kind)
+                log(f"[stem] {label} {str(dtype)[6:]}: bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}:"
+                    f" {ops / 1e9:.1f} GFLOP at the {kind.upper()} peak), kernel at {bd['bound_ms'] / ms:.1%} of it")
+                record[dtype] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd}
     return record
 
 
@@ -378,12 +422,13 @@ def selection(model, x: torch.Tensor):
     return pred.select_queries(memory, ss)[0], scores
 
 
-def compare_devices(gpu_model, cpu_model, x_uint8: np.ndarray) -> int:
+def compare_devices(gpu_model, cpu_model, x_uint8: np.ndarray) -> tuple:
     """Forward the same batch on both modules; compare the selected query
     indices first, then boxes and scores row by row. Rows are matched by
     query index, so two near-tied queries that swap rank compare as
     themselves. An image whose selected set differs (a near-tie at the
-    cut-off) is reported and left out. Returns the images compared."""
+    cut-off) is reported and left out. Returns (the images compared, the
+    CPU's (boxes, scores, selected indices))."""
     outs, sels = [], []
     for m in (gpu_model, cpu_model):
         dev = next(m.parameters()).device
@@ -419,7 +464,92 @@ def compare_devices(gpu_model, cpu_model, x_uint8: np.ndarray) -> int:
             f" (tol {SLICE_TOL:.0e}); selection logits {sel_err:.3e}")
         assert box_err <= SLICE_TOL and score_err <= SLICE_TOL, f"image {b}: card and CPU disagree"
         compared += 1
-    return compared
+    return compared, (cb, cl, ci)
+
+
+@contextlib.contextmanager
+def carried_selection(predictor, idx: torch.Tensor):
+    """``predictor`` takes the query indices ``idx`` [B, Q] instead of its own top-k."""
+    real = type(predictor).select_queries
+    predictor.select_queries = lambda memory, ss: real(predictor, memory, ss, idx.to(memory.device))
+    try:
+        yield
+    finally:
+        del predictor.select_queries
+
+
+def compare_to_cpu(models: dict, cpu_ref: tuple, x_uint8: np.ndarray) -> dict:
+    """Each card module's boxes and scores against a CPU result (boxes,
+    scores, selected indices), on the CPU's query selection → {name: (box
+    err, score err)}."""
+    cb, cl, ci = cpu_ref
+    errs = {}
+    for name, m in models.items():
+        x = torch.from_numpy(x_uint8).to(next(m.parameters()).device)
+        with carried_selection(m.predictor, ci), torch.inference_mode():
+            out, _ = m(x)
+        errs[name] = (float((out.boxes.float().cpu() - cb).abs().max()), float((out.logits.float().cpu() - cl).abs().max()))
+    return errs
+
+
+def clear_cast_caches(module: torch.nn.Module) -> None:
+    """Drop the bf16 copies the layers keep of their weights: the next forward casts every weight anew."""
+    for m in module.modules():
+        m.__dict__.pop("_cast_cache", None)
+
+
+def serve_timings(module, xs: dict, reps: dict, before=None) -> dict:
+    """{name: p50 seconds} of synchronized forwards of ``module`` on each input
+    (host clock), after three warm-up forwards; ``before`` runs untimed
+    ahead of each timed forward."""
+    out = {}
+    with torch.inference_mode():
+        for name, x in xs.items():
+            for _ in range(3):
+                module(x)
+            torch.cuda.synchronize()
+            ts = []
+            for _ in range(reps[name]):
+                if before is not None:
+                    before()
+                t = time.perf_counter()
+                module(x)
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t)
+            out[name] = float(np.median(ts))
+    return out
+
+
+def kernel_shares(by_name: dict, busy: float) -> dict:
+    """Device time of cuDNN's convolutions and of its layout transposes, each as a share of busy."""
+    conv = sum(v for k, v in by_name.items() if any(m in k.lower() for m in CONV_KERNEL_MARKS))
+    transpose = sum(v for k, v in by_name.items() if any(m in k.lower() for m in TRANSPOSE_KERNEL_MARKS))
+    return {"conv": conv / busy, "transpose": transpose / busy}
+
+
+def profile_forwards(tag: str, what: str, module, x: torch.Tensor, n: int = 2) -> dict:
+    """``n`` inference forwards under the profiler: wall, device busy, idle
+    share, launches, the conv and transpose shares and the largest kernels, logged."""
+    with torch.inference_mode():
+        module(x)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                module(x)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e6
+    busy, by_name = device_busy(prof)
+    launches = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    sh = kernel_shares(by_name, busy)
+    log(f"[{tag}] profiled {what}, {n} forwards: wall {wall / n / 1e3:.2f} ms, device busy {busy / n / 1e3:.2f} ms a"
+        f" forward, idle share {1 - busy / wall:.3f}, {launches // n} kernels a forward; cuDNN convolutions"
+        f" {sh['conv']:.1%} of busy, layout transposes {sh['transpose']:.1%}")
+    for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"[{tag}]   {v / n / 1e3:9.3f} ms {v / busy:6.1%}  {k[:110]}")
+    return {"busy_ms": busy / n / 1e3, "idle": 1 - busy / wall, **sh}
 
 
 def check_detections(results, n_images: int, what: str) -> None:
@@ -480,26 +610,14 @@ def phase_slice(dev, smi: str) -> dict:
     t0 = time.perf_counter()
     cpu_model = ModelManager.get("fai-detr-l-coco", device="cpu", seed=0)
     cpu_model.module.load_state_dict(model.module.state_dict())
-    compared = compare_devices(model.module, cpu_model.module, batch[:2])
+    compared, cpu_ref = compare_devices(model.module, cpu_model.module, batch[:2])
     assert compared >= 1, "no image could be compared between card and CPU"
     log(f"[slice] card vs CPU: {compared}/2 images compared ({time.perf_counter() - t0:.1f}s)")
 
     # latency and throughput of the forward (host clock around synchronized calls)
     x1 = torch.from_numpy(batch[:1]).to(dev)
     x16 = torch.from_numpy(batch).to(dev)
-    timings = {}
-    for name, x, reps in (("b1", x1, 30), ("b16", x16, 10)):
-        with torch.inference_mode():
-            for _ in range(3):
-                model.module(x)
-            torch.cuda.synchronize()
-            ts = []
-            for _ in range(reps):
-                t = time.perf_counter()
-                model.module(x)
-                torch.cuda.synchronize()
-                ts.append(time.perf_counter() - t)
-        timings[name] = float(np.median(ts))
+    timings = serve_timings(model.module, {"b1": x1, "b16": x16}, {"b1": 30, "b16": 10})
     e2e = []
     for _ in range(10):
         t = time.perf_counter()
@@ -517,6 +635,100 @@ def phase_slice(dev, smi: str) -> dict:
     check_msda_forward(label, v, ss, loc, aw)
     grad = torch.randn(v.shape[0], loc.shape[1], v.shape[2] * v.shape[3], generator=torch.Generator().manual_seed(9))
     check_msda_backward(label, v, ss, loc, aw, grad.to(dev))
+    prof = profile_forwards("slice", "b16 forward fp32", model.module, x16)
+    profile_forwards("slice", "b1 forward fp32", model.module, x1, n=4)
+    ctx = dict(model=model, cpu_ref=cpu_ref, batch=batch, images=images, timings=timings, profile=prof)
+    return launches, ctx
+
+
+def phase_slice_bf16(dev, smi: str, ctx: dict) -> dict:
+    """fai-detr-l serving in bf16 compute on the fp32 phase's weights."""
+    from focoos_tpu_torch import ModelManager
+    from focoos_tpu_torch.ops.msda import msda_forward
+    from focoos_tpu_torch.ops.stem import fused_resnet_stem
+
+    model32, batch, images = ctx["model"], ctx["batch"], ctx["images"]
+    model = ModelManager.get("fai-detr-l-coco", device=dev, dtype="bfloat16")
+    model.module.load_state_dict(model32.module.state_dict())
+    cfg = model.config
+    n_dec = cfg.transformer_predictor_dec_layers
+    assert model.compute_dtype == "bfloat16" and all(p.dtype == torch.float32 for p in model.module.parameters())
+    log(f"[slice bf16] {model.name} with dtype=bfloat16 (fp32 parameters), the fp32 phase's weights")
+
+    # the requests: counters start at 0 just before and are read just after
+    msda_forward.launches = 0
+    msda_forward.paths = {"vector": 0, "general": 0}
+    fused_resnet_stem.launches = 0
+    single = [model.infer(img, threshold=0.0) for img in images]
+    multi = model(batch, threshold=0.0)
+    torch.cuda.synchronize()
+    launches = {"msda_forward": msda_forward.launches, "fused_resnet_stem": fused_resnet_stem.launches}
+    forwards = len(images) + 1
+    log(f"[slice bf16] served {len(images)} infer() requests and one batch of {len(batch)}: launches msda_forward"
+        f" {launches['msda_forward']} (paths {msda_forward.paths}), fused_resnet_stem {launches['fused_resnet_stem']}")
+    assert launches["msda_forward"] == n_dec * forwards, "MSDA kernel did not run once per decoder layer"
+    assert msda_forward.paths["vector"] == launches["msda_forward"], "the bf16 path left the MSDA vector path"
+    assert launches["fused_resnet_stem"] == forwards, "stem kernel did not run once per forward"
+    for r in single:
+        check_detections([r], 1, "infer bf16")
+    check_detections(multi, len(batch), "batch bf16")
+    with torch.inference_mode():
+        out = model.forward(batch)
+    assert out.boxes.dtype == out.logits.dtype == torch.float32, "bf16 model's outputs are not fp32"
+    assert bool(torch.isfinite(out.boxes).all()) and bool(torch.isfinite(out.logits).all()), "non-finite outputs"
+
+    # card bf16 and card fp32 against the CPU's fp32 result, on the CPU's selection
+    errs = compare_to_cpu({"fp32": model32.module, "bf16": model.module}, ctx["cpu_ref"], batch[:2])
+    log(f"[slice bf16] against the CPU's fp32 result on the CPU's query selection, B=2: card bf16 max_abs_err"
+        f" boxes {errs['bf16'][0]:.3e}, scores {errs['bf16'][1]:.3e} (tol {SLICE_BF16_TOL:.0e}); card fp32 boxes"
+        f" {errs['fp32'][0]:.3e}, scores {errs['fp32'][1]:.3e}")
+    assert max(errs["bf16"]) <= SLICE_BF16_TOL, "card bf16 and CPU fp32 disagree"
+    # card bf16 against the CPU's bf16 result (the plain versions in bf16), one image
+    t0 = time.perf_counter()
+    cpu16 = ModelManager.get("fai-detr-l-coco", device="cpu", dtype="bfloat16")
+    cpu16.module.load_state_dict(model32.module.state_dict())
+    x_cpu = torch.from_numpy(batch[:1])
+    with torch.inference_mode():
+        idx, _ = selection(cpu16.module, x_cpu)
+        with carried_selection(cpu16.module.predictor, idx):
+            out16, _ = cpu16.module(x_cpu)
+    e16 = compare_to_cpu({"bf16": model.module}, (out16.boxes.float(), out16.logits.float(), idx), batch[:1])["bf16"]
+    log(f"[slice bf16] against the CPU's bf16 result on its selection, B=1 ({time.perf_counter() - t0:.1f}s on the"
+        f" CPU): card bf16 max_abs_err boxes {e16[0]:.3e}, scores {e16[1]:.3e} (tol {SLICE_BF16_TOL:.0e})")
+    assert max(e16) <= SLICE_BF16_TOL, "card bf16 and CPU bf16 disagree"
+    del cpu16
+
+    x1 = torch.from_numpy(batch[:1]).to(dev)
+    x16 = torch.from_numpy(batch).to(dev)
+    timings = serve_timings(model.module, {"b1": x1, "b16": x16}, {"b1": 30, "b16": 10})
+    fp32 = ctx["timings"]
+    log(f"[slice bf16] {smi}: b1 forward p50 {timings['b1'] * 1e3:.2f} ms; b16 forward p50 {timings['b16'] * 1e3:.2f} ms"
+        f" = {16 / timings['b16']:.1f} images/s | fp32 in this run: b1 {fp32['b1'] * 1e3:.2f} ms, b16"
+        f" {16 / fp32['b16']:.1f} images/s")
+    # b1 is host-bound and the host's speed drifts: fp32, bf16 and bf16 with every weight cast anew
+    # each forward (the cast-weight cache emptied before it), in turns
+    rounds = {"fp32": [], "bf16": [], "bf16, no cast cache": []}
+    for _ in range(6):
+        rounds["fp32"].append(serve_timings(model32.module, {"b1": x1}, {"b1": 8})["b1"])
+        rounds["bf16"].append(serve_timings(model.module, {"b1": x1}, {"b1": 8})["b1"])
+        rounds["bf16, no cast cache"].append(
+            serve_timings(model.module, {"b1": x1}, {"b1": 8}, before=lambda: clear_cast_caches(model.module))["b1"])
+    log("[slice bf16] b1 forward in turns, median of 6 rounds of 8 (each round's p50): "
+        + ", ".join(f"{k} {np.median(v) * 1e3:.2f} ms (rounds {min(v) * 1e3:.2f}-{max(v) * 1e3:.2f})"
+                    for k, v in rounds.items()))
+    log(f"[slice bf16] FocoosModel.benchmark(): {model.benchmark(iterations=20)}")
+
+    # both MSDA kernels on the bf16 values the last decoder layer samples in the b16 forward
+    v, ss, loc, aw = capture_msda_inputs(model.module, x16, n_dec - 1)
+    assert v.dtype == torch.bfloat16 and loc.dtype == aw.dtype == torch.float32
+    label = f"captured from decoder layer {n_dec - 1} of the bf16 b16 forward, B=16 Lq=300 Hh=8 D=32"
+    check_msda_forward(label, v, ss, loc, aw)
+    grad = torch.randn(v.shape[0], loc.shape[1], v.shape[2] * v.shape[3], generator=torch.Generator().manual_seed(9))
+    check_msda_backward(label, v, ss, loc, aw, grad.to(dev, torch.bfloat16))
+    prof = profile_forwards("slice bf16", "b16 forward bf16", model.module, x16)
+    profile_forwards("slice bf16", "b1 forward bf16", model.module, x1, n=4)
+    log(f"[slice bf16] cuDNN convolutions {prof['conv']:.1%} of the bf16 b16 forward's device time, fp32"
+        f" {ctx['profile']['conv']:.1%} in this run")
     return launches
 
 
@@ -586,7 +798,7 @@ def one_step_on(module, cfg, images: np.ndarray, targets, dev, assign=None) -> t
     return {k: float(v.detach()) for k, v in losses.items()}, norm, own.cpu(), anchors.cpu()
 
 
-def compare_train_step(gpu_model, cpu_model, cfg, ds) -> None:
+def compare_train_step(gpu_model, cpu_model, cfg, ds) -> dict:
     """Card vs CPU on one training step, same weights and batch of two.
 
     At random init the encoder's selection scores of 8400 anchors lie closer
@@ -597,7 +809,9 @@ def compare_train_step(gpu_model, cpu_model, cfg, ds) -> None:
     matches; its assignment is carried to the card by anchor identity; the
     card takes its losses on that assignment; every loss key and the
     gradient norm are compared. A pair whose selected sets differ is reported
-    and the next pair of images is tried."""
+    and the next pair of images is tried. Returns the compared pair's images
+    and targets, the CPU's losses, gradient norm, assignment and selection,
+    and the card's relative errors."""
     for start in range(0, len(ds) - 1, 2):
         images, targets = cpu_model.processor.train(True).preprocess_entries(ds[start:start + 2], max_instances=100)
         cpu_model.processor.train(False)
@@ -630,13 +844,17 @@ def compare_train_step(gpu_model, cpu_model, cfg, ds) -> None:
             f" grad_norm card {g_norm:.6f}, CPU {c_norm:.6f}, rel err {norm_rel:.3e} (tol {TRAIN_GRAD_NORM_RTOL:.0e})")
         assert errs[worst] <= TRAIN_LOSS_RTOL, f"{worst}: card {g_losses[worst]} vs CPU {c_losses[worst]}"
         assert norm_rel <= TRAIN_GRAD_NORM_RTOL, f"grad_norm: card {g_norm} vs CPU {c_norm}"
-        return
+        return dict(images=images, targets=targets, losses=c_losses, norm=c_norm, assign=c_assign, anchors=c_anchor,
+                    loss_rel=errs[worst], norm_rel=norm_rel)
     raise AssertionError("no pair of images could be compared between card and CPU")
 
 
 def device_busy(prof) -> tuple:
-    """(union of the CUDA kernel intervals in µs, {kernel name: summed µs})."""
-    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    """(union of the CUDA kernel intervals in µs, {kernel name: summed µs}).
+    Ranges that the code annotates on the card's timeline (the optimizer's
+    step) are not kernels and are left out."""
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     iv = sorted((e.time_range.start, e.time_range.end) for e in kern)
     busy, cur_s, cur_e = 0.0, None, None
     for a, b in iv:
@@ -674,6 +892,7 @@ def phase_train(dev, smi: str) -> dict:
     n_dec = cfg.transformer_predictor_dec_layers
     cpu_model = ModelManager.get("fai-detr-l-coco", device="cpu", init_weights=False)
     cpu_model.module.load_state_dict(model.module.state_dict())
+    initial = {k: v.detach().clone() for k, v in model.module.state_dict().items()}  # for the bf16 run
     ds = train_dataset(4 * TRAIN_BATCH, 640, seed=6)
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
     log(f"[train] {model.name} at full width and depth (perturbed as for the slice, then conditioned:"
@@ -688,7 +907,7 @@ def phase_train(dev, smi: str) -> dict:
     try:
         # card vs CPU on one step at B=2, before any update
         t0 = time.perf_counter()
-        compare_train_step(model, cpu_model, cfg, ds[:8])
+        pair = compare_train_step(model, cpu_model, cfg, ds[:8])
         log(f"[train] card vs CPU step compared in {time.perf_counter() - t0:.1f}s")
         model.module.zero_grad(set_to_none=True)
 
@@ -767,8 +986,93 @@ def phase_train(dev, smi: str) -> dict:
         log(f"[train] auction: {s_ * b_} problems of {n_}x{q_} ({int(t.valid.sum())} valid targets), "
             f"{batched_auction_assign.rounds} rounds, {auction_ms:.3f} ms alone = {auction_ms / (step_s * 1e3):.2%}"
             f" of the step")
+        fp32 = dict(step_s=step_s, peak=peak, conv=kernel_shares(by_name, busy)["conv"])
+        log(f"[train] cuDNN convolutions {fp32['conv']:.1%} of the profiled fp32 step's device time")
+        del model, cpu_model, trainer
+        launches16 = train_bf16(dev, smi, initial, pair, ds, args, fp32)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+    return launches, launches16
+
+
+def train_bf16(dev, smi: str, initial: dict, pair: dict, ds: list, args, fp32: dict) -> dict:
+    """fai-detr-l training in bf16 compute from the fp32 phase's initial
+    (conditioned) weights: one step against the CPU's fp32 step, the main
+    path's launches, timed steps and a profiled step."""
+    from focoos_tpu_torch import ModelManager
+    from focoos_tpu_torch.ops.msda import msda_backward, msda_forward
+    from focoos_tpu_torch.trainer.trainer import FocoosTrainer
+
+    model = ModelManager.get("fai-detr-l-coco", device=dev, dtype="bfloat16")
+    model.module.load_state_dict(initial)
+    cfg = model.config
+    n_dec = cfg.transformer_predictor_dec_layers
+
+    # one step on the CPU's selection and assignment, against the CPU's fp32 step
+    with carried_selection(model.module.predictor, pair["anchors"]):
+        losses, norm, _, _ = one_step_on(model.module, cfg, pair["images"], pair["targets"], dev, assign=pair["assign"])
+    model.module.zero_grad(set_to_none=True)
+    total = pair["losses"]["total"]
+    errs = {k: abs(losses[k] - v) / abs(total) for k, v in pair["losses"].items()}
+    rel = {k: abs(losses[k] - v) / max(abs(v), 1e-12) for k, v in pair["losses"].items()}
+    worst, worst_rel = max(errs, key=errs.get), max(rel, key=rel.get)
+    norm_rel = abs(norm - pair["norm"]) / pair["norm"]
+    log(f"[train bf16] card bf16 vs CPU fp32 on the CPU's selection and assignment: {len(errs)} loss keys, largest"
+        f" difference {errs[worst]:.3e} of the total ({worst}; tol {TRAIN_BF16_TOL:.0e}), largest relative"
+        f" {rel[worst_rel]:.3e} ({worst_rel}); total card {losses['total']:.6f}, CPU {total:.6f}; grad_norm card"
+        f" {norm:.6f}, CPU {pair['norm']:.6f}, rel err {norm_rel:.3e} (tol {TRAIN_BF16_GRAD_NORM_RTOL})"
+        f" | card fp32 vs CPU: max rel err {pair['loss_rel']:.3e}, grad_norm {pair['norm_rel']:.3e}")
+    assert errs[worst] <= TRAIN_BF16_TOL, f"{worst}: card bf16 {losses[worst]} vs CPU fp32 {pair['losses'][worst]}"
+    assert norm_rel <= TRAIN_BF16_GRAD_NORM_RTOL, f"grad_norm: card bf16 {norm} vs CPU fp32 {pair['norm']}"
+
+    # the main path: FocoosModel.train in bf16; counts at 0 just before, read just after
+    steps = 3
+    msda_forward.launches = 0
+    msda_backward.launches = 0
+    msda_forward.paths = {"vector": 0, "general": 0}
+    msda_backward.paths = {"vector": 0, "general": 0}
+    res = model.train(args(steps), ds)
+    torch.cuda.synchronize()
+    launches = {"msda_forward": msda_forward.launches, "msda_backward": msda_backward.launches}
+    log(f"[train bf16] FocoosModel.train ran {res['iterations']} steps: launches msda_forward"
+        f" {launches['msda_forward']} (paths {msda_forward.paths}), msda_backward {launches['msda_backward']}"
+        f" (paths {msda_backward.paths})")
+    assert launches["msda_forward"] == n_dec * steps and launches["msda_backward"] == n_dec * steps
+    assert msda_backward.paths["vector"] == n_dec * steps, "the bf16 step left the MSDA backward's vector path"
+    assert all(p.dtype == torch.float32 for p in model.module.parameters()), "parameters left fp32"
+
+    warm, timed = 2, 10
+    torch.cuda.reset_peak_memory_stats()
+    trainer = FocoosTrainer(model, args(warm + timed), ds)
+    trainer.train()
+    torch.cuda.synchronize()
+    times = [v for v, _ in trainer.loop.storage.history("time").values()][warm:]
+    step_s = float(np.median(times))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert all(np.isfinite(v) for v, _ in trainer.loop.storage.history("total_loss").values())
+    log(f"[train bf16] {smi}, bf16 compute, B={TRAIN_BATCH} 640²: step p50 {step_s * 1e3:.2f} ms"
+        f" (min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}, {timed} steps) = {TRAIN_BATCH / step_s:.1f}"
+        f" images/s; peak memory allocated {peak:.2f} GiB | fp32 in this run: {fp32['step_s'] * 1e3:.2f} ms ="
+        f" {TRAIN_BATCH / fp32['step_s']:.1f} images/s, {fp32['peak']:.2f} GiB")
+
+    model.processor.train(True)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.loop.run_step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e6
+    model.processor.train(False)
+    model.module.eval()
+    busy, by_name = device_busy(prof)
+    sh = kernel_shares(by_name, busy)
+    bwd = sum(v for k, v in by_name.items() if "msda_backward_" in k)
+    log(f"[train bf16] profiled step: wall {wall / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms, idle share"
+        f" {1 - busy / wall:.3f}; cuDNN convolutions {sh['conv']:.1%} of busy (fp32 step {fp32['conv']:.1%}),"
+        f" layout transposes {sh['transpose']:.1%}; MSDA backward kernel {bwd / 1e3:.3f} ms ({bwd / busy:.2%})")
+    for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[train bf16]   {v / 1e3:9.3f} ms {v / busy:6.1%}  {k[:110]}")
     return launches
 
 
@@ -909,20 +1213,24 @@ def explain_flip(cfg, boxes: torch.Tensor, scores: torch.Tensor) -> tuple:
     return pre_gap, out_gap, iou_gap
 
 
-def compare_rtmo_devices(gpu_model, cpu_model, x_uint8: np.ndarray) -> int:
+def rtmo_run(module, x_uint8: np.ndarray) -> tuple:
+    """(outputs {field: [B, D, ...] on the CPU}, rtmo_selection) of one forward."""
+    x = torch.from_numpy(x_uint8).to(next(module.parameters()).device)
+    with torch.inference_mode():
+        out, _ = module(x)
+    return ({f: getattr(out, f).float().cpu() for f in ("scores", "boxes", "keypoints", "keypoints_scores")},
+            rtmo_selection(module, x))
+
+
+def compare_rtmo_devices(gpu_model, cpu_model, x_uint8: np.ndarray) -> tuple:
     """Forward the same batch on both modules and match valid detections by
-    anchor index (torch.topk breaks ties in no fixed order, and an invalid
-    slot carries an arbitrary index). An image whose selected anchors differ
-    is reported; it must show a near-tie (score gap at a cut-off, or an IoU
-    at the threshold) and is then left out. Returns the images compared."""
-    outs, sels = [], []
-    for m in (gpu_model, cpu_model):
-        x = torch.from_numpy(x_uint8).to(next(m.parameters()).device)
-        with torch.inference_mode():
-            out, _ = m(x)
-        outs.append({f: getattr(out, f).float().cpu() for f in ("scores", "boxes", "keypoints", "keypoints_scores")})
-        sels.append(rtmo_selection(m, x))
-    (g_idx, g_valid, _, _), (c_idx, c_valid, c_boxes, c_scores) = sels
+    anchor index (an invalid slot carries the index of a zero score). An
+    image whose selected anchors differ is reported; it must show a near-tie
+    (score gap at a cut-off, or an IoU at the threshold) and is then left
+    out. Returns (the images compared, the CPU's ``rtmo_run``)."""
+    runs = [rtmo_run(m, x_uint8) for m in (gpu_model, cpu_model)]
+    outs = [r[0] for r in runs]
+    (g_idx, g_valid, _, _), (c_idx, c_valid, c_boxes, c_scores) = [r[1] for r in runs]
     compared = 0
     for b in range(x_uint8.shape[0]):
         ga = {int(a): r for r, a in enumerate(g_idx[b]) if g_valid[b, r]}
@@ -947,7 +1255,28 @@ def compare_rtmo_devices(gpu_model, cpu_model, x_uint8: np.ndarray) -> int:
             + ", ".join(f"{f} {e:.3e}" for f, e in errs.items())
             + f" (tol {RTMO_TOL:.0e}, x max|ref| for boxes and keypoints)")
         compared += 1
-    return compared
+    return compared, runs[1]
+
+
+def compare_rtmo_to_cpu(gpu_model, cpu_run: tuple, x_uint8: np.ndarray) -> dict:
+    """A card module's detections against a CPU run's (``rtmo_run``) on the anchors
+    both keep (bf16 rounding may move a candidate across a cut-off or the NMS
+    threshold) → {field: max_abs_err}, and the anchors compared / kept."""
+    (g_out, (g_idx, g_valid, _, _)), (c_out, (c_idx, c_valid, _, _)) = rtmo_run(gpu_model, x_uint8), cpu_run
+    errs, n_common, n_kept = {f: 0.0 for f in c_out}, 0, 0
+    for b in range(x_uint8.shape[0]):
+        ga = {int(a): r for r, a in enumerate(g_idx[b]) if g_valid[b, r]}
+        ca = {int(a): r for r, a in enumerate(c_idx[b]) if c_valid[b, r]}
+        common = sorted(set(ga) & set(ca))
+        n_common, n_kept = n_common + len(common), n_kept + len(ca)
+        if not common:
+            continue
+        rows_g, rows_c = torch.tensor([ga[a] for a in common]), torch.tensor([ca[a] for a in common])
+        for f in c_out:
+            gv, cv = g_out[f][b][rows_g], c_out[f][b][rows_c]
+            scale = float(cv.abs().max()) if f in ("boxes", "keypoints") else 1.0
+            errs[f] = max(errs[f], float((gv - cv).abs().max()) / scale)
+    return {"errs": errs, "common": n_common, "kept": n_kept}
 
 
 def check_keypoint_detections(results, n_images: int, what: str) -> int:
@@ -1010,24 +1339,13 @@ def phase_rtmo(dev, smi: str) -> dict:
     t0 = time.perf_counter()
     cpu_model = ModelManager.get("rtmo-l-coco", device="cpu", init_weights=False)
     cpu_model.module.load_state_dict(model.module.state_dict())
-    compared = compare_rtmo_devices(model.module, cpu_model.module, batch[:2])
+    compared, cpu_run = compare_rtmo_devices(model.module, cpu_model.module, batch[:2])
     assert compared >= 1, "no image could be compared between card and CPU"
     log(f"[rtmo] card vs CPU: {compared}/2 images compared ({time.perf_counter() - t0:.1f}s)")
 
     # latency and throughput of the forward (host clock around synchronized calls)
-    timings = {}
-    for name, x, reps in (("b1", torch.from_numpy(batch[:1]).to(dev), 30), ("b16", torch.from_numpy(batch).to(dev), 10)):
-        with torch.inference_mode():
-            for _ in range(3):
-                model.module(x)
-            torch.cuda.synchronize()
-            ts = []
-            for _ in range(reps):
-                t = time.perf_counter()
-                model.module(x)
-                torch.cuda.synchronize()
-                ts.append(time.perf_counter() - t)
-        timings[name] = float(np.median(ts))
+    xs = {"b1": torch.from_numpy(batch[:1]).to(dev), "b16": torch.from_numpy(batch).to(dev)}
+    timings = serve_timings(model.module, xs, {"b1": 30, "b16": 10})
     e2e = []
     for _ in range(10):
         t = time.perf_counter()
@@ -1037,6 +1355,66 @@ def phase_rtmo(dev, smi: str) -> dict:
         f" b16 forward p50 {timings['b16'] * 1e3:.2f} ms = {16 / timings['b16']:.1f} images/s;"
         f" infer() 480x640 end to end p50 {np.median(e2e) * 1e3:.2f} ms")
     log(f"[rtmo] FocoosModel.benchmark(): {model.benchmark(iterations=20)}")
+    return {"nms_keep": launches}, dict(model=model, cpu_model=cpu_model, cpu_run=cpu_run, batch=batch, images=images,
+                                        timings=timings)
+
+
+def phase_rtmo_bf16(dev, smi: str, ctx: dict) -> dict:
+    """rtmo-l serving in bf16 compute on the fp32 phase's weights."""
+    from focoos_tpu_torch import ModelManager
+    from focoos_tpu_torch.ops.nms import nms_keep
+
+    batch, images = ctx["batch"], ctx["images"]
+    model = ModelManager.get("rtmo-l-coco", device=dev, dtype="bfloat16")
+    model.module.load_state_dict(ctx["model"].module.state_dict())
+    log(f"[rtmo bf16] {model.name} with dtype=bfloat16 (fp32 parameters), the fp32 phase's weights")
+    nms_keep.launches = 0
+    single = [model.infer(img) for img in images]
+    multi = model(batch)
+    torch.cuda.synchronize()
+    launches = nms_keep.launches
+    log(f"[rtmo bf16] served {len(images)} infer() requests and one batch of {len(batch)}: nms_keep launched"
+        f" {launches} times")
+    assert launches == len(images) + 1, "the NMS kernel did not run once per forward"
+    n = sum(check_keypoint_detections([r], 1, "infer bf16") for r in single)
+    n += check_keypoint_detections(multi, 16, "batch bf16")
+
+    res = compare_rtmo_to_cpu(model.module, ctx["cpu_run"], batch[:2])
+    log(f"[rtmo bf16] {n} detections well-formed; card bf16 vs CPU fp32 on the {res['common']} of the CPU's"
+        f" {res['kept']} kept anchors that both keep: max_abs_err "
+        + ", ".join(f"{f} {e:.3e}" for f, e in res["errs"].items()) + " (x max|ref| for boxes and keypoints)")
+    assert res["common"] >= res["kept"] // 2, "card bf16 and CPU fp32 keep too few of the same anchors"
+
+    # raw head outputs of one image: card bf16 and CPU bf16, each against the CPU's fp32
+    t0 = time.perf_counter()
+    cpu16 = ModelManager.get("rtmo-l-coco", device="cpu", dtype="bfloat16")
+    cpu16.module.load_state_dict(ctx["model"].module.state_dict())
+    x1 = torch.from_numpy(batch[:1])
+    fields = ("cls_scores", "bbox_preds", "kpt_offsets", "kpt_vis", "pose_feats")
+    with torch.inference_mode():
+        raw = {name: m.raw_outputs(x1.to(next(m.parameters()).device))
+               for name, m in (("card16", model.module), ("cpu16", cpu16.module), ("cpu32", ctx["cpu_model"].module))}
+    for f in fields:
+        card, cpu, ref = (getattr(raw[k], f).float().cpu() for k in ("card16", "cpu16", "cpu32"))
+        d_card, d_cpu = float((card - ref).abs().max()), float((cpu - ref).abs().max())
+        scale = float(ref.abs().max())
+        log(f"[rtmo bf16] {f}: from the CPU's fp32, card bf16 {d_card:.3e}, CPU bf16 {d_cpu:.3e} (max|ref| {scale:.3e});"
+            f" card bf16 vs CPU bf16 {float((card - cpu).abs().max()):.3e}")
+        assert d_card <= 2 * d_cpu + 2.0**-8 * scale, f"{f}: card bf16 moved {d_card} from fp32, CPU bf16 {d_cpu}"
+    res = compare_rtmo_to_cpu(model.module, rtmo_run(cpu16.module, batch[:1]), batch[:1])
+    log(f"[rtmo bf16] card bf16 vs CPU bf16, B=1 ({time.perf_counter() - t0:.1f}s on the CPU in all), on the"
+        f" {res['common']} of the CPU's {res['kept']} kept anchors that both keep: max_abs_err "
+        + ", ".join(f"{f} {e:.3e}" for f, e in res["errs"].items()) + " (x max|ref| for boxes and keypoints)")
+    assert res["common"] >= res["kept"] // 2, "card bf16 and CPU bf16 keep too few of the same anchors"
+    del cpu16
+
+    xs = {"b1": torch.from_numpy(batch[:1]).to(dev), "b16": torch.from_numpy(batch).to(dev)}
+    timings = serve_timings(model.module, xs, {"b1": 30, "b16": 10})
+    fp32 = ctx["timings"]
+    log(f"[rtmo bf16] {smi}: b1 forward p50 {timings['b1'] * 1e3:.2f} ms; b16 forward p50"
+        f" {timings['b16'] * 1e3:.2f} ms = {16 / timings['b16']:.1f} images/s | fp32 in this run: b1"
+        f" {fp32['b1'] * 1e3:.2f} ms, b16 {16 / fp32['b16']:.1f} images/s")
+    profile_forwards("rtmo bf16", "b16 forward bf16", model.module, xs["b16"])
     return {"nms_keep": launches}
 
 
@@ -1069,24 +1447,41 @@ def main() -> int:
     msda = phase_msda(dev)
     msda_bwd = phase_msda_backward(dev)
     stem = phase_stem(dev)
-    launches = phase_slice(dev, smi)
-    train_launches = phase_train(dev, smi)
+    launches, slice_ctx = phase_slice(dev, smi)
+    launches16 = phase_slice_bf16(dev, smi, slice_ctx)
+    del slice_ctx
+    train_launches, train_launches16 = phase_train(dev, smi)
     nms = phase_nms(dev)
-    launches.update(phase_rtmo(dev, smi))
+    rtmo_launches, rtmo_ctx = phase_rtmo(dev, smi)
+    launches.update(rtmo_launches)
+    launches16.update(phase_rtmo_bf16(dev, smi, rtmo_ctx))
+    del rtmo_ctx
 
     # library_ms: no single PyTorch call computes any of these functions (MSDA needs a
     # grid_sample per level and a weighted sum; the stem three convs, BN, ReLU and a
     # pool; torchvision's NMS is absent on the card's machine and takes one image)
+    # the fp32 record's keys, then the bf16 path's: its launches (counted on the bf16 main
+    # paths) and the kernel's bf16 time, plain time, bound and share at the same shapes
+    def bf16(rec: dict, n: int) -> dict:
+        return {"launches_bf16": n, "bf16_ms": rec["ms"], "bf16_plain_ms": rec["plain_ms"],
+                "bf16_max_abs_err": rec["max_abs_err"], "bf16_bound_ms": rec["bound_ms"],
+                "bf16_bound_by": rec["bound_by"], "bf16_share": rec["bound_ms"] / rec["ms"]}
+
+    f32, b16 = torch.float32, torch.bfloat16
     kernels = [
         {"name": "msda_forward", "route": "cuda", "source": "focoos_tpu_torch/csrc/msda.cu",
-         "replaces": "focoos_tpu/ops/pallas/msda.py:132", "launches": launches["msda_forward"], **msda},
+         "replaces": "focoos_tpu/ops/pallas/msda.py:132", "launches": launches["msda_forward"], **msda[f32],
+         **bf16(msda[b16], launches16["msda_forward"])},
         {"name": "msda_backward", "route": "cuda", "source": "focoos_tpu_torch/csrc/msda_bwd.cu",
-         "replaces": "focoos_tpu/ops/pallas/msda.py:177", "launches": train_launches["msda_backward"], **msda_bwd},
+         "replaces": "focoos_tpu/ops/pallas/msda.py:177", "launches": train_launches["msda_backward"],
+         **msda_bwd[f32], **bf16(msda_bwd[b16], train_launches16["msda_backward"])},
         {"name": "fused_resnet_stem", "route": "cuda", "source": "focoos_tpu_torch/csrc/stem.cu",
-         "replaces": "focoos_tpu/ops/pallas/stem.py:224", "launches": launches["fused_resnet_stem"], **stem,
-         "path": None},
+         "replaces": "focoos_tpu/ops/pallas/stem.py:224", "launches": launches["fused_resnet_stem"], **stem[f32],
+         **bf16(stem[b16], launches16["fused_resnet_stem"]), "path": None},
+        # a bf16 rtmo forward hands NMS fp32 boxes and scores: the same fp32 kernel
         {"name": "nms_keep", "route": "cuda", "source": "focoos_tpu_torch/csrc/nms.cu",
-         "replaces": "focoos_tpu/ops/pallas/nms_kernel.py:59", "launches": launches["nms_keep"], **nms, "path": None},
+         "replaces": "focoos_tpu/ops/pallas/nms_kernel.py:59", "launches": launches["nms_keep"], **nms, "path": None,
+         **bf16(nms, launches16["nms_keep"])},
     ]
     for k in kernels:
         k["library_ms"] = None

@@ -5,7 +5,8 @@ focoos/model_manager.py).
 registry (``focoos_tpu_torch.model_registry``, the port's copy of the cards) or a local run
 dir, builds the family's ``nn.Module``, initializes it from a seeded
 ``torch.Generator`` or loads the JAX package's ``model_final.npz``, and wraps
-it in a ``FocoosModel`` on the requested device.
+it in a ``FocoosModel`` on the requested device, computing in the requested
+dtype (the parameters stay fp32).
 """
 
 from __future__ import annotations
@@ -110,13 +111,18 @@ class ModelManager:
         image_size: Optional[Union[int, tuple]] = None,
         init_weights: bool = True,
         seed: int = 0,
+        dtype: Optional[Union[str, torch.dtype]] = None,
         **config_overrides: Any,
     ):
         """Resolve + build a model on ``device`` (default ``"cuda"``; raises
         when CUDA is absent and no device was named). ``name`` may be a
         registry name or a local run dir holding model_info.json (and
         optionally the JAX package's model_final.npz).
-        ``seed`` seeds the random init of every weight not loaded."""
+        ``seed`` seeds the random init of every weight not loaded. ``dtype``
+        is the compute dtype (None or "float32", "bfloat16", or a
+        ``torch.dtype``), as the JAX package's ``dtype=`` (model_manager.py:123,
+        173-178): parameters, statistics, gradients and optimizer state stay
+        fp32; ``FocoosModel`` carries it."""
         from focoos_tpu_torch.models.focoos_model import FocoosModel
 
         if device is None:
@@ -157,4 +163,5 @@ class ModelManager:
             weights_dir=weights_dir,
             init_weights=init_weights,
             seed=seed,
+            dtype=dtype,
         )

@@ -12,13 +12,20 @@ In eval this is the serving forward; in train mode the BatchNorms take batch
 statistics and the decoder's gradient follows the JAX graph: stopped at the
 selected queries and first boxes, and at each layer's refined boxes before
 they feed the next layer (``focoos_tpu/models/fai_detr/modelling.py:360-393``).
+
+In a bf16 model (``compute_dtype``, ``nn/layers/common.py``) the dtypes are
+flax's: the image is normalized in fp32, then cast; convolutions, dense
+layers, attention and BatchNorm outputs are bf16; the LayerNorms of AIFI and
+the decoder are fp32, so the decoder's residual stream, its queries and the
+MSDA sampling locations and attention weights are fp32 and only the MSDA
+value is bf16; anchors, box arithmetic and every output are fp32.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,7 +38,11 @@ from focoos_tpu_torch.nn.backbone.base import BaseBackbone
 from focoos_tpu_torch.nn.layers.common import (
     MLP,
     BatchNorm,
+    ComputeDtype,
+    Conv2d,
     ConvNorm,
+    LayerNorm,
+    Linear,
     MultiHeadAttention,
     TransformerEncoderLayer,
     bilinear_resize,
@@ -41,6 +52,7 @@ from focoos_tpu_torch.nn.layers.common import (
 )
 from focoos_tpu_torch.ops.boxes import box_cxcywh_to_xyxy, inverse_sigmoid
 from focoos_tpu_torch.ops.msda import msda_forward
+from focoos_tpu_torch.ops.topk import topk_lowest_index_first
 
 
 class RepVggBlock(nn.Module):
@@ -98,7 +110,7 @@ class HybridEncoder(nn.Module):
         self.feat_dim = feat_dim
         shapes = backbone.output_shape()
         self.input_proj = nn.ModuleList(
-            nn.Sequential(nn.Conv2d(shapes[k].channels, feat_dim, 1, bias=False), BatchNorm(feat_dim))
+            nn.Sequential(Conv2d(shapes[k].channels, feat_dim, 1, bias=False), BatchNorm(feat_dim))
             for k in ("res3", "res4", "res5")
         )
         layers = [TransformerEncoderLayer(feat_dim, nhead, dim_feedforward, activation="gelu")
@@ -156,17 +168,20 @@ def _msda_offset_bias_init(num_heads: int, num_levels: int, num_points: int) -> 
 
 class MSDeformableAttention(nn.Module):
     """Multi-scale deformable attention (reference: fai_detr/modelling.py:777-884).
-    The sampling runs in ``ops/msda.py::msda_forward`` (the CUDA kernel on the card)."""
+    The sampling runs in ``ops/msda.py::msda_forward`` (the CUDA kernel on the card)
+    on the value in the compute dtype and fp32 locations and weights: the
+    offsets are added to the fp32 boxes and the softmax is fp32, cast to the
+    query's dtype, fp32 after the decoder's LayerNorms (JAX :219-230)."""
 
     def __init__(self, embed_dim: int = 256, num_heads: int = 8, num_levels: int = 3, num_points: int = 4):
         super().__init__()
         self.embed_dim, self.num_heads = embed_dim, num_heads
         self.num_levels, self.num_points = num_levels, num_points
         total = num_heads * num_levels * num_points
-        self.sampling_offsets = nn.Linear(embed_dim, total * 2)
-        self.attention_weights = nn.Linear(embed_dim, total)
-        self.value_proj = nn.Linear(embed_dim, embed_dim)
-        self.output_proj = nn.Linear(embed_dim, embed_dim)
+        self.sampling_offsets = Linear(embed_dim, total * 2)
+        self.attention_weights = Linear(embed_dim, total)
+        self.value_proj = Linear(embed_dim, embed_dim)
+        self.output_proj = Linear(embed_dim, embed_dim)
         self.reset_sampling_parameters()
 
     @torch.no_grad()
@@ -206,12 +221,12 @@ class DecoderLayer(nn.Module):
                  n_points: int = 4):
         super().__init__()
         self.self_attn = MultiHeadAttention(d_model, n_head)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm1 = LayerNorm(d_model, eps=1e-5)
         self.cross_attn = MSDeformableAttention(d_model, n_head, n_levels, n_points)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
-        self.linear1 = nn.Linear(d_model, dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, d_model)
-        self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm2 = LayerNorm(d_model, eps=1e-5)
+        self.linear1 = Linear(d_model, dim_feedforward)
+        self.linear2 = Linear(dim_feedforward, d_model)
+        self.norm3 = LayerNorm(d_model, eps=1e-5)
 
     def forward(self, tgt, reference_points, memory, spatial_shapes, query_pos=None):
         q = tgt if query_pos is None else tgt + query_pos
@@ -277,10 +292,10 @@ class TransformerPredictor(nn.Module):
             for _ in range(dec_layers)
         )})
         self.query_pos_head = MLP(4, 2 * hidden_dim, hidden_dim, 2)
-        self.enc_output = nn.Sequential(nn.Linear(hidden_dim, hidden_dim), nn.LayerNorm(hidden_dim, eps=1e-5))
-        self.enc_score_classifier = nn.Linear(hidden_dim, num_classes)
+        self.enc_output = nn.Sequential(Linear(hidden_dim, hidden_dim), LayerNorm(hidden_dim, eps=1e-5))
+        self.enc_score_classifier = Linear(hidden_dim, num_classes)
         self.enc_bbox_classifier = MLP(hidden_dim, hidden_dim, 4, 3)
-        self.dec_score_classifier = nn.ModuleList(nn.Linear(hidden_dim, num_classes) for _ in range(dec_layers))
+        self.dec_score_classifier = nn.ModuleList(Linear(hidden_dim, num_classes) for _ in range(dec_layers))
         self.dec_bbox_classifier = nn.ModuleList(MLP(hidden_dim, hidden_dim, 4, 3) for _ in range(dec_layers))
 
     def flatten_levels(self, feats: Sequence[torch.Tensor]):
@@ -292,10 +307,13 @@ class TransformerPredictor(nn.Module):
             spatial_shapes.append((int(x.shape[2]), int(x.shape[3])))
         return torch.cat(tokens, dim=1), spatial_shapes
 
-    def select_queries(self, memory: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]]):
-        """Encoder top-k query selection (reference :1191-1232) →
-        (topk_idx [B, Q], target [B, Q, C], ref_unact [B, Q, 4] fp32,
-        enc_topk_logits [B, Q, ncls], enc_topk_boxes [B, Q, 4])."""
+    def select_queries(self, memory: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                       topk_idx: Optional[torch.Tensor] = None):
+        """Encoder top-k query selection (reference :1191-1232), equal scores
+        in ``jax.lax.top_k``'s order → (topk_idx [B, Q], target [B, Q, C],
+        ref_unact [B, Q, 4] fp32, enc_topk_logits [B, Q, ncls], enc_topk_boxes
+        [B, Q, 4]). ``topk_idx``, when given, replaces the top-k: two runs
+        (two devices, two dtypes) are then compared on one selection."""
         anchors, valid = _anchor_tensors(tuple(spatial_shapes), memory.device)
         out_mem = self.enc_output(memory * valid.to(memory.dtype))
         enc_logits = self.enc_score_classifier(out_mem)  # [B, S, ncls]
@@ -305,9 +323,10 @@ class TransformerPredictor(nn.Module):
         # small inputs can have fewer anchor positions than queries: select
         # what exists and tile the rest (duplicates are harmless)
         k = min(self.num_queries, scores.shape[1])
-        topk_idx = torch.topk(scores, k, dim=1).indices  # [B, k]
-        if k < self.num_queries:
-            topk_idx = topk_idx.repeat(1, -(-self.num_queries // k))[:, : self.num_queries]
+        if topk_idx is None:
+            topk_idx = topk_lowest_index_first(scores, k, dim=1)[1]  # [B, k]
+            if k < self.num_queries:
+                topk_idx = topk_idx.repeat(1, -(-self.num_queries // k))[:, : self.num_queries]
 
         def gather_q(x):
             return torch.gather(x, 1, topk_idx[..., None].expand(-1, -1, x.shape[-1]))
@@ -350,11 +369,12 @@ class TransformerPredictor(nn.Module):
         )
 
 
-class FAIDetr(nn.Module):
+class FAIDetr(ComputeDtype, nn.Module):
     """RT-DETR top-level module (reference: fai_detr/modelling.py:1273-1358).
 
     ``forward(images NHWC uint8 or float) -> (DETRModelOutput, DETRAuxOutputs)``;
-    normalization happens on the device.
+    normalization happens on the device, in fp32, before the cast to the
+    compute dtype (JAX :417-421).
     """
 
     def __init__(self, config: DETRConfig, backbone: BaseBackbone):
@@ -387,7 +407,7 @@ class FAIDetr(nn.Module):
 
     def encode(self, images: torch.Tensor) -> List[torch.Tensor]:
         """Normalize NHWC images and run backbone + hybrid encoder → [p5, p4, p3]."""
-        x = (images.float() - self.pixel_mean) / self.pixel_std
+        x = ((images.float() - self.pixel_mean) / self.pixel_std).to(self.compute_dtype)
         return self.pixel_decoder(x.permute(0, 3, 1, 2))
 
     def forward(self, images: torch.Tensor):

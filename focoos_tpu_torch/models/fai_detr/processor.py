@@ -17,13 +17,15 @@ from focoos_tpu_torch.structures import Boxes, ImageList, Instances
 from focoos_tpu_torch.models.fai_detr.config import DETRConfig
 from focoos_tpu_torch.models.fai_detr.ports import DETRModelOutput, DETRTargets
 from focoos_tpu_torch.processor.base_processor import Processor
+from focoos_tpu_torch.ops.topk import topk_lowest_index_first
 
 
 def _decode_topk(logits: torch.Tensor, boxes: torch.Tensor, top_k: int):
-    """[B,Q,C] scores + [B,Q,4] boxes → per-image flat top-k over Q×C
-    (reference: fai_detr/processor.py:146-151) → numpy (scores, labels, boxes)."""
+    """[B,Q,C] scores + [B,Q,4] boxes → per-image flat top-k over Q×C, ties
+    in ``jax.lax.top_k``'s order (reference: fai_detr/processor.py:146-151)
+    → numpy (scores, labels, boxes)."""
     b, q, c = logits.shape
-    scores, idx = torch.topk(logits.reshape(b, q * c), min(top_k, q * c), dim=1)
+    scores, idx = topk_lowest_index_first(logits.reshape(b, q * c), min(top_k, q * c), dim=1)
     labels = idx % c
     sel = torch.gather(boxes, 1, (idx // c)[..., None].expand(-1, -1, 4))
     return scores.cpu().numpy(), labels.cpu().numpy(), sel.cpu().numpy()

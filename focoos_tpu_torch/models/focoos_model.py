@@ -4,7 +4,9 @@ focoos_tpu/models/focoos_model.py; reference: focoos/models/focoos_model.py).
 Owns ``(nn.Module on a device, ModelInfo, Processor)`` and exposes the
 reference's verbs. The forward runs eagerly under ``torch.inference_mode()``;
 ``train`` runs the port's trainer (fai_detr). Evaluation and export are
-ported in later slices (ROADMAP Queue 1).
+ported in later slices (ROADMAP Queue 1). The model computes in its
+``compute_dtype`` (fp32 or bf16) with fp32 parameters, as the JAX package's
+FocoosModel (focoos_model.py:48,53).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from focoos_tpu_torch.nn.layers.common import set_compute_dtype
 from focoos_tpu_torch.ports import (
     ArtifactName,
     FocoosDetections,
@@ -31,6 +34,21 @@ from focoos_tpu_torch.utils.weights import from_jax_variables
 
 logger = get_logger(__name__)
 
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _compute_dtype(dtype: Optional[Union[str, torch.dtype]], device: torch.device) -> torch.dtype:
+    """None, "float32", "bfloat16" or a ``torch.dtype`` → the torch dtype;
+    raises on any other, and on bf16 for a card without it."""
+    if dtype is None:
+        return torch.float32
+    dt = dtype if isinstance(dtype, torch.dtype) else _DTYPES.get(str(dtype))
+    if dt not in _DTYPES.values():
+        raise ValueError(f"dtype must be None, 'float32' or 'bfloat16', got {dtype!r}")
+    if dt == torch.bfloat16 and device.type == "cuda" and not torch.cuda.is_bf16_supported():
+        raise RuntimeError(f"dtype bfloat16: {torch.cuda.get_device_name(device)} has no bf16")
+    return dt
+
 
 class FocoosModel:
     """High-level model API (reference: focoos/models/focoos_model.py:100)."""
@@ -44,10 +62,13 @@ class FocoosModel:
         weights_dir: Optional[str] = None,
         init_weights: bool = True,
         seed: int = 0,
+        dtype: Optional[Union[str, torch.dtype]] = None,
     ):
         self.config = config
         self.model_info = model_info
         self.device = torch.device(device)
+        self.dtype = _compute_dtype(dtype, self.device)
+        self.compute_dtype = str(self.dtype).removeprefix("torch.")  # "float32" or "bfloat16", as JAX names it
         self.processor = ProcessorManager.get_processor(model_info.model_family, config, model_info.im_size)
         local = os.path.join(weights_dir, ArtifactName.WEIGHTS.value) if weights_dir else None
         if init_weights and local and os.path.isfile(local):
@@ -55,6 +76,7 @@ class FocoosModel:
         else:
             # made on the CPU from the seed, so a seed gives the same model on every device
             module.init_weights(torch.Generator().manual_seed(seed))
+        set_compute_dtype(module, self.dtype)
         self.module = module.to(self.device).eval()
 
     @property
@@ -84,7 +106,8 @@ class FocoosModel:
 
     # ------------------------------------------------------------------
     def forward(self, images: Union[np.ndarray, torch.Tensor]):
-        """Raw batched forward: NHWC uint8/float → family ModelOutput."""
+        """Raw batched forward: NHWC uint8/float → family ModelOutput (fp32
+        outputs in either compute dtype)."""
         x = torch.as_tensor(images).to(self.device)
         with torch.inference_mode():
             out, _aux = self.module(x)
@@ -178,7 +201,9 @@ class FocoosModel:
         """Fine-tune on ``train_dataset`` (a sequence of DatasetEntry) on the
         model's device (reference: focoos_model.py:221-274) → {"run_dir",
         "metrics", "iterations"}; the module ends in eval mode holding the
-        final (EMA when enabled) weights."""
+        final (EMA when enabled) weights. The step computes in the model's
+        dtype with fp32 parameters, gradients and optimizer state, as the
+        JAX trainer does: ``args.amp_enabled`` is not read."""
         from focoos_tpu_torch.trainer.trainer import run_train
 
         return run_train(self, args, train_dataset, val_dataset)

@@ -15,6 +15,13 @@ for the whole batch. Parameter names are the reference's torch names, which
 ``focoos_tpu.utils.torch_convert.rtmo_rules`` maps. Images enter NHWC; conv
 activations are NCHW. The module computes the eval forward; training (SimOTA,
 the MLE loss, DCC's masked train statistics) is not ported yet.
+
+In a bf16 model (``compute_dtype``, ``nn/layers/common.py``) the dtypes are
+flax's: the image is normalized in fp32, then cast; convolutions, dense
+layers, attention and BatchNorm outputs are bf16; the AIFI LayerNorms are
+fp32; the head's outputs are cast to fp32 (JAX :496-499), so the box decode,
+the scores and NMS see fp32; DCC encodes its bins from fp32 positions and
+decodes fp32 heatmaps (JAX :271-272, :374-380, :395-396).
 """
 
 from __future__ import annotations
@@ -32,7 +39,15 @@ from focoos_tpu_torch.models.rtmo.config import RTMOConfig
 from focoos_tpu_torch.models.rtmo.ports import RTMOAuxOutputs, RTMOModelOutput
 from focoos_tpu_torch.nn.backbone.base import BaseBackbone
 from focoos_tpu_torch.nn.backbone.csp_darknet import ConvModule
-from focoos_tpu_torch.nn.layers.common import BatchNorm, MultiHeadAttention, init_like_flax_
+from focoos_tpu_torch.nn.layers.common import (
+    BatchNorm,
+    ComputeDtype,
+    Conv2d,
+    LayerNorm,
+    Linear,
+    MultiHeadAttention,
+    init_like_flax_,
+)
 from focoos_tpu_torch.ops.nms import topk_nms
 
 # ---------------------------------------------------------------------------
@@ -82,7 +97,7 @@ class ProjectionConv(nn.Module):
 
     def __init__(self, ch_in: int, ch_out: int, kernel_size: int = 1, stride: int = 1, padding: int = 0):
         super().__init__()
-        self.conv = nn.Conv2d(ch_in, ch_out, kernel_size, stride, padding, bias=False)
+        self.conv = Conv2d(ch_in, ch_out, kernel_size, stride, padding, bias=False)
         self.bn = BatchNorm(ch_out, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -126,10 +141,10 @@ class DetrEncoderLayer(nn.Module):
         super().__init__()
         self.self_attn = nn.ModuleDict({"attn": MultiHeadAttention(embed_dims, num_heads)})
         self.ffn = nn.ModuleDict({"layers": nn.ModuleList([
-            nn.Sequential(nn.Linear(embed_dims, feedforward_channels), nn.GELU(approximate="none")),
-            nn.Linear(feedforward_channels, embed_dims),
+            nn.Sequential(Linear(embed_dims, feedforward_channels), nn.GELU(approximate="none")),
+            Linear(feedforward_channels, embed_dims),
         ])})
-        self.norms = nn.ModuleList(nn.LayerNorm(embed_dims, eps=1e-5) for _ in range(2))
+        self.norms = nn.ModuleList(LayerNorm(embed_dims, eps=1e-5) for _ in range(2))
 
     def forward(self, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
         q = x + pos
@@ -221,12 +236,12 @@ class RTMOHeadModule(nn.Module):
                             for s in range(cfg.stacked_convs * 2)))
             for _ in range(num_levels)
         )
-        self.out_cls = nn.ModuleList(nn.Conv2d(cls_ch, cfg.num_classes, 1) for _ in range(num_levels))
-        self.out_bbox = nn.ModuleList(nn.Conv2d(pose_ch, 4, 1) for _ in range(num_levels))
-        self.out_kpt_reg = nn.ModuleList(nn.Conv2d(pose_ch, cfg.num_keypoints * 2, 1) for _ in range(num_levels))
-        self.out_kpt_vis = nn.ModuleList(nn.Conv2d(pose_ch, cfg.num_keypoints, 1) for _ in range(num_levels))
+        self.out_cls = nn.ModuleList(Conv2d(cls_ch, cfg.num_classes, 1) for _ in range(num_levels))
+        self.out_bbox = nn.ModuleList(Conv2d(pose_ch, 4, 1) for _ in range(num_levels))
+        self.out_kpt_reg = nn.ModuleList(Conv2d(pose_ch, cfg.num_keypoints * 2, 1) for _ in range(num_levels))
+        self.out_kpt_vis = nn.ModuleList(Conv2d(pose_ch, cfg.num_keypoints, 1) for _ in range(num_levels))
         self.out_pose = (
-            nn.ModuleList(nn.Conv2d(pose_ch, cfg.pose_vec_channels, 1) for _ in range(num_levels))
+            nn.ModuleList(Conv2d(pose_ch, cfg.pose_vec_channels, 1) for _ in range(num_levels))
             if cfg.pose_vec_channels > 0 else None
         )
         self.pose_feat_channels = cfg.pose_vec_channels if cfg.pose_vec_channels > 0 else pose_ch
@@ -283,10 +298,10 @@ class GAUEncoder(nn.Module):
         self.s = s
         self.e = int(token_dims * expansion_factor)
         self.ln = ScaleNorm(token_dims)
-        self.uv = nn.Linear(token_dims, 2 * self.e + s, bias=False)
+        self.uv = Linear(token_dims, 2 * self.e + s, bias=False)
         self.gamma = nn.Parameter(torch.rand(2, s))
         self.beta = nn.Parameter(torch.rand(2, s))
-        self.o = nn.Linear(self.e, token_dims, bias=False)
+        self.o = Linear(self.e, token_dims, bias=False)
         self.res_scale = Scale((token_dims,))
 
     def forward(self, x: torch.Tensor, pos_enc: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -315,11 +330,12 @@ class DCC(nn.Module):
         self.register_buffer("x_bins_base", torch.from_numpy(np.linspace(-0.5, 0.5, nx).astype(np.float32)), persistent=False)
         self.register_buffer("y_bins_base", torch.from_numpy(np.linspace(-0.5, 0.5, ny).astype(np.float32)), persistent=False)
         self.register_buffer("spe_dim", torch.from_numpy(spe_dim_t(cfg.spe_channels, 300.0)), persistent=False)
-        self.x_fc = nn.Linear(cfg.spe_channels, f)
-        self.y_fc = nn.Linear(cfg.spe_channels, f)
+        self.x_fc = Linear(cfg.spe_channels, f)
+        self.y_fc = Linear(cfg.spe_channels, f)
         # learnable per-keypoint sigma (train only; carried so checkpoints load)
-        self.sigma_fc = nn.Sequential(nn.Linear(in_channels, k), nn.Sigmoid(), Scale((), 0.1))
-        self.pose_to_kpts = nn.Sequential(nn.Linear(in_channels, f * k), nn.BatchNorm1d(f * k, eps=1e-5))
+        self.sigma_fc = nn.Sequential(Linear(in_channels, k), nn.Sigmoid(), Scale((), 0.1))
+        # the BatchNorm1d computes in fp32 and returns the dense layer's dtype (JAX _MaskedBatchNorm)
+        self.pose_to_kpts = nn.Sequential(Linear(in_channels, f * k), nn.BatchNorm1d(f * k, eps=1e-5))
         self.pos_enc = nn.Parameter(torch.randn(k, cfg.gau_s))
         self.gau = GAUEncoder(s=cfg.gau_s, token_dims=f, expansion_factor=cfg.gau_expansion_factor)
 
@@ -393,11 +409,12 @@ def _prior_tensors(featmap_sizes: Tuple[Tuple[int, int], ...], strides: Tuple[in
 # ---------------------------------------------------------------------------
 
 
-class RTMO(nn.Module):
+class RTMO(ComputeDtype, nn.Module):
     """RTMO top-level module (reference: rtmo/modelling.py:1506-1666).
 
     ``forward(images NHWC uint8 or float) -> (RTMOModelOutput, RTMOAuxOutputs)``;
-    normalization happens on the device.
+    normalization happens on the device, in fp32, before the cast to the
+    compute dtype (JAX :473-476).
     """
 
     def __init__(self, config: RTMOConfig, backbone: BaseBackbone):
@@ -414,7 +431,7 @@ class RTMO(nn.Module):
     def raw_outputs(self, images: torch.Tensor) -> RTMOAuxOutputs:
         """Normalize, backbone, neck, head → flattened per-anchor predictions."""
         cfg = self.config
-        x = ((images.float() - self.pixel_mean) / self.pixel_std).permute(0, 3, 1, 2)
+        x = ((images.float() - self.pixel_mean) / self.pixel_std).to(self.compute_dtype).permute(0, 3, 1, 2)
         ms = self.neck(self.backbone(x))
         cls_scores, bbox_preds, kpt_offsets, kpt_vis, pose_feats = self.head["head_module"](ms)
         featmap_sizes = tuple((int(m.shape[2]), int(m.shape[3])) for m in ms)

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from focoos_tpu_torch.nn.backbone.base import BackboneConfig, BaseBackbone, ShapeSpec
-from focoos_tpu_torch.nn.layers.common import BatchNorm
+from focoos_tpu_torch.nn.layers.common import BatchNorm, Conv2d
 
 # per stage: in, out, bottlenecks, add_identity, use_spp
 ARCH_SETTINGS = {
@@ -47,7 +47,7 @@ class ConvModule(nn.Module):
     def __init__(self, ch_in: int, ch_out: int, kernel_size: int = 1, stride: int = 1, padding: int = 0,
                  groups: int = 1):
         super().__init__()
-        self.conv = nn.Conv2d(ch_in, ch_out, kernel_size, stride, padding, groups=groups, bias=False)
+        self.conv = Conv2d(ch_in, ch_out, kernel_size, stride, padding, groups=groups, bias=False)
         self.bn = BatchNorm(ch_out, eps=1e-3, momentum=0.03)  # flax momentum 0.97
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -74,7 +74,7 @@ class ChannelAttention(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.fc = nn.Conv2d(channels, channels, 1, bias=True)
+        self.fc = Conv2d(channels, channels, 1, bias=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         g = x.float().mean(dim=(2, 3), keepdim=True).to(x.dtype)

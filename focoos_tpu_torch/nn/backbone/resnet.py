@@ -5,7 +5,10 @@ reference backbone (focoos/nn/backbone/resnet.py). Parameter names are the
 reference's (``conv1.conv1_1.conv.weight``, ``res_layers.{i}.blocks.{j}.
 branch2a…``, ``short.conv…``), which ``torch_convert.resnet_rules`` maps.
 In eval, the ResNet-D deep stem runs as one fused kernel
-(``ops/stem.py::fused_resnet_stem``) with its BatchNorms folded.
+(``ops/stem.py::fused_resnet_stem``) with its BatchNorms folded. The stages
+compute in the dtype of their ConvNorms (``nn/layers/common.py``): as in the
+JAX package, which builds them in the input's dtype, a bf16 model takes its
+image in bf16, and the stem kernel takes it in bf16 NHWC too.
 """
 
 from __future__ import annotations

@@ -7,6 +7,16 @@ layers take ``[B, L, C]``. Parameter names follow the reference's torch
 modules, so ``focoos_tpu.utils.torch_convert`` maps a port ``state_dict`` onto
 the JAX variables. The TPU-only stem convs, the int8 QDQ paths and
 ``FREEZE_ALL_BN`` are not ported here.
+
+Compute dtype (the JAX package's precision policy, flax's ``dtype=``): the
+parameters stay fp32. A layer that the JAX package builds with
+``dtype=self.dtype`` is a ``ComputeDtype`` here (``Linear``, ``Conv2d``,
+``BatchNorm``, ``MultiHeadAttention``): it casts its input and its weights to
+``compute_dtype`` at the call and returns that dtype, the BatchNorm with its
+statistics in fp32. A layer built without ``dtype`` (the decoders' and AIFI's
+LayerNorms) computes and returns fp32, as flax promotes it. ``set_compute_dtype``
+sets the dtype on every such layer of a model once (default fp32). No autocast:
+the CPU and the card run the same dtypes.
 """
 
 from __future__ import annotations
@@ -16,6 +26,61 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+class ComputeDtype:
+    """Mixin of the layers that compute in ``compute_dtype``."""
+
+    compute_dtype: torch.dtype = torch.float32
+
+    def cast(self, t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """Parameter ``t`` of this layer in the compute dtype. In a forward that
+        records no gradient (serving) the cast copy is kept and reused while
+        ``t`` is unchanged, the same storage at the same version (an optimizer
+        step, ``load_state_dict`` or ``.to()`` changes one of them), which
+        saves a launch per weight and forward."""
+        dt = self.compute_dtype
+        if t is None or t.dtype == dt:
+            return t
+        if torch.is_grad_enabled():
+            return t.to(dt)
+        key = (t.data_ptr(), t._version, t.device, dt)
+        cache = self.__dict__.setdefault("_cast_cache", {})
+        hit = cache.get(id(t))
+        if hit is None or hit[0] != key:
+            with torch.inference_mode(False):  # an ordinary tensor, usable outside inference mode too
+                hit = cache[id(t)] = (key, t.detach().to(dt))
+        return hit[1]
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
+    """Set ``compute_dtype`` on every ``ComputeDtype`` layer of ``module``."""
+    for m in module.modules():
+        if isinstance(m, ComputeDtype):
+            m.compute_dtype = dtype
+            m.__dict__.pop("_cast_cache", None)
+
+
+class Linear(ComputeDtype, nn.Linear):
+    """``nn.Linear`` in the compute dtype (flax ``nn.Dense(dtype=...)``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.compute_dtype), self.cast(self.weight), self.cast(self.bias))
+
+
+class Conv2d(ComputeDtype, nn.Conv2d):
+    """``nn.Conv2d`` in the compute dtype (flax ``nn.Conv(dtype=...)``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x.to(self.compute_dtype), self.cast(self.weight), self.cast(self.bias))
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm()`` without ``dtype``: fp32 statistics and an fp32
+    output whatever the input's dtype (flax promotes to its fp32 scale)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float())
 
 
 def get_activation(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -38,7 +103,7 @@ def get_activation(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor
     return table[name]
 
 
-class BatchNorm(nn.BatchNorm2d):
+class BatchNorm(ComputeDtype, nn.BatchNorm2d):
     """BatchNorm over NCHW with flax's train-mode semantics
     (focoos_tpu/nn/layers/common.py:120-143): normalize with the biased batch
     variance and move the running statistics ``momentum`` of the way to the
@@ -47,7 +112,10 @@ class BatchNorm(nn.BatchNorm2d):
     layers take eps 1e-3 and 0.03, flax's 0.97). ``frozen=True`` is the
     reference's FrozenBatchNorm2d (focoos/nn/layers/norm.py:6): running
     statistics always, even in train mode. The state_dict keys are
-    BatchNorm2d's either way."""
+    BatchNorm2d's either way. As flax's BatchNorm with ``dtype``, statistics
+    and normalization are fp32 (torch's batch_norm takes a bf16 input with
+    fp32 parameters and computes in fp32) and the output is in the compute
+    dtype."""
 
     def __init__(self, num_features: int, frozen: bool = False, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__(num_features, eps=eps, momentum=momentum)
@@ -55,7 +123,8 @@ class BatchNorm(nn.BatchNorm2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.frozen or not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+            y = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+            return y.to(self.compute_dtype)
         m, n = self.momentum, x.numel() // x.shape[1]
         # torch moves the running variance to (1-m)·old + m·var·n/(n-1), the
         # unbiased variance, in a copy the graph keeps; the n/(n-1) comes back
@@ -65,7 +134,7 @@ class BatchNorm(nn.BatchNorm2d):
         with torch.no_grad():
             old = self.running_var
             self.running_var.copy_((moved - (1 - m) * old) * ((n - 1) / n) + (1 - m) * old)
-        return y
+        return y.to(self.compute_dtype)
 
 
 def get_norm(norm: Optional[str], channels: int) -> Optional[nn.Module]:
@@ -93,7 +162,7 @@ class ConvNorm(nn.Module):
     ):
         super().__init__()
         pad = (kernel_size - 1) // 2 if padding is None else padding
-        self.conv = nn.Conv2d(ch_in, ch_out, kernel_size, stride, pad, bias=False)
+        self.conv = Conv2d(ch_in, ch_out, kernel_size, stride, pad, bias=False)
         self.norm = get_norm(norm, ch_out)
         self.act = get_activation(act)
 
@@ -110,7 +179,7 @@ class MLP(nn.Module):
     def __init__(self, input_dim: int, hidden_dim: int, output_dim: int, num_layers: int):
         super().__init__()
         dims = [input_dim] + [hidden_dim] * (num_layers - 1) + [output_dim]
-        self.layers = nn.ModuleList(nn.Linear(i, o) for i, o in zip(dims[:-1], dims[1:]))
+        self.layers = nn.ModuleList(Linear(i, o) for i, o in zip(dims[:-1], dims[1:]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i, layer in enumerate(self.layers):
@@ -120,27 +189,29 @@ class MLP(nn.Module):
         return x
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(ComputeDtype, nn.Module):
     """Multi-head attention with torch ``nn.MultiheadAttention``'s merged
-    ``in_proj_weight``/``in_proj_bias`` storage; plain matmuls with the
-    softmax in fp32, as the JAX layer computes it (common.py:298-304)."""
+    ``in_proj_weight``/``in_proj_bias`` storage; plain matmuls in the compute
+    dtype with the softmax in fp32, as the JAX layer computes it
+    (common.py:298-304)."""
 
     def __init__(self, embed_dim: int, num_heads: int):
         super().__init__()
         self.embed_dim, self.num_heads = embed_dim, num_heads
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
-        self.out_proj = nn.Linear(embed_dim, embed_dim)
+        self.out_proj = Linear(embed_dim, embed_dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
     def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
         e, h = self.embed_dim, self.num_heads
         hd = e // h
-        wq, wk, wv = self.in_proj_weight.chunk(3)
-        bq, bk, bv = self.in_proj_bias.chunk(3)
-        q = F.linear(query, wq, bq).unflatten(-1, (h, hd))
-        k = F.linear(key, wk, bk).unflatten(-1, (h, hd))
-        v = F.linear(value, wv, bv).unflatten(-1, (h, hd))
+        dt = self.compute_dtype
+        wq, wk, wv = self.cast(self.in_proj_weight).chunk(3)
+        bq, bk, bv = self.cast(self.in_proj_bias).chunk(3)
+        q = F.linear(query.to(dt), wq, bq).unflatten(-1, (h, hd))
+        k = F.linear(key.to(dt), wk, bk).unflatten(-1, (h, hd))
+        v = F.linear(value.to(dt), wv, bv).unflatten(-1, (h, hd))
         logits = torch.einsum("...qhd,...khd->...hqk", q * hd**-0.5, k)
         weights = torch.softmax(logits.float(), dim=-1).to(q.dtype)
         out = torch.einsum("...hqk,...khd->...qhd", weights, v).flatten(-2)
@@ -149,15 +220,17 @@ class MultiHeadAttention(nn.Module):
 
 class TransformerEncoderLayer(nn.Module):
     """Post-norm transformer encoder layer
-    (reference: focoos/nn/layers/transformer.py:553, normalize_before=False)."""
+    (reference: focoos/nn/layers/transformer.py:553, normalize_before=False);
+    attention and FFN in the compute dtype, the LayerNorms (and so the
+    output) in fp32."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048, activation: str = "relu"):
         super().__init__()
         self.self_attn = MultiHeadAttention(d_model, nhead)
-        self.linear1 = nn.Linear(d_model, dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, d_model)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.linear1 = Linear(d_model, dim_feedforward)
+        self.linear2 = Linear(dim_feedforward, d_model)
+        self.norm1 = LayerNorm(d_model, eps=1e-5)
+        self.norm2 = LayerNorm(d_model, eps=1e-5)
         self.activation = get_activation(activation)
 
     def forward(self, src: torch.Tensor, pos_embed: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -6,7 +6,7 @@ of ``ms_deform_attn_fused``. For tensors on the CPU the wrappers run the plain
 versions (``ops/deformable.py``); for CUDA tensors they launch the kernels or
 raise. There is no fallback. ``msda_forward`` on a CUDA tensor that needs a
 gradient goes through ``_MSDAFunction``, which pairs the two kernels. Each
-kernel has a vector path (16-byte loads, and 16-byte atomics backward) and a
+kernel has a vector path (16-byte loads, and vector atomics backward) and a
 general one for any D and alignment; ``vector_path`` picks, and each
 wrapper counts its launches by path in ``.paths``.
 """
@@ -35,9 +35,9 @@ def _kernel(name: str):
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         else:
             fn = cuda_build.load_library("msda_bwd").msda_backward
-            # value, loc, aw, grad, d_value, d_loc, d_aw | level (h, w) pairs | n_levels, B, S, Lq, Hh, D, P, dtype,
-            # vector | stream
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+            # value, loc, aw, grad, d_value, acc, d_loc, d_aw | level (h, w) pairs | n_levels, B, S, Lq, Hh, D, P,
+            # dtype, vector | stream
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
@@ -113,7 +113,11 @@ def msda_backward(
     needs: Tuple[bool, bool, bool] = (True, True, True),
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]:
     """(d value in value's dtype, d loc fp32, d aw fp32); a gradient whose
-    ``needs`` flag is False is None. d value accumulates in fp32."""
+    ``needs`` flag is False is None. On the card the kernel reads the
+    gradient in value's dtype and accumulates d value in fp32; for bf16
+    values into an fp32 scratch that the same launch converts to the bf16 d
+    value after its last atomic (bf16 accumulation misses the tolerance on
+    rows that many samples share: ``csrc/msda_bwd.cu``)."""
     spatial_shapes = [(int(h), int(w)) for h, w in spatial_shapes]
     if not value.is_cuda:
         grads = ms_deform_attn_backward_reference(value, spatial_shapes, sampling_locations, attention_weights, grad_out)
@@ -124,8 +128,13 @@ def msda_backward(
     if tuple(grad_out.shape) != (b, lq, hh * d) or grad_out.device != value.device:
         raise ValueError(f"grad_out must be [{b}, {lq}, {hh * d}] on {value.device}, got {tuple(grad_out.shape)}"
                          f" on {grad_out.device}")
-    g = grad_out.float().contiguous()
-    d_value = torch.zeros((b, s, hh, d), dtype=torch.float32, device=value.device) if needs[0] else None
+    g = grad_out.to(value.dtype).contiguous()
+    d_value = acc = None
+    if needs[0] and value.dtype == torch.float32:
+        d_value = torch.zeros((b, s, hh, d), dtype=torch.float32, device=value.device)
+    elif needs[0]:  # the kernel writes every element; the scratch holds the fp32 sums, then a counter
+        d_value = torch.empty((b, s, hh, d), dtype=value.dtype, device=value.device)
+        acc = torch.zeros(b * s * hh * d + 4, dtype=torch.float32, device=value.device)
     d_loc = torch.empty_like(sampling_locations) if needs[1] else None
     d_aw = torch.empty_like(attention_weights) if needs[2] else None
     vector = vector_path("backward", value, g)
@@ -134,15 +143,13 @@ def msda_backward(
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             value.data_ptr(), sampling_locations.data_ptr(), attention_weights.data_ptr(), g.data_ptr(),
-            *(0 if t is None else t.data_ptr() for t in (d_value, d_loc, d_aw)),
+            *(0 if t is None else t.data_ptr() for t in (d_value, acc, d_loc, d_aw)),
             _level_hw(spatial_shapes), len(spatial_shapes), b, s, lq, hh, d, p, _dtype_code(value), int(vector),
             stream,
         )
     cuda_build.check(err, "msda_backward")
     msda_backward.launches += 1
     msda_backward.paths["vector" if vector else "general"] += 1
-    if d_value is not None and value.dtype != torch.float32:
-        d_value = d_value.to(value.dtype)
     return d_value, d_loc, d_aw
 
 

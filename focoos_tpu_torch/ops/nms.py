@@ -20,6 +20,7 @@ import torch
 
 from focoos_tpu_torch.ops import cuda_build
 from focoos_tpu_torch.ops.boxes import box_iou
+from focoos_tpu_torch.ops.topk import topk_lowest_index_first
 
 MAX_K = 1024  # kMaxK in csrc/nms.cu: the [K, ceil(K/32)] overlap bitmask lives in shared memory
 _fn = None
@@ -104,9 +105,9 @@ def pre_topk(
     score_threshold: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Score filter → top-``pre_topk`` → (boxes [B, K, 4], scores [B, K]
-    sorted descending, anchor idx [B, K])."""
+    sorted descending, equal scores by anchor index, anchor idx [B, K])."""
     scores = torch.where(scores >= score_threshold, scores, torch.zeros_like(scores))
-    top_scores, top_idx = torch.topk(scores, min(pre_topk, scores.shape[1]), dim=1)
+    top_scores, top_idx = topk_lowest_index_first(scores, min(pre_topk, scores.shape[1]), dim=1)
     top_boxes = torch.gather(boxes, 1, top_idx[..., None].expand(-1, -1, 4))
     return top_boxes.contiguous(), top_scores.contiguous(), top_idx
 
@@ -123,10 +124,11 @@ def topk_nms(
     (port of ``focoos_tpu/ops/nms.py::topk_nms`` :45-69, batched).
 
     Returns (idx [B, max_out] into the A axis, valid [B, max_out] bool,
-    scores [B, max_out]). Invalid slots carry score 0 and an arbitrary index.
+    scores [B, max_out]). Both top-ks break ties as ``jax.lax.top_k`` does,
+    so invalid slots (score 0) carry the indices JAX's do.
     """
     top_boxes, top_scores, top_idx = pre_topk(boxes, scores, pre_topk_k, score_threshold)
     keep = nms_keep(top_boxes, top_scores, iou_threshold)
     kept_scores = torch.where(keep, top_scores, torch.zeros_like(top_scores))
-    out_scores, sel = torch.topk(kept_scores, min(max_out, kept_scores.shape[1]), dim=1)
+    out_scores, sel = topk_lowest_index_first(kept_scores, min(max_out, kept_scores.shape[1]), dim=1)
     return torch.gather(top_idx, 1, sel), out_scores > 0, out_scores

@@ -46,11 +46,14 @@ def resnet_stem_reference(
     k3: torch.Tensor, s3: torch.Tensor, a3: torch.Tensor,
 ) -> torch.Tensor:
     """Plain version: three ``F.conv2d`` + affine + ReLU steps, then
-    ``F.max_pool2d(3, 2, 1)``. NHWC in, NHWC out (a permuted view)."""
+    ``F.max_pool2d(3, 2, 1)``. NHWC in, NHWC out (a permuted view). For bf16
+    x the convs take bf16 weights and the affine runs in fp32 on each conv's
+    bf16 output, rounded to bf16 once, as flax's BatchNorm with
+    ``dtype=bfloat16`` does."""
     y = x.permute(0, 3, 1, 2)
     for k, s, a, stride in ((k1, s1, a1, 2), (k2, s2, a2, 1), (k3, s3, a3, 1)):
-        y = F.conv2d(y, k.permute(3, 2, 0, 1).to(y.dtype), stride=stride, padding=1)
-        y = torch.relu(y * s.to(y.dtype)[:, None, None] + a.to(y.dtype)[:, None, None])
+        y = F.conv2d(y, k.permute(3, 2, 0, 1).to(x.dtype), stride=stride, padding=1)
+        y = torch.relu(y.float() * s[:, None, None] + a[:, None, None]).to(x.dtype)
     y = F.max_pool2d(y, 3, 2, 1)
     return y.permute(0, 2, 3, 1)
 

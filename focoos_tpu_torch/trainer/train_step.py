@@ -3,7 +3,9 @@ focoos/trainer/trainer.py:723-773 run_step).
 
 forward in train mode → criterion → backward → clip → AdamW update → EMA.
 PyTorch runs it eagerly, so the step is a Python function over a
-``TrainState`` that owns the module, the solver and the EMA copy. The metrics
+``TrainState`` that owns the module, the solver and the EMA copy. The module
+computes in its compute dtype; its parameters, their gradients (autograd
+through the casts), the AdamW state and the EMA are fp32. The metrics
 stay on the device as one stacked fp32 tensor (JAX's ``_pack_metrics``), so a
 step does not wait on a dozen scalar copies.
 """

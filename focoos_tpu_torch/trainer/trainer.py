@@ -164,7 +164,11 @@ def _unsupported(args: TrainerArgs, val_dataset) -> List[str]:
 
 class FocoosTrainer:
     """Training orchestration (reference: trainer/trainer.py:59-584) on the
-    model's device, one process."""
+    model's device, one process. It trains in the model's compute dtype
+    (``ModelManager.get(..., dtype=)``), as the JAX trainer does: the forward
+    and backward in that dtype, the parameters, gradients, clipping, AdamW
+    state and EMA in fp32. ``TrainerArgs.amp_enabled`` is not read (the JAX
+    trainer ignores it too)."""
 
     def __init__(self, model, args: TrainerArgs, train_dataset, val_dataset=None):
         missing = _unsupported(args, val_dataset)

@@ -29,7 +29,8 @@ MSDA_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
 # (d value, d loc, d aw) x max|ref|. fp32: d value and d aw 1e-5 (sums in
 # another order, and the kernel's atomics add in a run-dependent order); d loc
 # 1e-4 (a difference of corner values scaled by the map size). bf16 values:
-# 2^-7 for all three (d value is rounded to bf16 once).
+# 2^-7 for all three (d value accumulates in fp32 and is rounded to bf16 once,
+# inside the kernel).
 MSDA_BWD_TOL = {torch.float32: (1e-5, 1e-4, 1e-5), torch.bfloat16: (2.0**-7,) * 3}
 STEM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-7}
 
@@ -137,9 +138,9 @@ def _assert_msda_grads(got, ref, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize(
     "b,lq,hh,d,ss",
-    [(16, 300, 8, 32, ((20, 20), (40, 40), (80, 80))), (2, 37, 3, 48, ((9, 11), (5, 6))),
-     (3, 13, 2, 16, ((7, 3), (4, 9), (2, 2)))],
-    ids=["main-path", "odd-d48", "odd-d16"],
+    [(16, 300, 8, 32, ((20, 20), (40, 40), (80, 80))), (8, 300, 8, 32, ((20, 20), (40, 40), (80, 80))),
+     (2, 37, 3, 48, ((9, 11), (5, 6))), (3, 13, 2, 16, ((7, 3), (4, 9), (2, 2)))],
+    ids=["main-path", "train-batch", "odd-d48", "odd-d16"],
 )
 def test_msda_backward_kernel_matches_plain(cuda, dtype, b, lq, hh, d, ss):
     v, loc, aw, grad = _msda_inputs(cuda, b, lq, hh, d, ss, dtype)
@@ -240,6 +241,30 @@ def test_msda_kernels_unaligned_value_takes_general_path(cuda, dtype):
     _check_msda_both(shifted, ss, loc, aw, grad, "general")
 
 
+@pytest.mark.parametrize(
+    "b,d,ss,aligned,path",
+    [(16, 32, ((20, 20), (40, 40), (80, 80)), True, "vector"), (8, 32, ((20, 20), (40, 40), (80, 80)), True, "vector"),
+     (2, 48, ((9, 11), (5, 6)), True, "general"), (2, 32, ((9, 11), (5, 6)), False, "general"),
+     (3, 24, ((7, 3), (4, 9)), False, "general")],
+    ids=["b16-d32", "b8-d32", "odd-d48", "unaligned-d32", "unaligned-odd-d24"],
+)
+def test_msda_backward_bf16_d_value_written_in_bf16(cuda, b, d, ss, aligned, path):
+    """bf16 values: the kernel takes the bf16 gradient and writes d value in
+    bf16 itself (fp32 sums converted in the same launch), on the vector path
+    (D=32, B=8 and 16) and the general one (odd D; a value one element into
+    its buffer)."""
+    v, loc, aw, grad = _msda_inputs(cuda, b, 300 if b >= 8 else 37, 8 if b >= 8 else 3, d, ss, torch.bfloat16)
+    if not aligned:
+        shifted = torch.empty(v.numel() + 1, dtype=v.dtype, device=cuda)[1:].view(v.shape)
+        v = shifted.copy_(v)
+    before = dict(msda_backward.paths)
+    got = msda_backward(v, ss, loc, aw, grad)
+    torch.cuda.synchronize()
+    assert msda_backward.paths[path] == before[path] + 1
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == got[2].dtype == torch.float32
+    _assert_msda_grads(got, ms_deform_attn_backward_reference(v.float(), ss, loc, aw, grad.float()), torch.bfloat16)
+
+
 def test_msda_main_path_shape_takes_vector_path(cuda):
     """fai-detr-l at 640² (B=16, Lq=300, Hh=8, D=32 fp32): both kernels run their vector path."""
     v, loc, aw, grad = _msda_inputs(cuda, 16, 300, 8, 32, ((20, 20), (40, 40), (80, 80)))
@@ -322,6 +347,26 @@ def test_slice_launches_each_kernel(cuda):
     res = model.infer(np.random.default_rng(0).integers(0, 256, (64, 64, 3), dtype=np.uint8), threshold=0.0)
     assert msda_forward.launches - msda0 == 2 and fused_resnet_stem.launches - stem0 == 1
     assert len(res) == 300
+
+
+@pytest.mark.parametrize("name", ["fai-detr-l-coco", "rtmo-s-coco"])
+def test_model_manager_bf16_forward(cuda, name):
+    """ModelManager.get(dtype="bfloat16") on the card: fp32 parameters, fp32
+    and finite outputs, the family's kernels launched."""
+    from focoos_tpu_torch import ModelManager
+
+    kw = dict(num_queries=10, transformer_predictor_dec_layers=2) if name.startswith("fai") else {}
+    model = ModelManager.get(name, device=cuda, image_size=64, dtype="bfloat16", **kw)
+    assert model.compute_dtype == "bfloat16" and all(p.dtype == torch.float32 for p in model.module.parameters())
+    counts = (msda_forward.launches, fused_resnet_stem.launches, nms_keep.launches)
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8))
+    out = model.forward(x)
+    torch.cuda.synchronize()
+    for field, t in vars(out).items():
+        if isinstance(t, torch.Tensor) and t.is_floating_point():
+            assert t.dtype == torch.float32 and bool(torch.isfinite(t).all()), field
+    launched = [a - b for a, b in zip((msda_forward.launches, fused_resnet_stem.launches, nms_keep.launches), counts)]
+    assert launched == ([2, 1, 0] if name.startswith("fai") else [0, 0, 1])
 
 
 def clustered_boxes(g: torch.Generator, b: int, k: int):

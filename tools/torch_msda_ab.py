@@ -5,9 +5,15 @@ of their sources, turn by turn, in one process on one NVIDIA GPU.
     python3 tools/torch_msda_ab.py [--earlier OLD_CSRC_DIR] [--variants]
 
 ``--earlier OLD_CSRC_DIR``: an earlier ``msda.cu``, ``msda_bwd.cu`` and
-``common.cuh`` whose C functions have no path argument (for example
-``focoos_tpu_torch/csrc`` of a parent commit, unpacked with ``git archive``
-into a gitignored directory). ``--variants``: copies of the current sources
+``common.cuh`` whose backward takes an fp32 gradient and accumulates d value
+in an fp32 buffer, which its wrapper then converts to value's dtype in a
+separate pass (``focoos_tpu_torch/csrc`` of a parent commit before the
+in-kernel conversion, unpacked with ``git archive`` into a gitignored
+directory); that wrapper is reproduced here. With bf16 values the backward
+is also timed as ``tools/msda_bwd_bf16_atomics.cu`` builds it (d value
+accumulated in bf16 by vector reductions: its error against the current
+kernel is printed, not held to the tolerance, which it misses on rows that
+many samples share). ``--variants``: copies of the current sources
 with one design choice of the vector kernels undone each (``VARIANTS``
 below: the level table read from the kernel parameter, the forward's FMAs
 in the reverse of load order, loads skipped for zero-weight corners, warps
@@ -17,9 +23,10 @@ a removed cost gives wrong gradients, so those are timed only. Every
 version is built with the port's nvcc flags.
 
 Cases, at fai-detr-l's decoder shape (Lq=300, Hh=8, D=32, levels 20², 40²,
-80², P=4, fp32): B=16 and B=8 with uniform locations in [-0.2, 1.2], and
-B=16 with the loc/aw that the last decoder layer of fai-detr-l samples in a
-b16 forward (seeded random weights perturbed as chip_smoke.py does). Each
+80², P=4), each with fp32 and with bf16 values: B=16 and B=8 with uniform
+locations in [-0.2, 1.2], and B=16 with the loc/aw that the last decoder
+layer of fai-detr-l samples in a b16 forward (seeded random weights
+perturbed as chip_smoke.py does). Each
 version is timed in turn, then again in the reverse order (device time,
 ``chip_smoke.time_ms``; the backward includes the zero fill of d value),
 beside the bound (``chip_smoke.msda_bound``: value rows touched, counted on
@@ -61,7 +68,7 @@ VARIANTS = {
                      "(w[k] != 0.f ? __ldg(reinterpret_cast<const uint4*>(vb + off)) : make_uint4(0, 0, 0, 0))")],
         "msda_bwd.cu": [("focoos::ldg4(vb + off[k])", "(w[k] != 0.f ? focoos::ldg4(vb + off[k]) : decltype(focoos::ldg4(vb)){})")],
     },
-    "warps in (b, h, q) order": {
+    "warps in (b, h, q) order (forward)": {
         f: [("  const int h = warp % Hh;\n  const int b = warp / (Hh * Lq);",
              "  const int q_ = warp % Lq, h = (warp / Lq) % Hh, b = warp / (Lq * Hh);\n"
              "  const int bqh = (b * Lq + q_) * Hh + h;"),
@@ -70,7 +77,7 @@ VARIANTS = {
         + ([("out + (size_t)warp * D + lane * kVec", "out + (size_t)bqh * D + lane * kVec")] if f == "msda.cu" else
            [("grad + (size_t)warp * D + r * 4", "grad + (size_t)bqh * D + r * 4"),
             ("lane, base, n, warp, lv, d_loc, d_aw);\n  }\n}\n\n__device__", "lane, base, n, bqh, lv, d_loc, d_aw);\n  }\n}\n\n__device__")])
-        for f in ("msda.cu", "msda_bwd.cu")
+        for f in ("msda.cu",)
     },
     "backward without its atomics (timing only)": {
         "msda_bwd.cu": [("if (dvb != nullptr && w[k] != 0.f)", "if (false)")]},
@@ -79,16 +86,21 @@ VARIANTS = {
 }
 
 
-def _build(src_dir: str, out_dir: str, n_int_args: int) -> dict:
-    """Compile msda.cu and msda_bwd.cu from ``src_dir``; their C functions with argtypes set."""
+def _build(src_dir: str, out_dir: str, bwd_ptrs: int = 8, sources=None) -> dict:
+    """Compile msda.cu and msda_bwd.cu (or ``sources``: {library name: path})
+    from ``src_dir``; their C functions with argtypes set. ``bwd_ptrs``: the
+    backward's pointer arguments (7 before the fp32 scratch argument)."""
     os.makedirs(out_dir, exist_ok=True)
+    sources = sources or {n: os.path.join(src_dir, f"{n}.cu") for n in ("msda", "msda_bwd")}
     fns = {}
-    for name, fn_name, n_ptrs in (("msda", "msda_forward", 4), ("msda_bwd", "msda_backward", 7)):
+    for name, fn_name, n_ptrs in (("msda", "msda_forward", 4), ("msda_bwd", "msda_backward", bwd_ptrs)):
+        if name not in sources:
+            continue
         so = os.path.join(out_dir, f"lib{name}.so")
-        subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", so, os.path.join(src_dir, f"{name}.cu")],
-                       check=True, capture_output=True, text=True)
+        subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(cuda_build.CSRC_DIR), "-o", so,
+                        sources[name]], check=True, capture_output=True, text=True)
         fn = getattr(ctypes.CDLL(so), fn_name)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * n_int_args
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fns[fn_name] = fn
@@ -112,7 +124,7 @@ def build_variants(work_dir: str) -> dict:
                 text = text.replace(old, new, 1)  # the first kernel of each file: its vector path
             with open(path, "w") as f:
                 f.write(text)
-        out[name] = _build(d, d, 9)
+        out[name] = _build(d, d)
     return out
 
 
@@ -120,21 +132,26 @@ def earlier_forward(fn, v, ss, loc, aw):
     b, s, hh, d = v.shape
     out = torch.empty((b, loc.shape[1], hh * d), dtype=v.dtype, device=v.device)
     err = fn(v.data_ptr(), loc.data_ptr(), aw.data_ptr(), out.data_ptr(), msda._level_hw(ss), len(ss), b, s,
-             loc.shape[1], hh, d, loc.shape[4], msda._dtype_code(v), torch.cuda.current_stream().cuda_stream)
+             loc.shape[1], hh, d, loc.shape[4], msda._dtype_code(v), int(msda.vector_path("forward", v)),
+             torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "earlier msda_forward")
     return out
 
 
-def earlier_backward(fn, v, ss, loc, aw, grad):
+def earlier_backward(fn, v, ss, loc, aw, grad, bf16_atomics: bool = False):
+    """The earlier wrapper: an fp32 gradient, an fp32 d value zero-filled and
+    accumulated by the kernel, then converted to value's dtype. With
+    ``bf16_atomics`` (tools/msda_bwd_bf16_atomics.cu): the gradient and a
+    zero-filled d value in value's dtype, accumulated by the kernel."""
     b, s, hh, d = v.shape
-    g = grad.float().contiguous()
-    d_value = torch.zeros((b, s, hh, d), dtype=torch.float32, device=v.device)
+    g = grad.to(v.dtype).contiguous() if bf16_atomics else grad.float().contiguous()
+    d_value = torch.zeros((b, s, hh, d), dtype=v.dtype if bf16_atomics else torch.float32, device=v.device)
     d_loc, d_aw = torch.empty_like(loc), torch.empty_like(aw)
     err = fn(v.data_ptr(), loc.data_ptr(), aw.data_ptr(), g.data_ptr(), d_value.data_ptr(), d_loc.data_ptr(),
              d_aw.data_ptr(), msda._level_hw(ss), len(ss), b, s, loc.shape[1], hh, d, loc.shape[4],
-             msda._dtype_code(v), torch.cuda.current_stream().cuda_stream)
+             msda._dtype_code(v), int(msda.vector_path("backward", v, g)), torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "earlier msda_backward")
-    return d_value, d_loc, d_aw
+    return d_value.to(v.dtype), d_loc, d_aw
 
 
 def call_ms(fn, reps: int = 20) -> float:
@@ -153,6 +170,9 @@ def call_ms(fn, reps: int = 20) -> float:
     return float(np.median(times))
 
 
+BF16_ATOMICS = "bf16 accumulation (tools/msda_bwd_bf16_atomics.cu; error reported, not held)"
+
+
 def compare(kernel: str, label: str, earlier, variants: dict, v, ss, loc, aw, grad) -> None:
     """Every version on one case: outputs against the current kernel's, then
     device times in turn and in the reverse order."""
@@ -163,13 +183,16 @@ def compare(kernel: str, label: str, earlier, variants: dict, v, ss, loc, aw, gr
         if version == "earlier":
             return (earlier_forward(earlier[fn_name], v, ss, loc, aw) if kernel == "forward"
                     else earlier_backward(earlier[fn_name], v, ss, loc, aw, grad))
+        if version == BF16_ATOMICS:
+            return earlier_backward(variants[version][fn_name], v, ss, loc, aw, grad, bf16_atomics=True)
         msda._fns[fn_name] = current if version == "current" else variants[version][fn_name]
         try:
             return msda.msda_forward(v, ss, loc, aw) if kernel == "forward" else msda.msda_backward(v, ss, loc, aw, grad)
         finally:
             msda._fns[fn_name] = current
 
-    versions = ["current"] + (["earlier"] if earlier else []) + list(variants)
+    versions = ["current"] + (["earlier"] if earlier else []) + [
+        k for k in variants if k != BF16_ATOMICS or (kernel == "backward" and v.dtype == torch.bfloat16)]
     ref = run("current")
     ref = (ref,) if kernel == "forward" else ref
     tols = (chip_smoke.MSDA_TOL[v.dtype],) if kernel == "forward" else chip_smoke.MSDA_BWD_TOL[v.dtype]
@@ -177,6 +200,11 @@ def compare(kernel: str, label: str, earlier, variants: dict, v, ss, loc, aw, gr
         if "timing only" in version:
             continue
         got = run(version)
+        if version == BF16_ATOMICS:
+            err = float((got[0].float() - ref[0].float()).abs().max()) / (2.0**-8 * float(ref[0].float().abs().max()))
+            print(f"[ab] {kernel} {label}: {version}: d value {err:.2f} x 2^-8 max|ref| from the current kernel's",
+                  flush=True)
+            continue
         for a, b, t in zip((got,) if kernel == "forward" else got, ref, tols):
             chip_smoke.max_err(a, b, t, f"{kernel} {label}: {version} vs current")
     times = {k: [] for k in versions}
@@ -207,8 +235,10 @@ def main() -> int:
     dev = torch.device("cuda:0")
     cuda_build.load_libraries(("msda", "msda_bwd"))
     work = os.path.join(cuda_build.BUILD_DIR, "ab")
-    earlier = _build(args.earlier, os.path.join(work, "earlier"), 8) if args.earlier else None
+    earlier = _build(args.earlier, os.path.join(work, "earlier"), bwd_ptrs=7) if args.earlier else None
     variants = build_variants(work) if args.variants else {}
+    variants[BF16_ATOMICS] = _build(REPO, os.path.join(work, "bf16_atomics"), bwd_ptrs=7, sources={
+        "msda_bwd": os.path.join(REPO, "tools", "msda_bwd_bf16_atomics.cu")})
 
     ss = chip_smoke.MSDA_SHAPES
     g = torch.Generator().manual_seed(0)
@@ -228,8 +258,9 @@ def main() -> int:
     zero_fill = chip_smoke.time_ms(lambda: torch.zeros(cases[0][1][0].shape, device=dev))
     print(f"[ab] zero fill of d value at B=16 ({cases[0][1][0].numel() * 4 / 1e6:.1f} MB): {zero_fill:.4f} ms", flush=True)
     for label, (v, loc, aw, grad) in cases:
-        for kernel in ("forward", "backward"):
-            compare(kernel, label, earlier, variants, v, ss, loc, aw, grad)
+        for dtype in (torch.float32, torch.bfloat16):
+            for kernel in ("forward", "backward"):
+                compare(kernel, f"{label} {str(dtype)[6:]}", earlier, variants, v.to(dtype), ss, loc, aw, grad.to(dtype))
     return 0
 
 
