@@ -50,7 +50,18 @@ non-zero:
    that the 300 candidates are filled and overlap; answers infer() on three
    480x640 images and model(batch) on 16 at 640², checks the NMS kernel ran
    once per forward and suppressed something, compares a B=2 forward against
-   the same weights on the CPU by anchor index, and times b1 and b16.
+   the same weights on the CPU by anchor index, and times b1 and b16;
+8. lifecycle — fai-detr-l's fine-tune-and-evaluate lifecycle at 640²:
+   ``evaluate_dataset`` in fp32 and bf16 against pseudo-GT (the CPU's fp32
+   top 80 detections of 4 seeded images together; the CPU's own evaluation
+   beside it; an oracle scores 100), evaluation
+   images/s over 64 images at batch 8 beside the b16 forward's, the card's
+   idle share during evaluation; rtmo-l keypoint evaluation the same way;
+   then FocoosModel.train (6 steps at B=8, an 8-image val_dataset,
+   eval_period 3, checkpointer_period 3), a state loaded from its last
+   checkpoint compared bit for bit with the saved one, a resumed trainer to
+   9 steps, and FocoosModel.eval on the final weights; each run with its
+   kernels' launch counts.
 
 Each model path runs again in bf16 compute (``ModelManager.get(...,
 dtype="bfloat16")``, fp32 parameters), right after its fp32 run and with its
@@ -65,8 +76,10 @@ the CPU's fp32 result by anchor index, b1, b16). The msda, msda_backward and
 stem phases time the bf16 kernels beside the fp32 ones (MSDA backward also
 at the training batch B=8), each with its bound and share.
 
-The last three lines are the kernels' JSON record, the card's name and power
-limit as nvidia-smi reports them, and the result JSON.
+The last three lines are the kernels' JSON record (``launches`` from the
+serving and training main paths, ``launches_lifecycle`` summed over the
+lifecycle phase's counted runs), the card's name and power limit as
+nvidia-smi reports them, and the result JSON.
 """
 
 from __future__ import annotations
@@ -130,6 +143,12 @@ TRAIN_BF16_GRAD_NORM_RTOL = 0.25
 CONV_KERNEL_MARKS = ("conv", "fprop", "dgrad", "wgrad", "fft", "winograd", "implicit")
 TRANSPOSE_KERNEL_MARKS = ("nchwtonhwc", "nhwctonchw", "transpose")
 SLEEP_CYCLES = 20_000_000  # ~11 ms of the card's clock: longer than the host takes to queue 20 kernel calls
+LIFECYCLE_SIZE = 640  # the images of the lifecycle phase: the registry cards' size
+LIFECYCLE_GT = 20  # pseudo-GT: the CPU's fp32 top 20 x images detections over all images together
+# the pseudo-GT's cut moves past score gaps under this (card and CPU fp32 sigmoid scores agree to ~2e-6)
+GT_SCORE_GAP = 1e-4
+EVAL_IMAGES, EVAL_BATCH = 64, 8  # evaluation throughput
+LIFECYCLE_BATCH = 8  # the fine-tune's batch and its val_dataset's size
 
 
 def log(msg: str) -> None:
@@ -492,12 +511,6 @@ def compare_to_cpu(models: dict, cpu_ref: tuple, x_uint8: np.ndarray) -> dict:
     return errs
 
 
-def clear_cast_caches(module: torch.nn.Module) -> None:
-    """Drop the bf16 copies the layers keep of their weights: the next forward casts every weight anew."""
-    for m in module.modules():
-        m.__dict__.pop("_cast_cache", None)
-
-
 def serve_timings(module, xs: dict, reps: dict, before=None) -> dict:
     """{name: p50 seconds} of synchronized forwards of ``module`` on each input
     (host clock), after three warm-up forwards; ``before`` runs untimed
@@ -644,6 +657,7 @@ def phase_slice(dev, smi: str) -> dict:
 def phase_slice_bf16(dev, smi: str, ctx: dict) -> dict:
     """fai-detr-l serving in bf16 compute on the fp32 phase's weights."""
     from focoos_tpu_torch import ModelManager
+    from focoos_tpu_torch.nn.layers.common import clear_cast_caches
     from focoos_tpu_torch.ops.msda import msda_forward
     from focoos_tpu_torch.ops.stem import fused_resnet_stem
 
@@ -1418,6 +1432,258 @@ def phase_rtmo_bf16(dev, smi: str, ctx: dict) -> dict:
     return {"nms_keep": launches}
 
 
+# ---------------------------------------------------------------------------
+def entries_with_gt(images: list, gts: list) -> list:
+    """DatasetEntries of ``images`` holding the ground truth ``gts``: per
+    image (boxes, classes) or (boxes, classes, keypoints [G, 17, 3])."""
+    from focoos_tpu_torch.ports import DatasetEntry
+    from focoos_tpu_torch.structures import Boxes, Instances, Keypoints
+
+    out = []
+    for img, gt in zip(images, gts):
+        h, w = img.shape[:2]
+        fields = dict(boxes=Boxes(gt[0]), classes=np.asarray(gt[1], np.int64))
+        if len(gt) == 3:
+            fields["keypoints"] = Keypoints(gt[2])
+        out.append(DatasetEntry(image=img, height=h, width=w, instances=Instances((h, w), **fields)))
+    return out
+
+
+def pseudo_gt(cpu_model, images: list, keypoints: bool = False) -> list:
+    """The model's fp32 CPU detections (its ``eval_postprocess``) as ground
+    truth: the top LIFECYCLE_GT x len(images) of all images together (20 an
+    image on average), the cut moved down past any score gap under
+    GT_SCORE_GAP; keypoints all visible (a person without a visible keypoint
+    would count as a miss that no detection can match: ROADMAP Queue 3), and
+    people whose box is under 64 px² left out. One
+    cut for all images: with each image's own top 20, an image's 21st
+    detection can outscore another's 20th and rank as a false positive above
+    a true one, so the CPU itself would score under 100."""
+    entries = entries_with_gt(images, [(np.zeros((0, 4), np.float32), np.zeros(0))] * len(images))
+    with torch.inference_mode():
+        out = cpu_model.forward(np.stack(images))
+    insts = [r["instances"] for r in cpu_model.processor.eval_postprocess(out, entries)]
+    if keypoints:  # OKS scales by the box's area: over a sliver's ~0 area only exactly equal keypoints match
+        insts = [i[(i.boxes.tensor[:, 2] - i.boxes.tensor[:, 0]) * (i.boxes.tensor[:, 3] - i.boxes.tensor[:, 1]) >= 64]
+                 for i in insts]
+    scores = np.concatenate([np.asarray(i.scores) for i in insts])
+    image_of = np.concatenate([np.full(len(i), n) for n, i in enumerate(insts)])
+    order = np.argsort(-scores, kind="stable")
+    cut = LIFECYCLE_GT * len(images)
+    while cut < len(order) and scores[order[cut - 1]] - scores[order[cut]] < GT_SCORE_GAP:
+        cut += 1
+    offsets = np.cumsum([0] + [len(i) for i in insts])
+    gts = []
+    for n, inst in enumerate(insts):
+        sel = np.sort(order[:cut][image_of[order[:cut]] == n]) - offsets[n]
+        gt = (inst.boxes.tensor[sel], np.asarray(inst.classes)[sel])
+        if keypoints:
+            kp = np.asarray(inst.keypoints)[sel].copy()
+            kp[..., 2] = 2.0
+            gt += (kp,)
+        gts.append(gt)
+    return gts
+
+
+def oracle_ap(task, classes: list, entries: list, gts: list) -> dict:
+    """The task evaluator on predictions equal to the ground truth."""
+    from focoos_tpu_torch.structures import Boxes, Instances
+    from focoos_tpu_torch.trainer.evaluation import get_evaluator
+
+    evaluator = get_evaluator(task, len(classes), classes)
+    outputs = []
+    for e, gt in zip(entries, gts):
+        fields = dict(boxes=Boxes(gt[0]), scores=np.linspace(1.0, 0.5, len(gt[0])), classes=np.asarray(gt[1]))
+        if len(gt) == 3:
+            fields["keypoints"] = gt[2]
+        outputs.append({"instances": Instances((e.height, e.width), **fields)})
+    evaluator.process(entries, outputs)
+    return evaluator.evaluate()
+
+
+def ap_line(res: dict) -> str:
+    return ", ".join(f"{k} {res[k]:.3f}" for k in ("AP", "AP50", "AP75"))
+
+
+def evaluate_timed(model, dataset: list, batch_size: int) -> tuple:
+    """(results, seconds) of ``evaluate_dataset`` on the host clock; it ends synchronized."""
+    from focoos_tpu_torch.trainer.evaluation import evaluate_dataset
+
+    t0 = time.perf_counter()
+    res = evaluate_dataset(model, dataset, batch_size=batch_size)
+    return res, time.perf_counter() - t0
+
+
+def phase_lifecycle(dev, smi: str, b16_images_per_s: float) -> dict:
+    """fai-detr-l's fine-tune-and-evaluate lifecycle at 640²: COCO evaluation
+    against pseudo-GT (fp32 and bf16, an oracle), evaluation throughput and
+    idle share, rtmo-l keypoint evaluation, then FocoosModel.train with
+    in-training validation and periodic checkpoints, a resumed trainer, and
+    FocoosModel.eval on the final weights. Each run's kernel counts start at
+    0 just before it and are read just after → their sum per kernel."""
+    import os
+    import shutil
+    import tempfile
+
+    from focoos_tpu_torch import ModelManager
+    from focoos_tpu_torch.ops.msda import msda_backward, msda_forward
+    from focoos_tpu_torch.ops.nms import nms_keep
+    from focoos_tpu_torch.ops.stem import fused_resnet_stem
+    from focoos_tpu_torch.ports import Task, TrainerArgs
+    from focoos_tpu_torch.trainer.checkpointer import Checkpointer
+    from focoos_tpu_torch.trainer.solver import Solver
+    from focoos_tpu_torch.trainer.train_step import create_train_state
+    from focoos_tpu_torch.trainer.trainer import FocoosTrainer
+
+    kernels = {"msda_forward": msda_forward, "msda_backward": msda_backward, "fused_resnet_stem": fused_resnet_stem,
+               "nms_keep": nms_keep}
+    total = dict.fromkeys(kernels, 0)
+
+    def counted(fn):
+        """fn() with every kernel count at 0 just before and read just after → (result, counts)."""
+        for k in kernels.values():
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {name: k.launches for name, k in kernels.items()}
+        for name, n in counts.items():
+            total[name] += n
+        return out, counts
+
+    # fai-detr-l: pseudo-GT from the CPU's fp32 run, then the card in fp32 and bf16
+    model = ModelManager.get("fai-detr-l-coco", device=dev, seed=0)
+    perturb(model.module, seed=1)
+    n_dec = model.config.transformer_predictor_dec_layers
+    cpu_model = ModelManager.get("fai-detr-l-coco", device="cpu", init_weights=False)
+    cpu_model.module.load_state_dict(model.module.state_dict())
+    rng = np.random.default_rng(11)
+    images = [rng.integers(0, 256, (LIFECYCLE_SIZE, LIFECYCLE_SIZE, 3), dtype=np.uint8) for _ in range(4)]
+    t0 = time.perf_counter()
+    gts = pseudo_gt(cpu_model, images)
+    entries = entries_with_gt(images, gts)
+    cpu_bbox = evaluate_timed(cpu_model, entries, 2)[0]["bbox"]
+    del cpu_model
+    oracle = oracle_ap(Task.DETECTION, model.classes, entries, gts)["bbox"]
+    log(f"[lifecycle] fai-detr-l (the slice's weights): pseudo-GT = the CPU fp32 run's top"
+        f" {sum(len(g[0]) for g in gts)} detections of {len(images)} seeded {LIFECYCLE_SIZE}² images together"
+        f" ({time.perf_counter() - t0:.1f}s on the CPU, its own evaluation included); oracle (predictions = GT):"
+        f" {ap_line(oracle)}; the CPU's own evaluate_dataset: bbox {ap_line(cpu_bbox)}")
+    assert oracle["AP"] == 100.0, "the oracle does not score 100"
+    (res, secs), counts = counted(lambda: evaluate_timed(model, entries, 2))
+    bbox = res["bbox"]
+    log(f"[lifecycle] {smi}: evaluate_dataset fp32 on the card, batch 2: bbox {ap_line(bbox)} ({secs:.2f}s;"
+        f" card - CPU {bbox['AP'] - cpu_bbox['AP']:+.3e} AP points); launches msda_forward {counts['msda_forward']},"
+        f" fused_resnet_stem {counts['fused_resnet_stem']}")
+    assert counts["fused_resnet_stem"] == 2 and counts["msda_forward"] == 2 * n_dec, counts
+    assert bbox["AP"] >= 99.0, f"card fp32 bbox/AP {bbox['AP']} against the CPU's own detections"
+    model16 = ModelManager.get("fai-detr-l-coco", device=dev, dtype="bfloat16")
+    model16.module.load_state_dict(model.module.state_dict())
+    (res16, secs16), counts16 = counted(lambda: evaluate_timed(model16, entries, 2))
+    log(f"[lifecycle] {smi}: evaluate_dataset bf16 on the card, batch 2: bbox {ap_line(res16['bbox'])}"
+        f" ({secs16:.2f}s); launches msda_forward {counts16['msda_forward']},"
+        f" fused_resnet_stem {counts16['fused_resnet_stem']}")
+    assert counts16["fused_resnet_stem"] == 2 and counts16["msda_forward"] == 2 * n_dec, counts16
+    del model16
+
+    # evaluation throughput: 64 seeded images with 1-20 random boxes each, batch 8
+    data = train_dataset(EVAL_IMAGES, LIFECYCLE_SIZE, seed=12)
+    evaluate_timed(model, data[:EVAL_BATCH], EVAL_BATCH)  # warm-up at this batch
+    (_, secs), counts = counted(lambda: evaluate_timed(model, data, EVAL_BATCH))
+    batches = EVAL_IMAGES // EVAL_BATCH
+    log(f"[lifecycle] {smi}, fp32, TF32 off: evaluate_dataset over {EVAL_IMAGES} images at batch {EVAL_BATCH}:"
+        f" {secs:.2f}s = {EVAL_IMAGES / secs:.1f} images/s (b16 forward alone in this run: {b16_images_per_s:.1f}"
+        f" images/s); launches msda_forward {counts['msda_forward']}, fused_resnet_stem {counts['fused_resnet_stem']}")
+    assert counts["fused_resnet_stem"] == batches and counts["msda_forward"] == batches * n_dec, counts
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, wall = evaluate_timed(model, data[:2 * EVAL_BATCH], EVAL_BATCH)
+    busy, by_name = device_busy(prof)
+    idle = 1 - busy / (wall * 1e6)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    log(f"[lifecycle] profiled evaluate_dataset over {2 * EVAL_BATCH} images at batch {EVAL_BATCH}: wall"
+        f" {wall * 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms, idle share {idle:.3f}; largest kernels "
+        + ", ".join(f"{k[:60]} {v / busy:.1%}" for k, v in top))
+    del model, data
+
+    # rtmo-l keypoint evaluation (the rtmo phase's weights)
+    rmodel = ModelManager.get("rtmo-l-coco", device=dev, seed=0)
+    perturb_rtmo(rmodel.module, seed=4)
+    rcpu = ModelManager.get("rtmo-l-coco", device="cpu", init_weights=False)
+    rcpu.module.load_state_dict(rmodel.module.state_dict())
+    rng = np.random.default_rng(13)
+    rimages = [rng.integers(0, 256, (LIFECYCLE_SIZE, LIFECYCLE_SIZE, 3), dtype=np.uint8) for _ in range(4)]
+    t0 = time.perf_counter()
+    rgts = pseudo_gt(rcpu, rimages, keypoints=True)
+    rentries = entries_with_gt(rimages, rgts)
+    cpu_kp = evaluate_timed(rcpu, rentries, 2)[0]["keypoints"]
+    del rcpu
+    roracle = oracle_ap(Task.KEYPOINT, rmodel.classes, rentries, rgts)["keypoints"]
+    (rres, secs), counts = counted(lambda: evaluate_timed(rmodel, rentries, 2))
+    kp = rres["keypoints"]
+    log(f"[lifecycle] {smi}: rtmo-l keypoint evaluation fp32 on the card against the CPU's top"
+        f" {sum(len(g[0]) for g in rgts)} detections of {len(rimages)} images ({time.perf_counter() - t0:.1f}s with"
+        f" the CPU runs), batch 2: keypoints {ap_line(kp)}; the CPU's own: {ap_line(cpu_kp)}; oracle"
+        f" {ap_line(roracle)}; nms_keep launches {counts['nms_keep']}")
+    assert counts["nms_keep"] == 2, counts
+    assert roracle["AP"] == 100.0 and kp["AP"] >= 95.0, f"card keypoints/AP {kp['AP']}"
+    del rmodel
+
+    # the lifecycle: fine-tune with validation and checkpoints, resume, evaluate
+    model = ModelManager.get("fai-detr-l-coco", device=dev, seed=0)
+    perturb(model.module, seed=1)
+    condition_for_training(model.module)
+    train_ds, val_ds = train_dataset(2 * LIFECYCLE_BATCH, LIFECYCLE_SIZE, seed=14), train_dataset(LIFECYCLE_BATCH, LIFECYCLE_SIZE, seed=15)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_lifecycle_")
+    ckpt_dir = os.path.join(out_dir, "ckpt")
+
+    def args(iters: int, **kw) -> TrainerArgs:
+        return TrainerArgs(run_name="lifecycle", output_dir=out_dir, batch_size=LIFECYCLE_BATCH, max_iters=iters,
+                           eval_period=3, checkpointer_period=3, ckpt_dir=ckpt_dir, ema_enabled=True, log_period=1,
+                           seed=0, **kw)
+
+    try:
+        res, counts = counted(lambda: model.train(args(6), train_ds, val_ds))
+        with open(os.path.join(res["run_dir"], "metrics.json")) as f:
+            rows = [json.loads(line) for line in f]
+        names = sorted(os.listdir(ckpt_dir))
+        log(f"[lifecycle] {smi}: FocoosModel.train, 6 steps at B={LIFECYCLE_BATCH} with an {len(val_ds)}-image"
+            f" val_dataset, eval_period 3, checkpointer_period 3: step p50 {rows[-1]['time'] * 1e3:.2f} ms; launches"
+            f" msda_backward {counts['msda_backward']}, msda_forward {counts['msda_forward']}, fused_resnet_stem"
+            f" {counts['fused_resnet_stem']}; checkpoints {names}; final bbox {ap_line(res['metrics']['bbox'])}")
+        assert counts["msda_backward"] == 6 * n_dec, "the MSDA backward kernel did not run once per layer and step"
+        assert counts["fused_resnet_stem"] >= 2, "validation did not take the stem kernel"
+        assert {"model_0000005", "model_best", "model_final", "last_checkpoint"} <= set(names), names
+        assert sum("bbox/AP" in r for r in rows) > 0, "no validation metric was logged"
+
+        # what a resume loads equals what was saved, bit for bit, on the card
+        saved = torch.load(os.path.join(ckpt_dir, "model_final", "state.pt"), map_location="cpu", weights_only=True)
+        state = create_train_state(model.module, Solver(model.module, args(9)), ema_enabled=True)
+        Checkpointer(state, ckpt_dir).load("model_final")
+        loaded = state.state_dict()
+        same = [torch.equal(loaded["module"][k].cpu(), v) for k, v in saved["module"].items()]
+        same += [torch.equal(a.cpu(), b) for a, b in zip(loaded["ema"], saved["ema"], strict=True)]
+        for i, s_ in saved["optimizer"]["state"].items():
+            same += [torch.equal(torch.as_tensor(loaded["optimizer"]["state"][i][k]).cpu(), torch.as_tensor(v))
+                     for k, v in s_.items()]
+        assert all(same) and loaded["step"] == saved["step"] == 6, "the loaded state differs from the saved one"
+        trainer = FocoosTrainer(model, args(9, resume=True), train_ds, val_ds)
+        res2, counts = counted(trainer.train)
+        log(f"[lifecycle] resume=True, max_iters 9: started at iteration {trainer.loop.start_iter} from a state equal"
+            f" bit for bit to the saved one ({len(same)} tensors), ran to {res2['iterations']}; launches msda_backward"
+            f" {counts['msda_backward']}; checkpoints {sorted(os.listdir(ckpt_dir))}")
+        assert trainer.loop.start_iter == 6 and res2["iterations"] == 9
+        assert counts["msda_backward"] == 3 * n_dec
+        final, counts = counted(lambda: model.eval(TrainerArgs(run_name="eval", batch_size=LIFECYCLE_BATCH), val_ds))
+        log(f"[lifecycle] FocoosModel.eval on the final weights ({len(val_ds)} images, batch {LIFECYCLE_BATCH}):"
+            f" bbox {ap_line(final['bbox'])}; launches msda_forward {counts['msda_forward']}, fused_resnet_stem"
+            f" {counts['fused_resnet_stem']}")
+        assert counts["fused_resnet_stem"] == 1 and all(np.isfinite(v) for v in final["bbox"].values())
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"[lifecycle] launches over the phase's counted runs: {total}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -1449,6 +1715,7 @@ def main() -> int:
     stem = phase_stem(dev)
     launches, slice_ctx = phase_slice(dev, smi)
     launches16 = phase_slice_bf16(dev, smi, slice_ctx)
+    b16_images_per_s = 16 / slice_ctx["timings"]["b16"]
     del slice_ctx
     train_launches, train_launches16 = phase_train(dev, smi)
     nms = phase_nms(dev)
@@ -1456,6 +1723,7 @@ def main() -> int:
     launches.update(rtmo_launches)
     launches16.update(phase_rtmo_bf16(dev, smi, rtmo_ctx))
     del rtmo_ctx
+    lifecycle = phase_lifecycle(dev, smi, b16_images_per_s)
 
     # library_ms: no single PyTorch call computes any of these functions (MSDA needs a
     # grid_sample per level and a weighted sum; the stem three convs, BN, ReLU and a
@@ -1485,6 +1753,7 @@ def main() -> int:
     ]
     for k in kernels:
         k["library_ms"] = None
+        k["launches_lifecycle"] = lifecycle[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

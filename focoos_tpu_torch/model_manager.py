@@ -2,11 +2,12 @@
 focoos/model_manager.py).
 
 ``ModelManager.get("fai-detr-l-coco")`` resolves a model card from the bundled
-registry (``focoos_tpu_torch.model_registry``, the port's copy of the cards) or a local run
-dir, builds the family's ``nn.Module``, initializes it from a seeded
-``torch.Generator`` or loads the JAX package's ``model_final.npz``, and wraps
-it in a ``FocoosModel`` on the requested device, computing in the requested
-dtype (the parameters stay fp32).
+registry (``focoos_tpu_torch.model_registry``, the port's copy of the cards),
+a local run dir or a ``ModelInfo``, builds the family's ``nn.Module``,
+initializes it from a seeded ``torch.Generator`` and loads the JAX package's
+``model_final.npz`` (the run dir's, or the ``MODELS_DIR/<name>/`` weight cache
+of a registry model), and wraps it in a ``FocoosModel`` on the requested
+device, computing in the requested dtype (the parameters stay fp32).
 """
 
 from __future__ import annotations
@@ -15,10 +16,11 @@ import copy
 import importlib
 import os
 from dataclasses import fields
-from typing import Any, Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 
+from focoos_tpu_torch import ports
 from focoos_tpu_torch.model_registry.model_registry import ModelRegistry
 from focoos_tpu_torch.ports import ArtifactName, ModelConfig, ModelFamily, ModelInfo
 from focoos_tpu_torch.utils.logger import get_logger
@@ -104,10 +106,11 @@ class ModelManager:
     @classmethod
     def get(
         cls,
-        name: str,
+        name: Union[str, ModelInfo],
         *,
         device: Optional[Union[str, torch.device]] = None,
         num_classes: Optional[int] = None,
+        classes: Optional[List[str]] = None,
         image_size: Optional[Union[int, tuple]] = None,
         init_weights: bool = True,
         seed: int = 0,
@@ -116,9 +119,13 @@ class ModelManager:
     ):
         """Resolve + build a model on ``device`` (default ``"cuda"``; raises
         when CUDA is absent and no device was named). ``name`` may be a
-        registry name or a local run dir holding model_info.json (and
-        optionally the JAX package's model_final.npz).
-        ``seed`` seeds the random init of every weight not loaded. ``dtype``
+        registry name, a local run dir holding model_info.json (and
+        optionally the JAX package's model_final.npz) or a ``ModelInfo``
+        (a copy is edited, as for a registry card); a registry model loads
+        ``MODELS_DIR/<name>/model_final.npz`` when present (JAX
+        model_manager.py:143-151). ``classes`` names the classes (and sets
+        ``num_classes``); ``hub://`` refs are not ported (ROADMAP Queue 1
+        item 10). ``seed`` seeds the random init of every weight not loaded. ``dtype``
         is the compute dtype (None or "float32", "bfloat16", or a
         ``torch.dtype``), as the JAX package's ``dtype=`` (model_manager.py:123,
         173-178): parameters, statistics, gradients and optimizer state stay
@@ -131,12 +138,19 @@ class ModelManager:
             device = "cuda"
 
         weights_dir = None
-        if os.path.isdir(str(name)) and os.path.isfile(os.path.join(str(name), ArtifactName.INFO.value)):
+        if isinstance(name, ModelInfo):
+            model_info = copy.deepcopy(name)
+        elif os.path.isdir(str(name)) and os.path.isfile(os.path.join(str(name), ArtifactName.INFO.value)):
             model_info = ModelInfo.from_json(os.path.join(str(name), ArtifactName.INFO.value))
             weights_dir = str(name)
+        elif str(name).startswith("hub://"):
+            raise NotImplementedError("hub:// refs are not ported yet (ROADMAP Queue 1 item 10)")
         elif ModelRegistry.exists(str(name)):
             # the registry caches its cards: edit a copy
             model_info = copy.deepcopy(ModelRegistry.get_model_info(str(name)))
+            cache_dir = os.path.join(ports.MODELS_DIR, str(name))  # read at the call: a test may point it elsewhere
+            if os.path.isfile(os.path.join(cache_dir, ArtifactName.WEIGHTS.value)):
+                weights_dir = cache_dir
         else:
             raise ValueError(
                 f"'{name}' is neither a registry model nor a local dir with model_info.json. "
@@ -146,6 +160,9 @@ class ModelManager:
         family = ModelFamily(model_info.model_family).value
         cls._ensure_family_registered(family)
 
+        if classes is not None:
+            model_info.classes = list(classes)
+            num_classes = len(classes)
         if num_classes is not None and num_classes != len(model_info.classes):
             model_info.classes = [f"class_{i}" for i in range(num_classes)]
         if num_classes is not None:

@@ -3,10 +3,10 @@ focoos_tpu/models/focoos_model.py; reference: focoos/models/focoos_model.py).
 
 Owns ``(nn.Module on a device, ModelInfo, Processor)`` and exposes the
 reference's verbs. The forward runs eagerly under ``torch.inference_mode()``;
-``train`` runs the port's trainer (fai_detr). Evaluation and export are
-ported in later slices (ROADMAP Queue 1). The model computes in its
-``compute_dtype`` (fp32 or bf16) with fp32 parameters, as the JAX package's
-FocoosModel (focoos_model.py:48,53).
+``train`` runs the port's trainer (fai_detr) and ``eval`` its evaluation
+loop. Export is ported in a later slice (ROADMAP Queue 1 item 6). The model
+computes in its ``compute_dtype`` (fp32 or bf16) with fp32 parameters, as the
+JAX package's FocoosModel (focoos_model.py:48,53).
 """
 
 from __future__ import annotations
@@ -30,7 +30,8 @@ from focoos_tpu_torch.ports import (
 )
 from focoos_tpu_torch.utils.logger import get_logger
 from focoos_tpu_torch.processor.processor_manager import ProcessorManager
-from focoos_tpu_torch.utils.weights import from_jax_variables
+from focoos_tpu_torch.utils.checkpoint import load_variables_npz, merge_compatible, save_variables_npz
+from focoos_tpu_torch.utils.weights import from_jax_variables, to_jax_variables
 
 logger = get_logger(__name__)
 
@@ -71,13 +72,17 @@ class FocoosModel:
         self.compute_dtype = str(self.dtype).removeprefix("torch.")  # "float32" or "bfloat16", as JAX names it
         self.processor = ProcessorManager.get_processor(model_info.model_family, config, model_info.im_size)
         local = os.path.join(weights_dir, ArtifactName.WEIGHTS.value) if weights_dir else None
+        loaded = None
         if init_weights and local and os.path.isfile(local):
-            self.load_weights(local, module)  # strict: covers every weight
-        else:
+            loaded = from_jax_variables(load_variables_npz(local), model_info.model_family.value)
+        _, skipped, missing = merge_compatible(module.state_dict(), loaded or {})
+        if skipped or missing:  # a file that covers every weight needs no random init
             # made on the CPU from the seed, so a seed gives the same model on every device
             module.init_weights(torch.Generator().manual_seed(seed))
         set_compute_dtype(module, self.dtype)
         self.module = module.to(self.device).eval()
+        if loaded is not None:
+            self._merge(loaded, local)
 
     @property
     def name(self) -> str:
@@ -96,13 +101,27 @@ class FocoosModel:
         s = self.model_info.im_size or 640
         return (s, s) if isinstance(s, int) else tuple(s)
 
-    def load_weights(self, path: str, module: Optional[torch.nn.Module] = None) -> None:
-        """Load the JAX package's ``model_final.npz`` (strict: every key must match)."""
-        module = self.module if module is None else module
-        with np.load(path) as data:
-            flat = {k: data[k] for k in data.files}
-        module.load_state_dict(from_jax_variables(flat, self.model_info.model_family.value), strict=True)
+    def _merge(self, loaded: dict, path: str, strict: bool = False) -> None:
+        merged, skipped, missing = merge_compatible(self.module.state_dict(), loaded, strict=strict)
+        if skipped:
+            logger.warning(f"load_weights: {len(skipped)} shape-mismatched keys skipped (e.g. {skipped[:3]})")
+        if missing:
+            logger.warning(f"load_weights: {len(missing)} keys missing from checkpoint (e.g. {missing[:3]})")
+        self.module.load_state_dict(merged, strict=True)
         logger.info(f"Loaded weights from {path}")
+
+    def load_weights(self, path: str, strict: bool = False) -> None:
+        """Load the JAX package's ``model_final.npz``, shape-tolerant unless
+        ``strict`` (reference: base_model.py:98-143): a weight whose name or
+        shape the file lacks keeps its value."""
+        self._merge(from_jax_variables(load_variables_npz(path), self.model_info.model_family.value), path, strict)
+
+    def save_weights(self, path: str) -> str:
+        """The weights (parameters and BatchNorm statistics) as ``path``, an
+        npz in the JAX package's layout, which both packages load."""
+        sd = {k: v.detach().cpu().numpy() for k, v in self.module.state_dict().items()}
+        save_variables_npz(path, to_jax_variables(sd, self.model_info.model_family.value))
+        return path
 
     # ------------------------------------------------------------------
     def forward(self, images: Union[np.ndarray, torch.Tensor]):
@@ -196,6 +215,31 @@ class FocoosModel:
             device=torch.cuda.get_device_name(self.device),
         )
 
+    def end2end_benchmark(self, iterations: int = 50, size: Optional[int] = None) -> LatencyMetrics:
+        """preprocess + forward + postprocess latency of one size² uint8
+        image, on the host clock (``__call__`` synchronizes the card)
+        (reference: focoos_model.py:723)."""
+        size = size or self.im_size[0]
+        img = np.random.default_rng(0).integers(0, 255, (size, size, 3), dtype=np.uint8)
+        self([img])  # warm-up: first launches, kernel builds
+        times = []
+        for _ in range(iterations):
+            t0 = time.perf_counter()
+            self([img])
+            times.append((time.perf_counter() - t0) * 1000)
+        arr = np.array(times)
+        cuda = self.device.type == "cuda"
+        return LatencyMetrics(
+            fps=int(round(1000.0 / arr.mean())),
+            engine=f"torch.{self.device.type}.e2e",
+            min=round(float(arr.min()), 3),
+            max=round(float(arr.max()), 3),
+            mean=round(float(arr.mean()), 3),
+            std=round(float(arr.std()), 3),
+            im_size=size,
+            device=torch.cuda.get_device_name(self.device) if cuda else "cpu",
+        )
+
     # ------------------------------------------------------------------
     def train(self, args, train_dataset, val_dataset=None):
         """Fine-tune on ``train_dataset`` (a sequence of DatasetEntry) on the
@@ -208,8 +252,13 @@ class FocoosModel:
 
         return run_train(self, args, train_dataset, val_dataset)
 
-    def eval(self, *args, **kwargs):
-        raise NotImplementedError("evaluation is not ported yet (ROADMAP Queue 1 item 6)")
+    def eval(self, args, val_dataset):
+        """Score the model on ``val_dataset`` (a sequence of DatasetEntry) at
+        ``args.batch_size`` → the task evaluator's results, e.g.
+        ``{"bbox": {"AP": ..., "AP50": ...}}`` (reference: focoos_model.py:277)."""
+        from focoos_tpu_torch.trainer.trainer import run_eval
+
+        return run_eval(self, args, val_dataset)
 
     def export(self, *args, **kwargs):
-        raise NotImplementedError("export is not ported yet (ROADMAP Queue 1 item 7)")
+        raise NotImplementedError("export is not ported yet (ROADMAP Queue 1 item 6)")

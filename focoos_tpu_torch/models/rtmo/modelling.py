@@ -464,7 +464,7 @@ class RTMO(ComputeDtype, nn.Module):
 
     def forward(self, images: torch.Tensor):
         if self.training:
-            raise NotImplementedError("rtmo training is not ported yet (ROADMAP Queue 1 item 8)")
+            raise NotImplementedError("rtmo training is not ported yet (ROADMAP Queue 1 item 7)")
         cfg = self.config
         aux = self.raw_outputs(images)
         boxes, scores, labels = self.candidates(aux)

@@ -3,7 +3,8 @@ focoos/models/rtmo/processor.py).
 
 The model decodes to static [B, D] tensors on the device; the processor
 copies them to the host once, scales boxes and keypoints back to each
-original image frame and builds the detections.
+original image frame and builds the detections, or, for evaluation, the
+``Instances`` the keypoint evaluator scores.
 """
 
 from __future__ import annotations
@@ -12,10 +13,11 @@ from typing import List, Optional, Tuple, Union
 
 import numpy as np
 
-from focoos_tpu_torch.ports import FocoosDet, FocoosDetections
+from focoos_tpu_torch.ports import DatasetEntry, FocoosDet, FocoosDetections
 from focoos_tpu_torch.models.rtmo.config import RTMOConfig
 from focoos_tpu_torch.models.rtmo.ports import RTMOModelOutput
 from focoos_tpu_torch.processor.base_processor import Processor
+from focoos_tpu_torch.structures import Boxes, ImageList, Instances
 
 
 class RTMOProcessor(Processor):
@@ -24,11 +26,13 @@ class RTMOProcessor(Processor):
         self.threshold = config.score_thr
 
     def preprocess(self, inputs):
-        """Images → (NHWC batch, None). With no target size the batch is
-        padded, never resized, up to a multiple of 32, so the Focus
-        space-to-depth and the stride-8/16/32 levels split evenly."""
+        """Images or DatasetEntries → (NHWC batch, None). With no target size
+        the batch is padded, never resized, up to a multiple of 32, so the
+        Focus space-to-depth and the stride-8/16/32 levels split evenly."""
         if self.training:
-            raise NotImplementedError("rtmo training preprocess is not ported yet (ROADMAP Queue 1 item 8)")
+            raise NotImplementedError("rtmo training preprocess is not ported yet (ROADMAP Queue 1 item 7)")
+        if isinstance(inputs, (list, tuple)) and len(inputs) > 0 and isinstance(inputs[0], DatasetEntry):
+            return self.preprocess_entries(inputs)
         batch = self.get_batch(inputs, self._target_size())
         if self._target_size() is None:
             _, h, w, _ = batch.shape
@@ -36,6 +40,12 @@ class RTMOProcessor(Processor):
             if ph or pw:
                 batch = np.pad(batch, ((0, 0), (0, ph), (0, pw), (0, 0)))
         return batch, None
+
+    def preprocess_entries(self, entries: List[DatasetEntry]):
+        """Entries' images (no resize), padded together to a multiple of 32 → (uint8 NHWC batch, None)."""
+        if self.training:
+            raise NotImplementedError("rtmo training targets are not ported yet (ROADMAP Queue 1 item 7)")
+        return ImageList.from_tensors([e.image for e in entries], size_divisibility=32).tensor.astype(np.uint8, copy=False), None
 
     def _scaled_arrays(self, output: RTMOModelOutput, input_hw, image_sizes):
         """``input_hw=None`` means the batch was padded, not resized: the
@@ -91,8 +101,44 @@ class RTMOProcessor(Processor):
             results.append(FocoosDetections(detections=dets))
         return results
 
-    def eval_postprocess(self, output, batched_inputs, **kw):
-        raise NotImplementedError("rtmo evaluation is not ported yet (ROADMAP Queue 1 item 6)")
+    def eval_postprocess(self, output: RTMOModelOutput, batched_inputs: List[DatasetEntry], **kw):
+        """→ [{"instances": Instances}] with boxes and keypoints [x, y, vis]
+        in each entry's original frame, the detections with score > 0
+        (JAX rtmo/processor.py:149-184). The input frame is the configured
+        size, else the entry's own image (padding keeps each image's frame)."""
+        image_sizes = [(e.height or 1, e.width or 1) for e in batched_inputs]
+        ts = self._target_size()
+        scores = output.scores.cpu().numpy()
+        labels = output.labels.cpu().numpy()
+        boxes = output.boxes.cpu().numpy().copy()
+        kpts = output.keypoints.cpu().numpy().copy()
+        kvis = output.keypoints_scores.cpu().numpy()
+        for i, (e, (h, w)) in enumerate(zip(batched_inputs, image_sizes)):
+            if ts is not None:
+                fh, fw = ts
+            elif e.image is not None:
+                fh, fw = e.image.shape[:2]
+            else:
+                fh, fw = h, w
+            sx, sy = w / fw, h / fh
+            boxes[i, :, 0::2] *= sx
+            boxes[i, :, 1::2] *= sy
+            kpts[i, ..., 0] *= sx
+            kpts[i, ..., 1] *= sy
+        results = []
+        for i, (h, w) in enumerate(image_sizes):
+            keep = scores[i] > 0
+            b = Boxes(boxes[i][keep])
+            b.clip((h, w))
+            inst = Instances(
+                (h, w),
+                boxes=b,
+                scores=scores[i][keep],
+                classes=labels[i][keep].astype(np.int64),
+                keypoints=np.concatenate([kpts[i][keep], kvis[i][keep][..., None]], axis=-1),
+            )
+            results.append({"instances": inst})
+        return results
 
     def export_postprocess(self, output, inputs, class_names: List[str] = [], **kw):
-        raise NotImplementedError("rtmo export is not ported yet (ROADMAP Queue 1 item 7)")
+        raise NotImplementedError("rtmo export is not ported yet (ROADMAP Queue 1 item 6)")

@@ -58,7 +58,13 @@ def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
     for m in module.modules():
         if isinstance(m, ComputeDtype):
             m.compute_dtype = dtype
-            m.__dict__.pop("_cast_cache", None)
+    clear_cast_caches(module)
+
+
+def clear_cast_caches(module: nn.Module) -> None:
+    """Drop the cast copies ``ComputeDtype.cast`` keeps of ``module``'s weights."""
+    for m in module.modules():
+        m.__dict__.pop("_cast_cache", None)
 
 
 class Linear(ComputeDtype, nn.Linear):

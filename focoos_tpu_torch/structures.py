@@ -1,6 +1,6 @@
 """Host-side containers of the port (copy of ``focoos_tpu/structures.py``,
 trimmed to what ``focoos_tpu_torch`` and its tests use: ``Boxes``,
-``Instances``, ``ImageList``).
+``Keypoints``, ``Instances``, ``ImageList``).
 
 The port keeps its own copy so that it runs without ``focoos_tpu``. Names
 and behaviour are those of the JAX package's module. NumPy-backed: these
@@ -47,6 +47,27 @@ class Boxes:
 
     def __repr__(self) -> str:
         return f"Boxes({self.tensor})"
+
+
+class Keypoints:
+    """[N, K, 3] keypoints (x, y, visibility) (reference: focoos/structures.py:806)."""
+
+    def __init__(self, keypoints: np.ndarray):
+        t = np.asarray(keypoints, dtype=np.float32)
+        if t.size == 0:
+            t = t.reshape(0, 0, 3)
+        assert t.ndim == 3 and t.shape[2] == 3, t.shape
+        self.tensor = t
+
+    def __len__(self) -> int:
+        return self.tensor.shape[0]
+
+    def __getitem__(self, item) -> "Keypoints":
+        t = self.tensor[item]
+        if t.ndim == 2:
+            t = t[None]
+        return Keypoints(t)
+
 
 class Instances:
     """Per-image field container (reference: focoos/structures.py:884).

@@ -1,6 +1,6 @@
 """EventStorage — global metric store for training (copy of
-``focoos_tpu/trainer/events.py``, trimmed to the scalars the port's trainer
-and hooks use; reference: focoos/trainer/events.py).
+``focoos_tpu/trainer/events.py``, trimmed to the scalars and images the
+port's trainer and hooks use; reference: focoos/trainer/events.py).
 
 The port keeps its own copy so that it runs without ``focoos_tpu``. Same
 stack-based API as the reference (``get_event_storage()`` inside hooks),
@@ -58,12 +58,13 @@ class HistoryBuffer:
 
 
 class EventStorage:
-    """Scalar event store (reference: trainer/events.py:25-341)."""
+    """Scalar and image event store (reference: trainer/events.py:25-341)."""
 
     def __init__(self, start_iter: int = 0):
         self._history: Dict[str, HistoryBuffer] = defaultdict(HistoryBuffer)
         self._smoothing_hints: Dict[str, bool] = {}
         self._latest_scalars: Dict[str, Tuple[float, int]] = {}
+        self._vis_data: List[Tuple[str, np.ndarray, int]] = []
         self._iter = start_iter
 
     @property
@@ -83,6 +84,9 @@ class EventStorage:
             assert existing == smoothing_hint, f"smoothing hint changed for {name}"
         else:
             self._smoothing_hints[name] = smoothing_hint
+
+    def put_image(self, img_name: str, img: np.ndarray) -> None:
+        self._vis_data.append((img_name, img, self._iter))
 
     def history(self, name: str) -> HistoryBuffer:
         if name not in self._history:

@@ -1,12 +1,12 @@
-"""Hooks and metric writers of the port's trainer (copy of
-``focoos_tpu/trainer/hooks.py``, trimmed to what the port runs: ``HookBase``,
-``EventWriter``, ``CommonMetricPrinter``, ``JSONWriter``, ``IterationTimer``,
-``PeriodicWriter`` and the period helpers they call).
+"""Hooks and metric writers of the port's trainer (port of
+``focoos_tpu/trainer/hooks.py``, trimmed to what the port runs).
 
-The port keeps its own copy so that it runs without ``focoos_tpu``; the JAX
-package's module also holds hooks that import JAX. Same 4-phase lifecycle as
-the reference (focoos/trainer/hooks/base.py:5-48): before_train /
-before_step / after_step / after_train, driven by the TrainerLoop.
+The port keeps its own copy so that it runs without ``focoos_tpu``. Same
+4-phase lifecycle as the reference (focoos/trainer/hooks/base.py:5-48):
+before_train / before_step / after_step / after_train, driven by the
+TrainerLoop. The JAX-specific hooks map to torch: ``MemoryStatsHook`` reads
+``torch.cuda.memory_allocated``; the profiler hook, the TensorBoard writer
+and the hub sync are not ported (ROADMAP Queue 1 items 5 and 10).
 """
 
 from __future__ import annotations
@@ -15,12 +15,19 @@ import datetime
 import json
 import os
 import time
-from typing import List, Optional
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
 
 from focoos_tpu_torch.trainer.events import get_event_storage
 from focoos_tpu_torch.utils.logger import get_logger
 
 logger = get_logger(__name__)
+
+
+class EarlyStopException(Exception):
+    """Raised to abort the training loop (reference: hooks/early_stop.py:5)."""
 
 
 def _period_hit(trainer, period: int) -> bool:
@@ -177,3 +184,172 @@ class PeriodicWriter(HookBase):
         for w in self._writers:
             w.write()
             w.close()
+
+
+class LRSchedulerHook(HookBase):
+    """Log the scheduled LR; the solver applies it (reference: hooks/hook.py:297)."""
+
+    def __init__(self, schedule_fn: Callable[[int], float]):
+        self._schedule = schedule_fn
+
+    def after_step(self):
+        get_event_storage().put_scalar("lr", float(self._schedule(self.trainer.iter)), smoothing_hint=False)
+
+
+class PeriodicCheckpointerHook(HookBase):
+    """(reference: hooks/hook.py:188)"""
+
+    def __init__(self, periodic_checkpointer):
+        self._pc = periodic_checkpointer
+
+    def after_step(self):
+        stride = max(1, int(getattr(self.trainer, "steps_per_call", 1)))
+        self._pc.step(self.trainer.iter, self.trainer.state, stride=stride,
+                      hooks=self.trainer.hook_state_dict())
+
+
+class BestCheckpointer(HookBase):
+    """Track a validation metric and save model_best (reference: hooks/hook.py:207)."""
+
+    def __init__(self, checkpointer, val_metric: str, mode: str = "max", file_prefix: str = "model_best"):
+        self._checkpointer = checkpointer
+        self._metric = val_metric
+        self._mode = mode
+        self._prefix = file_prefix
+        self.best_value: Optional[float] = None
+        self.best_iter: Optional[int] = None
+
+    def _update_best(self, val: float, iteration: int) -> bool:
+        if val is None or np.isnan(val) or np.isinf(val):
+            return False
+        if self.best_value is None or (val > self.best_value if self._mode == "max" else val < self.best_value):
+            self.best_value, self.best_iter = float(val), int(iteration)
+            return True
+        return False
+
+    def after_step(self):
+        storage = get_event_storage()
+        latest = storage.latest().get(self._metric)
+        if latest is None:
+            return
+        val, itr = latest
+        if itr == storage.iter and self._update_best(val, itr):
+            self._checkpointer.save(self._prefix, self.trainer.state, iteration=itr, best_metric=self.best_value)
+            logger.info(f"Saved best model at iter {itr} with {self._metric}={self.best_value:.4f}")
+
+    def state_dict(self):
+        return {"best_value": self.best_value, "best_iter": self.best_iter}
+
+    def load_state_dict(self, state):
+        self.best_value = state.get("best_value")
+        self.best_iter = state.get("best_iter")
+
+
+class EvalHook(HookBase):
+    """Run eval_fn every ``period`` iters + at the end (reference: hooks/hook.py:498)."""
+
+    def __init__(self, period: int, eval_fn: Callable[[], Optional[Dict[str, float]]]):
+        self._period = period
+        self._fn = eval_fn
+
+    def _do_eval(self):
+        results = self._fn()
+        if results:
+            storage = get_event_storage()
+            for k, v in _flatten_metrics(results).items():
+                try:
+                    storage.put_scalar(k, float(v), smoothing_hint=False)
+                except (TypeError, ValueError):
+                    pass
+
+    def after_step(self):
+        t = self.trainer
+        if _period_hit(t, self._period) and not _is_final_call(t):
+            self._do_eval()
+
+    def after_train(self):
+        if self.trainer.iter >= self.trainer.max_iter - 1:
+            self._do_eval()
+
+
+class EarlyStoppingHook(HookBase):
+    """Abort when a watched metric stops improving (reference: hooks/early_stop.py:10-76)."""
+
+    def __init__(self, patience: int, metric: str, mode: str = "max"):
+        self._patience = patience
+        self._metric = metric
+        self._mode = mode
+        self._best: Optional[float] = None
+        self._since_best = 0
+
+    def after_step(self):
+        storage = get_event_storage()
+        latest = storage.latest().get(self._metric)
+        if latest is None:
+            return
+        val, itr = latest
+        if itr != storage.iter:
+            return
+        improved = self._best is None or (val > self._best if self._mode == "max" else val < self._best)
+        if improved:
+            self._best = val
+            self._since_best = 0
+        else:
+            self._since_best += 1
+            if self._since_best >= self._patience:
+                logger.warning(
+                    f"Early stopping at iter {storage.iter}: {self._metric} did not improve "
+                    f"for {self._patience} evaluations (best {self._best:.4f})"
+                )
+                raise EarlyStopException()
+
+    def state_dict(self):
+        return {"best": self._best, "since_best": self._since_best}
+
+    def load_state_dict(self, state):
+        self._best = state.get("best")
+        self._since_best = state.get("since_best", 0)
+
+
+class MemoryStatsHook(HookBase):
+    """Device memory in use, ``device_mem_mb`` (reference TorchMemoryStats:
+    hooks/hook.py:562). Records nothing off the card, as the JAX package
+    records nothing where the device has no ``memory_stats``."""
+
+    def __init__(self, device: torch.device, period: int = 20):
+        self._device = torch.device(device)
+        self._period = period
+
+    def after_step(self):
+        if self._device.type != "cuda" or not _period_hit(self.trainer, self._period):
+            return
+        get_event_storage().put_scalar("device_mem_mb", torch.cuda.memory_allocated(self._device) / 1e6,
+                                       smoothing_hint=False)
+
+
+class VisualizationHook(HookBase):
+    """Render N validation predictions into a mosaic every period
+    (reference: hooks/visualization.py:39)."""
+
+    def __init__(self, period: int, render_fn: Callable[[], Optional[np.ndarray]], name: str = "val_predictions"):
+        self._period = period
+        self._render = render_fn
+        self._name = name
+
+    def after_step(self):
+        if not _period_hit(self.trainer, self._period):
+            return
+        img = self._render()
+        if img is not None:
+            get_event_storage().put_image(self._name, img)
+
+
+def _flatten_metrics(d: dict, prefix: str = "") -> Dict[str, float]:
+    out = {}
+    for k, v in d.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flatten_metrics(v, prefix=f"{key}/"))
+        else:
+            out[key] = v
+    return out

@@ -4,14 +4,19 @@ reference: focoos/trainer/solver/).
 The JAX package expresses the reference's per-parameter policy
 (solver/build.py:39-103) over flax paths and composes one optax chain:
 
-    clip_by_global_norm → Adam moments → + wd·p → × lr_mult → × −lr(step)
+    clip_by_global_norm → core (Adam / trace / RMS) → + wd·p → × lr_mult → × −lr(step)
 
 Here the policy runs on the port's parameter names, which are the reference's
 torch names, and the chain is ``clip_by_global_norm`` (optax's formula)
-followed by ``torch.optim.AdamW`` with one parameter group per (lr
-multiplier, weight decay) and the group's lr set to ``lr(step) · mult`` each
-step: AdamW's ``p ← p·(1 − lr·wd) − lr·adam`` is the chain's
-``p − lr·mult·(adam + wd·p)``.
+followed by an optimizer with one parameter group per (lr multiplier, weight
+decay) and the group's lr set to ``lr(step) · mult`` each step. ADAMW is
+``torch.optim.AdamW``: its ``p ← p·(1 − lr·wd) − lr·adam`` is the chain's
+``p − lr·mult·(adam + wd·p)``. SGD and RMSPROP are ``OptaxCore``, because
+torch's own differ from the chain: ``torch.optim.SGD(weight_decay=)`` feeds
+the decay into the momentum, where optax's ``trace`` takes the momentum of
+the gradient alone; ``torch.optim.RMSprop`` divides by ``sqrt(ν) + eps``,
+optax 0.2.6's ``scale_by_rms`` by ``sqrt(ν + eps)`` (``eps_in_sqrt``), which
+near ν = 0 differ by orders of magnitude.
 """
 
 from __future__ import annotations
@@ -87,21 +92,30 @@ def param_hyperparams(
     decoder_multiplier: float = 1.0,
     head_multiplier: float = 1.0,
     freeze_prefixes: Sequence[str] = (),
+    freeze_bn: bool = False,
 ) -> Dict[str, Tuple[float, float]]:
     """{parameter name: (lr multiplier, weight decay)}, the reference's policy
     (solver/build.py:81-101) by substrings of the torch name: the multipliers
     stack (``pixel_decoder.backbone.*`` takes the backbone's and the pixel
     decoder's), ``head`` outside the classifiers takes the head's; norms by
     module type take ``wd_norm``; a parameter under ``freeze_prefixes`` takes
-    0 and 0 (it keeps its gradient, as JAX's masks do, and never moves)."""
+    0 and 0 (it keeps its gradient, as JAX's masks do, and never moves), and
+    so, with ``freeze_bn``, does a BatchNorm's scale and bias, except the
+    input projections' (JAX freezes the paths under ``/bn/``; its
+    ``input_proj_<i>_bn`` BatchNorms are not under one)."""
     norm_params = {
         f"{mname}.{pname}" if mname else pname
         for mname, m in module.named_modules() if isinstance(m, NORM_TYPES)
         for pname, _ in m.named_parameters(recurse=False)
     }
+    bn_params = {
+        f"{mname}.{pname}"
+        for mname, m in module.named_modules() if isinstance(m, nn.BatchNorm2d) and "input_proj" not in mname
+        for pname, _ in m.named_parameters(recurse=False)
+    } if freeze_bn else set()
     out = {}
     for name, _ in module.named_parameters():
-        if any(name.startswith(f) for f in freeze_prefixes):
+        if any(name.startswith(f) for f in freeze_prefixes) or name in bn_params:
             out[name] = (0.0, 0.0)
             continue
         head = "head" in name and "classifier" not in name
@@ -126,28 +140,63 @@ def param_hyperparams(
     return out
 
 
+class OptaxCore(torch.optim.Optimizer):
+    """The rest of the JAX chain after the clip, for SGD and RMSPROP: the
+    core (``optax.trace``: t ← g + momentum·t, the update t, or g +
+    momentum·t with nesterov; ``optax.scale_by_rms``: ν ← (1 − alpha)·g² +
+    alpha·ν, the update g / sqrt(ν + 1e-8)), then + wd·p, then × the group's
+    lr (``lr(step) · mult``). Frozen parameters (mult 0) keep their state
+    moving and never move themselves, as under JAX's masks."""
+
+    def __init__(self, groups, kind: str, momentum: float = 0.9, nesterov: bool = False, alpha: float = 0.99):
+        if kind not in ("SGD", "RMSPROP"):
+            raise ValueError(f"OptaxCore takes SGD or RMSPROP, not {kind}")
+        self.kind, self.momentum, self.nesterov, self.alpha = kind, momentum, nesterov, alpha
+        super().__init__(groups, {"lr": 0.0, "weight_decay": 0.0})
+
+    @torch.no_grad()
+    def step(self) -> None:
+        for group in self.param_groups:
+            for p in group["params"]:
+                g, state = p.grad, self.state[p]
+                if self.kind == "SGD":
+                    t = state.setdefault("trace", torch.zeros_like(p))
+                    t.mul_(self.momentum).add_(g)
+                    u = g + self.momentum * t if self.nesterov else t.clone()
+                else:
+                    nu = state.setdefault("nu", torch.zeros_like(p))
+                    nu.copy_((1 - self.alpha) * g * g + self.alpha * nu)
+                    u = g * torch.rsqrt(nu + 1e-8)
+                p.sub_((u + group["weight_decay"] * p) * group["lr"])
+
+
 class Solver:
     """The optax chain of the JAX trainer on torch parameters: clip by global
-    norm, AdamW per (lr multiplier, weight decay) group, schedule per step."""
+    norm, the optimizer per (lr multiplier, weight decay) group, schedule per step."""
 
     def __init__(self, module: nn.Module, args: TrainerArgs, freeze_prefixes: Sequence[str] = ()):
-        if args.optimizer.upper() != "ADAMW":
-            raise NotImplementedError(f"optimizer {args.optimizer} is not ported (ADAMW is)")
+        name = args.optimizer.upper()
+        if name not in ("ADAMW", "SGD", "RMSPROP"):
+            raise NotImplementedError(f"Optimizer {name} not supported (ADAMW/SGD/RMSPROP)")
         self.schedule = build_schedule(args.scheduler, args.learning_rate, args.max_iters, args.scheduler_extra)
         self.clip = float(args.clip_gradients or 0.0)
         hp = param_hyperparams(
             module, args.weight_decay, args.weight_decay_norm, args.weight_decay_embed,
             args.backbone_multiplier, args.decoder_multiplier, args.head_multiplier, freeze_prefixes,
+            freeze_bn=args.freeze_bn,
         )
         groups: Dict[Tuple[float, float], List[torch.nn.Parameter]] = {}
-        for name, p in module.named_parameters():
-            groups.setdefault(hp[name], []).append(p)
+        for pname, p in module.named_parameters():
+            groups.setdefault(hp[pname], []).append(p)
         self.params = [p for ps in groups.values() for p in ps]
-        betas = tuple((args.optimizer_extra or {}).get("betas", (0.9, 0.999)))
-        self.optimizer = torch.optim.AdamW(
-            [{"params": ps, "mult": m, "weight_decay": wd} for (m, wd), ps in groups.items()],
-            lr=args.learning_rate, betas=betas, eps=1e-8,
-        )
+        param_groups = [{"params": ps, "mult": m, "weight_decay": wd} for (m, wd), ps in groups.items()]
+        extra = args.optimizer_extra or {}
+        if name == "ADAMW":
+            betas = tuple(extra.get("betas", (0.9, 0.999)))
+            self.optimizer = torch.optim.AdamW(param_groups, lr=args.learning_rate, betas=betas, eps=1e-8)
+        else:
+            self.optimizer = OptaxCore(param_groups, name, momentum=extra.get("momentum", 0.9),
+                                       nesterov=extra.get("nesterov", False), alpha=extra.get("alpha", 0.99))
 
     def step(self, step: int) -> torch.Tensor:
         """One update from the gradients in ``.grad`` → the global norm of the

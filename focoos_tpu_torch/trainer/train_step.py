@@ -31,6 +31,24 @@ class TrainState:
     step: int = 0
     ema_params: Optional[List[torch.Tensor]] = None
 
+    def state_dict(self) -> dict:
+        """What a training checkpoint holds: the parameters and buffers
+        (BatchNorm statistics), the optimizer's state, the EMA and the step."""
+        return {"module": self.module.state_dict(), "optimizer": self.solver.optimizer.state_dict(),
+                "ema": self.ema_params, "step": self.step}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore ``state_dict()``'s output in place, onto the tensors' own devices."""
+        self.module.load_state_dict(state["module"], strict=True)
+        self.solver.optimizer.load_state_dict(state["optimizer"])
+        if (state["ema"] is None) != (self.ema_params is None):
+            raise ValueError("the checkpoint and this run disagree on whether the EMA is enabled")
+        if self.ema_params is not None:
+            with torch.no_grad():
+                for e, saved in zip(self.ema_params, state["ema"], strict=True):
+                    e.copy_(saved)
+        self.step = int(state["step"])
+
 
 def create_train_state(module: nn.Module, solver: Solver, ema_enabled: bool = False) -> TrainState:
     ema = [p.detach().clone() for p in module.parameters()] if ema_enabled else None

@@ -4,34 +4,49 @@ reference: focoos/trainer/trainer.py).
 The loop feeds batches to the eager train step (``train_step.py``), stamps
 its metrics into ``trainer/events.py``'s ``EventStorage`` (plain numpy) one step
 late, so that the copy of step k's metrics waits on the card only after step
-k+1 has been queued, and stops on a non-finite loss. The trainer writes
-``model_info.json`` at each status change and the final weights (the EMA's
-when enabled, with the live BatchNorm statistics) as ``model_final.npz`` in
-the JAX package's layout. Periodic checkpoints and resume, evaluation and its
-hooks, multi-step dispatch and sharding are not ported yet: asking for them
-raises ``NotImplementedError``.
+k+1 has been queued, stops on a non-finite loss and ends cleanly on
+``EarlyStopException``. The trainer registers the JAX package's hooks: the
+LR log, device memory, in-training validation with the best checkpoint,
+early stopping and prediction mosaics, and periodic checkpoints
+(``trainer/checkpointer.py``) that ``resume`` restarts from. It writes
+``model_info.json`` at each status change, the final weights (the EMA's when
+enabled, with the live BatchNorm statistics) as ``model_final.npz`` in the
+JAX package's layout, and the final validation metrics into
+``model_info.json``. Multi-step dispatch, ``init_checkpoint``, sharding and
+the hub sync are not ported yet: asking for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import importlib
+import math
 import os
 import time
+import traceback
 from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
 
-from focoos_tpu_torch.ports import ArtifactName, ModelStatus, TrainerArgs
-from focoos_tpu_torch.trainer import hooks as hooks_mod
-from focoos_tpu_torch.trainer.events import EventStorage
-from focoos_tpu_torch.utils.logger import get_logger
 from focoos_tpu_torch.data.loaders import build_train_loader
+from focoos_tpu_torch.nn.layers.common import BatchNorm, clear_cast_caches
+from focoos_tpu_torch.ports import ArtifactName, ModelStatus, Task, TrainerArgs
+from focoos_tpu_torch.trainer import hooks as hooks_mod
+from focoos_tpu_torch.trainer.checkpointer import Checkpointer, PeriodicCheckpointerMixin
+from focoos_tpu_torch.trainer.events import EventStorage
 from focoos_tpu_torch.trainer.solver import Solver, ema_decay_schedule
 from focoos_tpu_torch.trainer.train_step import TrainState, build_train_step, create_train_state, unpack_metrics
-from focoos_tpu_torch.utils.weights import to_jax_variables
+from focoos_tpu_torch.utils.logger import get_logger
 
 logger = get_logger(__name__)
+
+TASK_METRICS = {
+    Task.DETECTION: "bbox/AP",
+    Task.SEMSEG: "sem_seg/mIoU",
+    Task.INSTANCE_SEGMENTATION: "segm/AP",
+    Task.CLASSIFICATION: "classification/f1",
+    Task.KEYPOINT: "keypoints/AP",
+}
 
 
 class TrainerLoop:
@@ -44,6 +59,7 @@ class TrainerLoop:
         data_iter: Iterable,
         max_iter: int,
         device: torch.device,
+        start_iter: int = 0,
         gather_metric_period: int = 1,
     ):
         self.step_fn = step_fn
@@ -51,7 +67,8 @@ class TrainerLoop:
         self._data_iter = iter(data_iter)
         self.max_iter = max_iter
         self.device = device
-        self.iter = 0
+        self.start_iter = start_iter
+        self.iter = start_iter
         self.gather_metric_period = gather_metric_period
         self.steps_per_call = 1  # read by the hooks' period arithmetic (trainer/hooks.py)
         self.hooks: List[hooks_mod.HookBase] = []
@@ -63,13 +80,21 @@ class TrainerLoop:
             h.trainer = self
         self.hooks.extend(hooks)
 
+    def hook_state_dict(self) -> dict:
+        return {type(h).__name__: h.state_dict() for h in self.hooks if h.state_dict()}
+
+    def load_hook_state_dict(self, state: dict) -> None:
+        for h in self.hooks:
+            if type(h).__name__ in state:
+                h.load_state_dict(state[type(h).__name__])
+
     def train(self) -> None:
-        logger.info(f"Starting training from iteration 0 to {self.max_iter}")
-        with EventStorage(0) as self.storage:
+        logger.info(f"Starting training from iteration {self.start_iter} to {self.max_iter}")
+        with EventStorage(self.start_iter) as self.storage:
             try:
                 for h in self.hooks:
                     h.before_train()
-                self.iter = 0
+                self.iter = self.start_iter
                 while self.iter < self.max_iter:
                     self.storage.iter = self.iter
                     for h in self.hooks:
@@ -78,6 +103,11 @@ class TrainerLoop:
                     for h in self.hooks:
                         h.after_step()
                     self.iter += 1
+            except hooks_mod.EarlyStopException:
+                logger.info("Early stopping triggered")
+            except Exception:
+                logger.error(f"Exception during training:\n{traceback.format_exc()}")
+                raise
             finally:
                 self._flush(force=True)
                 for h in self.hooks:
@@ -89,11 +119,10 @@ class TrainerLoop:
         images = images.to(self.device, non_blocking=True)
         targets = targets.to(self.device, non_blocking=True)
         data_time = time.perf_counter() - t0
-        lr = self.state.solver.schedule(self.state.step)
         prev = self._pending
         keys, packed = self.step_fn(self.state, images, targets)
         # one-step-delayed fetch: step k's metrics are copied after step k+1 is queued
-        self._pending = (keys, packed, data_time, lr, self.iter)
+        self._pending = (keys, packed, data_time, self.iter)
         if prev is not None and (prev[-1] + 1) % self.gather_metric_period == 0:
             self._flush_one(prev)
 
@@ -105,7 +134,7 @@ class TrainerLoop:
             self._flush_one(prev)
 
     def _flush_one(self, pending) -> None:
-        keys, packed, data_time, lr, rec_iter = pending
+        keys, packed, data_time, rec_iter = pending
         metrics = unpack_metrics(keys, packed)
         total = metrics["total_loss"]
         if not np.isfinite(total):
@@ -114,7 +143,6 @@ class TrainerLoop:
         self.storage.iter = rec_iter
         try:
             self.storage.put_scalar("data_time", data_time, smoothing_hint=True)
-            self.storage.put_scalar("lr", lr, smoothing_hint=False)
             for k, v in metrics.items():
                 self.storage.put_scalar(k, v, smoothing_hint=True)
         finally:
@@ -143,21 +171,15 @@ def _freeze_prefixes(model) -> tuple:
     return tuple(prefixes)
 
 
-def _unsupported(args: TrainerArgs, val_dataset) -> List[str]:
-    """What ``args`` asks for that the port does not do yet (ROADMAP Queue 1 item 6)."""
+def _unsupported(args: TrainerArgs) -> List[str]:
+    """What ``args`` asks for that the port does not do yet, each with its ROADMAP Queue 1 item."""
     asks = {
-        "evaluation during training (val_dataset)": val_dataset is not None,
-        "resume": args.resume,
-        "init_checkpoint": bool(args.init_checkpoint),
-        "ckpt_dir": bool(args.ckpt_dir),
-        f"periodic checkpoints (checkpointer_period {args.checkpointer_period} < max_iters {args.max_iters};"
-        " set it to max_iters or more)": 0 < args.checkpointer_period < args.max_iters,
-        f"steps_per_call {args.steps_per_call}": args.steps_per_call > 1,
-        f"sharding {args.sharding!r}": args.sharding != "dp",
-        f"mesh_shape {args.mesh_shape}": bool(args.mesh_shape),
-        f"num_devices {args.num_devices}": args.num_devices not in (-1, 0, 1),
-        "freeze_bn": args.freeze_bn,
-        "sync_to_hub": args.sync_to_hub,
+        "init_checkpoint (item 5; the JAX trainer reads it nowhere)": bool(args.init_checkpoint),
+        f"steps_per_call {args.steps_per_call} (item 5)": args.steps_per_call > 1,
+        f"sharding {args.sharding!r} (item 9)": args.sharding != "dp",
+        f"mesh_shape {args.mesh_shape} (item 9)": bool(args.mesh_shape),
+        f"num_devices {args.num_devices} (item 9)": args.num_devices not in (-1, 0, 1),
+        "sync_to_hub (item 10)": args.sync_to_hub,
     }
     return [what for what, asked in asks.items() if asked]
 
@@ -166,22 +188,23 @@ class FocoosTrainer:
     """Training orchestration (reference: trainer/trainer.py:59-584) on the
     model's device, one process. It trains in the model's compute dtype
     (``ModelManager.get(..., dtype=)``), as the JAX trainer does: the forward
-    and backward in that dtype, the parameters, gradients, clipping, AdamW
-    state and EMA in fp32. ``TrainerArgs.amp_enabled`` is not read (the JAX
-    trainer ignores it too)."""
+    and backward in that dtype, the parameters, gradients, clipping,
+    optimizer state and EMA in fp32. ``TrainerArgs.amp_enabled`` is not read
+    (the JAX trainer ignores it too)."""
 
     def __init__(self, model, args: TrainerArgs, train_dataset, val_dataset=None):
-        missing = _unsupported(args, val_dataset)
+        missing = _unsupported(args)
         if missing:
-            raise NotImplementedError(f"not ported yet (ROADMAP Queue 1 item 6): {', '.join(missing)}")
+            raise NotImplementedError(f"not ported yet (ROADMAP Queue 1): {', '.join(missing)}")
         family = model.model_info.model_family.value
         try:
             self.loss_module = importlib.import_module(f"focoos_tpu_torch.models.{family}.loss")
         except ModuleNotFoundError as e:
-            raise NotImplementedError(f"training {family} is not ported yet (ROADMAP Queue 1)") from e
+            raise NotImplementedError(f"training {family} is not ported yet (ROADMAP Queue 1 item 7)") from e
         self.model = model
         self.args = args
         self.train_dataset = train_dataset
+        self.val_dataset = val_dataset
         self.run_dir = _versioned_run_dir(args.output_dir, args.run_name)
         self.model_info = model.model_info
 
@@ -198,24 +221,36 @@ class FocoosTrainer:
         np.random.seed(args.seed)
         self._set_status(ModelStatus.TRAINING_STARTING)
         module = model.module
+        model.processor.train(True)
+        # freeze_bn: every BatchNorm takes its running statistics in training
+        # too (JAX's FREEZE_ALL_BN), and the solver leaves its parameters alone
+        frozen = [m for m in module.modules() if isinstance(m, BatchNorm) and not m.frozen] if args.freeze_bn else []
+        for m in frozen:
+            m.frozen = True
         solver = Solver(module, args, freeze_prefixes=_freeze_prefixes(model))
         state = create_train_state(module, solver, ema_enabled=args.ema_enabled)
         ema_fn = ema_decay_schedule(args.ema_decay, args.ema_warmup) if args.ema_enabled else None
         step_fn = build_train_step(self.loss_module.make_loss_fn(module, model.config), ema_fn)
-        model.processor.train(True)
+
+        checkpointer = Checkpointer(state, args.ckpt_dir or os.path.join(self.run_dir, "ckpt"))
+        start_iter, resume_extra = 0, {}
+        if args.resume:
+            loaded, ok = checkpointer.resume_or_load(None, resume=True)
+            if ok:
+                state, resume_extra = loaded
+                start_iter = int(resume_extra.get("iteration", -1)) + 1
+                logger.info(f"Resumed from iteration {start_iter}")
+        # as the JAX trainer's, a resumed run's loader starts its seeded stream from the beginning
         loader = build_train_loader(
             self.train_dataset, model.processor, args.batch_size, seed=args.seed,
             max_instances=args.max_instances_per_image, pin_memory=model.device.type == "cuda",
         )
-        self.loop = loop = TrainerLoop(step_fn, state, loader, args.max_iters, model.device,
+        self.loop = loop = TrainerLoop(step_fn, state, loader, args.max_iters, model.device, start_iter=start_iter,
                                        gather_metric_period=args.gather_metric_period)
-        loop.register_hooks([
-            hooks_mod.IterationTimer(),
-            hooks_mod.PeriodicWriter([
-                hooks_mod.CommonMetricPrinter(max_iter=args.max_iters),
-                hooks_mod.JSONWriter(os.path.join(self.run_dir, ArtifactName.METRICS.value)),
-            ], period=args.log_period),
-        ])
+        self._register_hooks(loop, checkpointer, solver.schedule)
+        if start_iter > 0 and isinstance(resume_extra.get("hooks"), dict):
+            loop.load_hook_state_dict(resume_extra["hooks"])
+
         self._set_status(ModelStatus.TRAINING_RUNNING)
         try:
             loop.train()
@@ -223,21 +258,136 @@ class FocoosTrainer:
             self._set_status(ModelStatus.TRAINING_ERROR, failure_reason=str(e))
             raise
         finally:
+            for m in frozen:
+                m.frozen = False
             module.eval()
             model.processor.train(False)
 
         if state.ema_params is not None:  # the final weights are the EMA's
             with torch.no_grad():
                 torch._foreach_copy_(list(module.parameters()), state.ema_params)
-        weights_path = os.path.join(self.run_dir, ArtifactName.WEIGHTS.value)
-        sd = {k: v.detach().cpu().numpy() for k, v in module.state_dict().items()}
-        np.savez(weights_path, **to_jax_variables(sd, self.model_info.model_family.value))
+        weights_path = model.save_weights(os.path.join(self.run_dir, ArtifactName.WEIGHTS.value))
         self.model_info.weights_uri = weights_path
         self._set_status(ModelStatus.TRAINING_COMPLETED)
+        metrics = self._final_metrics()
         logger.info(f"Training complete. Artifacts in {self.run_dir}")
-        return {"run_dir": self.run_dir, "metrics": {}, "iterations": loop.iter}
+        return {"run_dir": self.run_dir, "metrics": metrics, "iterations": loop.iter}
+
+    def _register_hooks(self, loop: TrainerLoop, checkpointer: Checkpointer, schedule) -> None:
+        """(reference: trainer/trainer.py:472-556)"""
+        args = self.args
+        writers = [
+            hooks_mod.CommonMetricPrinter(max_iter=args.max_iters),
+            hooks_mod.JSONWriter(os.path.join(self.run_dir, ArtifactName.METRICS.value)),
+        ]
+        periodic = PeriodicCheckpointerMixin(
+            checkpointer, args.checkpointer_period, args.max_iters, args.checkpointer_max_to_keep
+        )
+        primary_metric = TASK_METRICS.get(self.model.task, "total_loss")
+        hooks: List[hooks_mod.HookBase] = [
+            hooks_mod.IterationTimer(),
+            hooks_mod.LRSchedulerHook(schedule),
+            hooks_mod.MemoryStatsHook(self.model.device, period=args.log_period),
+        ]
+        if self.val_dataset is not None and args.eval_period > 0:
+            hooks.append(hooks_mod.EvalHook(args.eval_period, self._val))
+            hooks.append(hooks_mod.BestCheckpointer(checkpointer, primary_metric))
+            if args.early_stop:
+                hooks.append(hooks_mod.EarlyStoppingHook(args.patience, primary_metric))
+            hooks.append(hooks_mod.VisualizationHook(
+                args.eval_period, lambda: self._render_val_samples(loop, args.samples)))
+        hooks.append(hooks_mod.PeriodicCheckpointerHook(periodic))
+        hooks.append(hooks_mod.PeriodicWriter(writers, period=args.log_period))
+        loop.register_hooks(hooks)
+
+    def _val(self) -> Optional[Dict[str, float]]:
+        """In-training validation (reference: trainer/trainer.py:441-470) on
+        the live parameters, not the EMA, as JAX's ``_val`` swaps in
+        ``state.params``. The next step puts the module back in train mode."""
+        from focoos_tpu_torch.trainer.evaluation import evaluate_dataset
+
+        self.model.module.eval()
+        self.model.processor.train(False)
+        try:
+            return evaluate_dataset(self.model, self.val_dataset, batch_size=max(1, self.args.batch_size // 2))
+        finally:
+            clear_cast_caches(self.model.module)  # a second copy of every weight, stale after the next step
+            self.model.processor.train(True)
+
+    def _render_val_samples(self, loop: TrainerLoop, n: int) -> Optional[np.ndarray]:
+        """Annotated-prediction mosaic over the first N val images
+        (reference: hooks/visualization.py:39), written to
+        ``run_dir/visualizations/`` and stored as an EventStorage image.
+        Drawing needs cv2: without it training goes on and this warns."""
+        if self.val_dataset is None or n <= 0:
+            return None
+        from focoos_tpu_torch.utils.vision import annotate_image
+
+        self.model.module.eval()
+        self.model.processor.train(False)
+        try:
+            tiles = []
+            rs = self.model.im_size[0]
+            for i in range(min(n, len(self.val_dataset))):
+                img = self.val_dataset[i].image
+                if img is None:
+                    continue
+                img = np.asarray(img)
+                if img.shape[:2] != (rs, rs):
+                    import cv2
+
+                    img = cv2.resize(img, (rs, rs), interpolation=cv2.INTER_LINEAR)
+                dets = self.model.infer(img, threshold=0.3)
+                tiles.append(annotate_image(img, dets, task=self.model.task, classes=self.model.classes))
+        except Exception as e:  # visualization must never kill training
+            logger.warning(f"visualization render failed: {e}")
+            return None
+        finally:
+            clear_cast_caches(self.model.module)
+            self.model.processor.train(True)
+        if not tiles:
+            return None
+        cols = int(math.ceil(math.sqrt(len(tiles))))
+        rows = int(math.ceil(len(tiles) / cols))
+        th = max(t.shape[0] for t in tiles)
+        tw = max(t.shape[1] for t in tiles)
+        mosaic = np.zeros((rows * th, cols * tw, 3), np.uint8)
+        for k, t in enumerate(tiles):
+            r, c = divmod(k, cols)
+            mosaic[r * th : r * th + t.shape[0], c * tw : c * tw + t.shape[1]] = t
+        vis_dir = os.path.join(self.run_dir, "visualizations")
+        os.makedirs(vis_dir, exist_ok=True)
+        try:
+            import cv2
+
+            cv2.imwrite(os.path.join(vis_dir, f"iter_{loop.iter:07d}.jpg"), mosaic[..., ::-1])
+        except Exception:
+            pass
+        return mosaic
+
+    def _final_metrics(self) -> Dict[str, float]:
+        """The final weights on ``val_dataset``, also written to model_info.json
+        (reference: trainer/trainer.py:360-416)."""
+        if self.val_dataset is None:
+            return {}
+        from focoos_tpu_torch.trainer.evaluation import evaluate_dataset
+
+        self.model.processor.train(False)
+        results = evaluate_dataset(self.model, self.val_dataset, batch_size=max(1, self.args.batch_size // 2))
+        self.model_info.val_metrics = hooks_mod._flatten_metrics(results) if results else None
+        self.model_info.dump_json(self.run_dir)
+        return results or {}
 
 
 def run_train(model, args: TrainerArgs, train_dataset, val_dataset=None) -> Dict[str, Any]:
     """Entry point (reference: trainer/trainer.py:921)."""
     return FocoosTrainer(model, args, train_dataset, val_dataset).train()
+
+
+def run_eval(model, args: TrainerArgs, val_dataset) -> Dict[str, Any]:
+    """Standalone evaluation (reference: trainer/trainer.py:956, FocoosTrainer.eval :226)."""
+    from focoos_tpu_torch.trainer.evaluation import evaluate_dataset
+
+    model.module.eval()
+    model.processor.train(False)
+    return evaluate_dataset(model, val_dataset, batch_size=args.batch_size) or {}

@@ -494,3 +494,97 @@ def test_train_step_launches_both_msda_kernels(cuda, tmp_path):
     torch.cuda.synchronize()
     assert res["iterations"] == 2
     assert msda_forward.launches - f0 == 4 and msda_backward.launches - b0 == 4
+
+
+def _entries(images, gts):
+    from focoos_tpu_torch.ports import DatasetEntry
+    from focoos_tpu_torch.structures import Boxes, Instances
+
+    return [DatasetEntry(image=im, height=im.shape[0], width=im.shape[1],
+                         instances=Instances(im.shape[:2], boxes=Boxes(b), classes=np.asarray(c, np.int64)))
+            for im, (b, c) in zip(images, gts)]
+
+
+def test_evaluate_dataset_on_the_card_matches_the_cpu(cuda):
+    """evaluate_dataset on the card, against pseudo-GT that is the same
+    weights' CPU detections (the top 15 of the 3 images together, the cut
+    moved past score gaps under 1e-4): AP 99 or more, with the stem and MSDA
+    kernels launched once and twice a batch; the CPU's own evaluation of the
+    same entries scores within 1 AP point of the card's."""
+    from focoos_tpu_torch import ModelManager
+    from focoos_tpu_torch.trainer.evaluation import evaluate_dataset
+
+    kw = dict(image_size=64, num_queries=10, transformer_predictor_dec_layers=2)
+    gpu = ModelManager.get("fai-detr-l-coco", device=cuda, seed=1, **kw)
+    cpu = ModelManager.get("fai-detr-l-coco", device="cpu", init_weights=False, **kw)
+    cpu.module.load_state_dict(gpu.module.state_dict())
+    rng = np.random.default_rng(3)
+    images = [rng.integers(0, 256, (64, 64, 3), dtype=np.uint8) for _ in range(3)]
+    blank = _entries(images, [(np.zeros((0, 4), np.float32), np.zeros(0))] * 3)
+    with torch.inference_mode():
+        dets = cpu.processor.eval_postprocess(cpu.forward(np.stack(images)), blank)
+    scores = np.concatenate([np.asarray(d["instances"].scores) for d in dets])
+    order = np.argsort(-scores, kind="stable")
+    cut = 15
+    while cut < len(order) and scores[order[cut - 1]] - scores[order[cut]] < 1e-4:
+        cut += 1
+    top = set(order[:cut].tolist())
+    gts, start = [], 0
+    for d in dets:
+        inst = d["instances"]
+        sel = [i for i in range(len(inst)) if start + i in top]
+        gts.append((inst.boxes.tensor[sel], np.asarray(inst.classes)[sel]))
+        start += len(inst)
+    entries = _entries(images, gts)
+    f0, s0 = msda_forward.launches, fused_resnet_stem.launches
+    res = evaluate_dataset(gpu, entries, batch_size=2)["bbox"]
+    assert fused_resnet_stem.launches - s0 == 2 and msda_forward.launches - f0 == 4
+    ref = evaluate_dataset(cpu, entries, batch_size=2)["bbox"]
+    assert res["AP"] >= 99.0 and abs(res["AP"] - ref["AP"]) <= 1.0, (res, ref)
+
+
+def test_resume_on_the_card(cuda, tmp_path):
+    """Two steps with a checkpoint each, then a trainer with resume=True to
+    three: it starts at iteration 2, and what Checkpointer.load puts on the
+    card equals the saved state bit for bit; the run ends with finite weights."""
+    import os
+
+    from focoos_tpu_torch import ModelManager
+    from focoos_tpu_torch.ports import DatasetEntry, TrainerArgs
+    from focoos_tpu_torch.structures import Boxes, Instances
+    from focoos_tpu_torch.trainer.checkpointer import Checkpointer
+    from focoos_tpu_torch.trainer.solver import Solver
+    from focoos_tpu_torch.trainer.train_step import create_train_state
+    from focoos_tpu_torch.trainer.trainer import FocoosTrainer
+
+    model = ModelManager.get("fai-detr-l-coco", device=cuda, image_size=64, num_queries=10,
+                             transformer_predictor_dec_layers=2)
+    rng = np.random.default_rng(0)
+    boxes = np.array([[4, 6, 30, 40], [20, 10, 60, 50]], np.float32)
+    ds = [DatasetEntry(image=rng.integers(0, 256, (64, 64, 3), dtype=np.uint8), height=64, width=64,
+                       instances=Instances((64, 64), boxes=Boxes(boxes), classes=np.array([3, 7]))) for _ in range(2)]
+    ckpt = str(tmp_path / "ckpt")
+
+    def args(iters, **kw):
+        return TrainerArgs(run_name="r", output_dir=str(tmp_path), batch_size=2, max_iters=iters, checkpointer_period=1,
+                           ckpt_dir=ckpt, ema_enabled=True, **kw)
+
+    model.train(args(2), ds)
+    saved = torch.load(os.path.join(ckpt, "model_final", "state.pt"), map_location="cpu", weights_only=True)
+    state = create_train_state(model.module, Solver(model.module, args(3)), ema_enabled=True)
+    Checkpointer(state, ckpt).load("model_final")
+    loaded = state.state_dict()
+    assert loaded["step"] == saved["step"] == 2
+    for k, v in saved["module"].items():
+        assert loaded["module"][k].is_cuda and torch.equal(loaded["module"][k].cpu(), v), k
+    for a, b in zip(loaded["ema"], saved["ema"], strict=True):
+        assert torch.equal(a.cpu(), b)
+    for i, s in saved["optimizer"]["state"].items():
+        for k, v in s.items():
+            assert torch.equal(torch.as_tensor(loaded["optimizer"]["state"][i][k]).cpu(), torch.as_tensor(v)), (i, k)
+    b0 = msda_backward.launches
+    trainer = FocoosTrainer(model, args(3, resume=True), ds)
+    res = trainer.train()
+    torch.cuda.synchronize()
+    assert trainer.loop.start_iter == 2 and res["iterations"] == 3 and msda_backward.launches - b0 == 2
+    assert all(bool(torch.isfinite(p).all()) for p in model.module.parameters())

@@ -1,8 +1,9 @@
 """The port stands alone: with ``jax``, ``jaxlib``, ``flax``, ``PIL``, ``cv2``
 and the JAX package ``focoos_tpu`` made unimportable, every module of
 focoos_tpu_torch imports, each ported slice (fai-detr, rtmo) serves an
-ndarray image on the CPU, and fai-detr trains two steps on the CPU; and no
-source of the port, nor chip_smoke.py, imports ``focoos_tpu``."""
+ndarray image and is evaluated on the CPU, and fai-detr trains two steps
+with validation and resumes for a third on the CPU; and no source of the
+port, nor chip_smoke.py, imports ``focoos_tpu``."""
 
 import os
 import re
@@ -42,6 +43,8 @@ print("OK", len(res))
 
 
 RTMO_SCRIPT = PRELUDE + r"""
+from focoos_tpu_torch.ports import DatasetEntry, TrainerArgs
+from focoos_tpu_torch.structures import Boxes, Instances, Keypoints
 model = ModelManager.get("rtmo-s-coco", device="cpu", image_size=128, nms_pre_topk=50, max_detections=10)
 img = np.random.default_rng(0).integers(0, 256, (100, 120, 3), dtype=np.uint8)
 res = model.infer(img, threshold=0.0)
@@ -49,6 +52,11 @@ assert 0 < len(res) <= 10, len(res)
 for d in res.detections:
     assert d.cls_id == 0 and np.isfinite(d.conf) and len(d.keypoints) == 17
     assert all(isinstance(v, int) for v in d.bbox)
+kpts = np.concatenate([np.full((1, 17, 2), 50.0), np.full((1, 17, 1), 2.0)], -1)
+gt = Instances((128, 128), boxes=Boxes([[20, 20, 90, 100]]), classes=np.zeros(1, np.int64), keypoints=Keypoints(kpts))
+scores = model.eval(TrainerArgs(run_name="e", batch_size=2), [DatasetEntry(image=img[:96, :96], height=96, width=96,
+                                                                           instances=gt)])
+assert set(scores) == {"keypoints"}, scores
 loaded = sorted(k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 print("OK", len(res))
@@ -57,11 +65,15 @@ print("OK", len(res))
 
 TRAIN_SCRIPT = PRELUDE + r"""
 import os, tempfile
+import torch
+torch.set_num_threads(2)  # pytest-xdist's workers share the cores
 from focoos_tpu_torch.ports import DatasetEntry, TrainerArgs
 from focoos_tpu_torch.structures import Boxes, Instances
 model = ModelManager.get(
     "fai-detr-l-coco", device="cpu", image_size=64, num_queries=10, transformer_predictor_dec_layers=1,
-    backbone_config={"model_type": "resnet", "depth": 18, "variant": "d", "freeze_norm": False},
+    pixel_decoder_feat_dim=64, pixel_decoder_out_dim=64, pixel_decoder_dim_feedforward=128,
+    transformer_predictor_hidden_dim=64, transformer_predictor_out_dim=64, transformer_predictor_dim_feedforward=128,
+    head_out_dim=64, backbone_config={"model_type": "resnet", "depth": 18, "variant": "d", "freeze_norm": False},
 )
 rng = np.random.default_rng(0)
 boxes = np.array([[4, 6, 30, 40], [20, 10, 60, 50]], np.float32)
@@ -69,8 +81,15 @@ ds = [DatasetEntry(image=rng.integers(0, 256, (64, 64, 3), dtype=np.uint8), heig
                    instances=Instances((64, 64), boxes=Boxes(boxes), classes=np.array([3, 7])))
       for _ in range(2)]
 out = tempfile.mkdtemp()
-res = model.train(TrainerArgs(run_name="t", output_dir=out, batch_size=2, max_iters=2, checkpointer_period=2), ds)
-assert os.path.isfile(os.path.join(res["run_dir"], "model_final.npz"))
+ckpt = os.path.join(out, "ckpt")
+# two steps with validation (its prediction mosaics need cv2: they warn and training goes on),
+# then a resume for a third
+res = model.train(TrainerArgs(run_name="t", output_dir=out, batch_size=2, max_iters=2, checkpointer_period=10,
+                              eval_period=2, samples=1, ckpt_dir=ckpt), ds, ds)
+assert os.path.isfile(os.path.join(res["run_dir"], "model_final.npz")) and "AP" in res["metrics"]["bbox"]
+more = model.train(TrainerArgs(run_name="t", output_dir=out, batch_size=2, max_iters=3, checkpointer_period=10,
+                               ckpt_dir=ckpt, resume=True), ds)
+assert more["iterations"] == 3 and "AP" in model.eval(TrainerArgs(run_name="e", batch_size=2), ds)["bbox"]
 loaded = sorted(k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 print("OK", res["iterations"])

@@ -20,6 +20,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from test_torch_checkpoint import few_threads  # noqa: F401 (a fixture)
 from test_torch_fai_detr import NUM_CLASSES, SIZE, _flat, _perturb, _tiny_configs
 
 from focoos_tpu.data.loaders import TrainingSampler as JaxTrainingSampler
@@ -345,6 +346,87 @@ def test_solver_update_matches_optax_chain(tiny):
     _assert_tree_close(got, _flat({"params": params}), 0.0, "params after two updates", floor=1e-6)
 
 
+@pytest.mark.usefixtures("few_threads")
+@pytest.mark.parametrize(
+    "optimizer,extra",
+    [("SGD", {"momentum": 0.9}), ("SGD", {"momentum": 0.8, "nesterov": True}), ("RMSPROP", {"alpha": 0.95})],
+    ids=["sgd", "sgd-nesterov", "rmsprop"],
+)
+def test_sgd_and_rmsprop_match_optax_chain(tiny, optimizer, extra):
+    """Three updates on identical gradients (the first clipped) with the
+    tiny args' lr multipliers, weight decay and warmup: the parameters equal
+    build_optimizer's optax chain (clip, trace / scale_by_rms, + wd·p, ×
+    mult, × -lr) to 1e-6 of each tensor's largest value. The first RMS
+    update divides by sqrt(ν + 1e-8) with ν ~ 1e-12: torch.optim.RMSprop's
+    sqrt(ν) + eps would move these parameters ~50x further."""
+    args = _trainer_args()
+    args.optimizer, args.optimizer_extra = optimizer, extra
+    jargs = _trainer_args(JaxTrainerArgs)
+    jargs.optimizer, jargs.optimizer_extra = optimizer, extra
+    module = _port_module(tiny)
+    solver = Solver(module, args)
+    # the leaves of every 16th layer (backbone and encoder convs, BatchNorms, the
+    # decoder's attention and a LayerNorm, a predictor conv) carry a gradient; the
+    # others' are 0 on both sides, so the global norm is the same (fewer leaves: a
+    # shorter compile)
+    layers = sorted({k.rsplit("/", 1)[0] for k in tiny["flat"] if k.startswith("params/")})[::16]
+    keys = sorted(k for k in tiny["flat"] if k.rsplit("/", 1)[0] in layers)
+    params = unflatten_tree({k: tiny["flat"][k] for k in keys})["params"]
+    tx, _ = build_optimizer(params, jargs)
+    update = jax.jit(tx.update)
+    opt_state = tx.init(params)
+    rng = np.random.default_rng(10)
+    for step, scale in enumerate((1e-2, 1e-5, 3e-6)):
+        flat = {k: (rng.standard_normal(tiny["flat"][k].shape) * scale).astype(np.float32) for k in keys}
+        updates, opt_state = update(unflatten_tree(flat)["params"], opt_state, params)
+        params = optax.apply_updates(params, updates)
+        grads = from_jax_variables({k: flat.get(k, np.zeros_like(v)) for k, v in tiny["flat"].items()}, "fai_detr")
+        for n, p in module.named_parameters():
+            p.grad = grads[n].clone()
+        solver.step(step)
+    got = {k: v for k, v in _port_state(module, "params").items() if k in keys}
+    _assert_tree_close(got, _flat({"params": params}), 1e-6, f"{optimizer} params")
+
+
+@pytest.mark.usefixtures("few_threads")
+def test_freeze_bn_matches_jax(tiny):
+    """freeze_bn: the lr multiplier and weight decay of every parameter equal
+    leaf_hyperparams(freeze_bn=True)'s, which spare the twelve input
+    projections' BatchNorm parameters (their JAX paths are not under /bn/;
+    ROADMAP Queue 3); one step leaves every running statistic and every
+    frozen parameter unchanged."""
+    module = _port_module(tiny)
+    names = [n for n, _ in module.named_parameters()]
+    ids = {n: np.full(tuple(p.shape), i, np.float32) for i, (n, p) in enumerate(module.named_parameters())}
+    source = {k: names[int(v.flat[0])] for k, v in
+              _flat({"params": convert_state_dict(ids, "fai_detr", verbose=False)[0]["params"]}).items()}
+    lr_tree, wd_tree = leaf_hyperparams(unflatten_tree(tiny["flat"])["params"], base_wd=0.02, freeze_bn=True)
+    hp = param_hyperparams(module, 0.02, freeze_bn=True)
+    for i, ref_tree in enumerate((lr_tree, wd_tree)):
+        for k, ref in _flat({"params": ref_tree}).items():
+            assert hp[source[k]][i] == pytest.approx(float(ref), rel=1e-6), (k, source[k], i)
+    spared = [f"{mn}.{pn}" for mn, m in module.named_modules() if isinstance(m, BatchNorm) and "input_proj" in mn
+              for pn, _ in m.named_parameters(recurse=False)]
+    assert len(spared) == 12 and all(hp[n][0] > 0 for n in spared)
+    frozen = [n for n, (m, _) in hp.items() if m == 0.0]
+    assert len(frozen) > 50
+
+    args = _trainer_args()
+    args.freeze_bn = True
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.frozen = True
+    before = {k: v.clone() for k, v in module.state_dict().items()}
+    state = torch_train_state(module, Solver(module, args))
+    build_train_step(make_loss_fn(module, tiny["pcfg"]))(
+        state, torch.from_numpy(tiny["images"]), _port_targets(*tiny["targets"]))
+    after = module.state_dict()
+    for k, v in before.items():
+        if k.endswith(("running_mean", "running_var")) or k in frozen:
+            assert torch.equal(after[k], v), k
+    assert not all(torch.equal(after[k], before[k]) for k in spared)
+
+
 # --------------------------------------------------------------------------- the model and one step
 def test_decoder_train_mode_grads_match_jax(tiny):
     """The gradient of the criterion through the train-mode model reaches the
@@ -453,12 +535,14 @@ def test_focoos_model_train_writes_jax_layout_weights(tiny, tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
+    """Each refusal names its ROADMAP Queue 1 item."""
     model = ModelManager.get(
         "fai-detr-l-coco", device="cpu", image_size=SIZE, num_queries=10, transformer_predictor_dec_layers=1,
         backbone_config={"model_type": "resnet", "depth": 18, "variant": "d", "freeze_norm": False},
     )
-    for kw in ({"resume": True}, {"steps_per_call": 2}, {"max_iters": 10, "checkpointer_period": 5}):
-        with pytest.raises(NotImplementedError):
+    for kw, item in (({"steps_per_call": 2}, 5), ({"init_checkpoint": "x.npz"}, 5), ({"sharding": "fsdp"}, 9),
+                     ({"mesh_shape": (2, 1)}, 9), ({"num_devices": 4}, 9), ({"sync_to_hub": True}, 10)):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
             model.train(TrainerArgs(run_name="x", output_dir=str(tmp_path), **kw), _dataset(2))
-    with pytest.raises(NotImplementedError):
-        model.train(TrainerArgs(run_name="x", output_dir=str(tmp_path), max_iters=1), _dataset(2), _dataset(2))
+    with pytest.raises(NotImplementedError, match="Optimizer"):
+        model.train(TrainerArgs(run_name="x", output_dir=str(tmp_path), optimizer="LAMB"), _dataset(2))
