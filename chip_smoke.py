@@ -61,7 +61,19 @@ non-zero:
    eval_period 3, checkpointer_period 3), a state loaded from its last
    checkpoint compared bit for bit with the saved one, a resumed trainer to
    9 steps, and FocoosModel.eval on the final weights; each run with its
-   kernels' launch counts.
+   kernels' launch counts;
+9. finetune_m — fai-detr-m (STDC, no AIFI layer, 3 decoder layers) at full
+   width and depth, 640², fine-tuned from a dataset on disk: the host's
+   cores and image libraries; a seeded Roboflow-COCO set written to local
+   disk (64 train and 16 val JPEGs, 1-3 boxes of 3 classes); the val split
+   through the loader with 4 worker processes and in process (bit-equal
+   batches, in order); the train loader timed alone at B=16 with the fai
+   detection augmentations; one fp32 step on the card against the CPU's
+   step in fp64 on mapped train records; FocoosModel.train (B=16, 20 steps, validation every 10) in fp32
+   and in bf16, each with step and data_time p50, peak memory, bbox/AP and
+   three profiled steps after it; FocoosModel.eval; both MSDA kernels on
+   the fine-tuned model's captured locations; b1 and b16 serving in fp32
+   and bf16. Every counted run starts its MSDA counts at 0.
 
 Each model path runs again in bf16 compute (``ModelManager.get(...,
 dtype="bfloat16")``, fp32 parameters), right after its fp32 run and with its
@@ -77,8 +89,9 @@ stem phases time the bf16 kernels beside the fp32 ones (MSDA backward also
 at the training batch B=8), each with its bound and share.
 
 The last three lines are the kernels' JSON record (``launches`` from the
-serving and training main paths, ``launches_lifecycle`` summed over the
-lifecycle phase's counted runs), the card's name and power limit as
+serving and training main paths, ``launches_lifecycle`` and
+``launches_finetune_m`` summed over those phases' counted runs), the card's
+name and power limit as
 nvidia-smi reports them, and the result JSON.
 """
 
@@ -149,6 +162,10 @@ LIFECYCLE_GT = 20  # pseudo-GT: the CPU's fp32 top 20 x images detections over a
 GT_SCORE_GAP = 1e-4
 EVAL_IMAGES, EVAL_BATCH = 64, 8  # evaluation throughput
 LIFECYCLE_BATCH = 8  # the fine-tune's batch and its val_dataset's size
+# finetune_m: the seeded dataset's splits, the fine-tune's batch, steps and
+# validation period, and the profiled steps after it
+FT_TRAIN, FT_VAL = 64, 16
+FT_BATCH, FT_STEPS, FT_EVAL_PERIOD, FT_PROFILED = 16, 20, 10, 3
 
 
 def log(msg: str) -> None:
@@ -757,16 +774,54 @@ def condition_for_training(module: torch.nn.Module) -> None:
     decoder's last logits by 1.3 (max 8), as much as card and CPU do (an
     H100 and its host's CPU, B=2 640²). Each residual branch's last
     BatchNorm scale goes to a tenth
-    (near-identity blocks, as a zero-γ init) and so does each decoder box
-    head's last layer (small refinements, as a trained model makes)."""
+    (near-identity blocks, as a zero-γ init), and so does the BatchNorm
+    scale of each STDC cat block's convs after its first (the block's
+    output near its 1x1 path: STDC has no residual, and ~50 train-mode
+    BatchNorms in a row amplify a difference ~10x every few blocks), and
+    each decoder box head's last layer (small refinements, as a trained
+    model makes)."""
     from focoos_tpu_torch.nn.backbone.resnet import BottleNeck
+    from focoos_tpu_torch.nn.backbone.stdc import CatBottleneck
 
     for m in module.modules():
         if isinstance(m, BottleNeck):
             m.branch2c.norm.weight.mul_(0.1)
+        elif isinstance(m, CatBottleneck):  # STDC: the concat near its 1x1 path, the deeper convs' share x0.1
+            for conv in m.conv_list[1:]:
+                conv.bn.weight.mul_(0.1)
     for head in module.predictor.dec_bbox_classifier:
         head.layers[-1].weight.mul_(0.1)
         head.layers[-1].bias.mul_(0.1)
+
+
+@contextlib.contextmanager
+def cpu_fp64(module: torch.nn.Module):
+    """``module`` (on the CPU) computing in fp64 within the block: its
+    parameters, statistics and compute dtype, its LayerNorms, and the MSDA
+    plain version (the kernel wrapper takes fp32 and bf16 only); outputs
+    and losses stay fp32, as the model casts them. Only fp64 inputs take the
+    fp64 LayerNorm and the plain MSDA: a model on the card, run inside the
+    block, keeps its fp32 LayerNorms and its MSDA kernels. torch's CPU BatchNorm
+    sums its train statistics in fp32, over fai-detr-m's 2x320x320 values a
+    channel at the stem's resolution, and STDC's chain of BatchNorms grows
+    that drift by the encoder well past the card's (ROADMAP Queue 3). In
+    fp64 the CPU's step is the reference the card is held to."""
+    import focoos_tpu_torch.models.fai_detr.modelling as modelling
+    from focoos_tpu_torch.nn.layers import common
+    from focoos_tpu_torch.ops.deformable import ms_deform_attn
+
+    real_ln, real_msda = common.LayerNorm.forward, modelling.msda_forward
+    module.double()
+    common.set_compute_dtype(module, torch.float64)
+    common.LayerNorm.forward = lambda self, x: (torch.nn.LayerNorm.forward(self, x) if x.dtype == torch.float64
+                                                else real_ln(self, x))
+    modelling.msda_forward = lambda v, *a: ms_deform_attn(v, *a) if v.dtype == torch.float64 else real_msda(v, *a)
+    try:
+        yield module
+    finally:
+        common.LayerNorm.forward, modelling.msda_forward = real_ln, real_msda
+        module.float()
+        common.set_compute_dtype(module, torch.float32)
 
 
 def train_dataset(n: int, size: int, seed: int) -> list:
@@ -886,6 +941,43 @@ def device_busy(prof) -> tuple:
     return busy, by_name
 
 
+def profiled_trainer(model, args, train_ds, first: int, n: int, val_ds=None):
+    """A FocoosTrainer whose loop runs steps ``first`` to ``first + n - 1``
+    (each the loader's wait and the step: the profiler is the first hook,
+    so the other hooks' after-step work, validation and checkpoints, falls
+    outside the window of the last) under the profiler, CPU and CUDA
+    activity, the card synchronized at both ends. After ``train()`` its
+    ``profile`` holds (the profiler, the window's wall time in µs)."""
+    from focoos_tpu_torch.trainer.hooks import HookBase
+    from focoos_tpu_torch.trainer.trainer import FocoosTrainer
+
+    class StepProfiler(HookBase):
+        def before_step(self):
+            if self.trainer.iter == first:
+                torch.cuda.synchronize()
+                self.prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                               torch.profiler.ProfilerActivity.CUDA])
+                self.prof.__enter__()
+                self.t0 = time.perf_counter()
+
+        def after_step(self):
+            if self.trainer.iter == first + n - 1:
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - self.t0) * 1e6
+                self.prof.__exit__(None, None, None)
+                trainer.profile = (self.prof, wall)
+
+    class ProfiledTrainer(FocoosTrainer):
+        def _register_hooks(self, loop, checkpointer, schedule) -> None:
+            super()._register_hooks(loop, checkpointer, schedule)
+            profiler = StepProfiler()
+            profiler.trainer = loop
+            loop.hooks.insert(0, profiler)
+
+    trainer = ProfiledTrainer(model, args, train_ds, val_ds)
+    return trainer
+
+
 def phase_train(dev, smi: str) -> dict:
     import os
     import shutil
@@ -896,7 +988,6 @@ def phase_train(dev, smi: str) -> dict:
     from focoos_tpu_torch.models.fai_detr.loss import compute_cost_matrix
     from focoos_tpu_torch.ops.matching import batched_auction_assign
     from focoos_tpu_torch.ops.msda import msda_backward, msda_forward
-    from focoos_tpu_torch.trainer.trainer import FocoosTrainer
 
     t0 = time.perf_counter()
     model = ModelManager.get("fai-detr-l-coco", device=dev, seed=0)
@@ -916,7 +1007,7 @@ def phase_train(dev, smi: str) -> dict:
 
     def args(iters: int) -> TrainerArgs:
         return TrainerArgs(run_name="smoke", output_dir=out_dir, batch_size=TRAIN_BATCH, max_iters=iters,
-                           ema_enabled=True, checkpointer_period=iters, log_period=iters, seed=0)
+                           ema_enabled=True, checkpointer_period=iters, log_period=iters, seed=0, workers_timeout=300)
 
     try:
         # card vs CPU on one step at B=2, before any update
@@ -949,30 +1040,20 @@ def phase_train(dev, smi: str) -> dict:
         log(f"[train] losses at step {rows[-1]['iteration']}: "
             + ", ".join(f"{k} {v:.4f}" for k, v in sorted(losses.items())))
 
-        # timing: warm-up steps, then timed steps (host clock per step, IterationTimer)
+        # timing: warm-up steps, then timed steps (host clock per step, IterationTimer),
+        # then one more step of the same loop under the profiler
         warm, timed = 2, 10
         torch.cuda.reset_peak_memory_stats()
-        trainer = FocoosTrainer(model, args(warm + timed), ds)
+        trainer = profiled_trainer(model, args(warm + timed + 1), ds, first=warm + timed, n=1)
         trainer.train()
         torch.cuda.synchronize()
-        times = [v for v, _ in trainer.loop.storage.history("time").values()][warm:]
+        times = [v for v, _ in trainer.loop.storage.history("time").values()][warm:warm + timed]
         step_s = float(np.median(times))
         peak = torch.cuda.max_memory_allocated() / 2**30
         log(f"[train] {smi}, fp32, TF32 off, B={TRAIN_BATCH} 640²: step p50 {step_s * 1e3:.2f} ms"
             f" (min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}, {timed} steps)"
             f" = {TRAIN_BATCH / step_s:.1f} images/s; peak memory allocated {peak:.2f} GiB")
-
-        # one more step of the same loop under the profiler
-        model.processor.train(True)
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            trainer.loop.run_step()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e6
-        model.processor.train(False)
-        model.module.eval()
+        prof, wall = trainer.profile
         busy, by_name = device_busy(prof)
         fwd = sum(v for k, v in by_name.items() if "msda_forward_" in k)
         bwd = sum(v for k, v in by_name.items() if "msda_backward_" in k)
@@ -1015,7 +1096,6 @@ def train_bf16(dev, smi: str, initial: dict, pair: dict, ds: list, args, fp32: d
     path's launches, timed steps and a profiled step."""
     from focoos_tpu_torch import ModelManager
     from focoos_tpu_torch.ops.msda import msda_backward, msda_forward
-    from focoos_tpu_torch.trainer.trainer import FocoosTrainer
 
     model = ModelManager.get("fai-detr-l-coco", device=dev, dtype="bfloat16")
     model.module.load_state_dict(initial)
@@ -1057,10 +1137,10 @@ def train_bf16(dev, smi: str, initial: dict, pair: dict, ds: list, args, fp32: d
 
     warm, timed = 2, 10
     torch.cuda.reset_peak_memory_stats()
-    trainer = FocoosTrainer(model, args(warm + timed), ds)
+    trainer = profiled_trainer(model, args(warm + timed + 1), ds, first=warm + timed, n=1)
     trainer.train()
     torch.cuda.synchronize()
-    times = [v for v, _ in trainer.loop.storage.history("time").values()][warm:]
+    times = [v for v, _ in trainer.loop.storage.history("time").values()][warm:warm + timed]
     step_s = float(np.median(times))
     peak = torch.cuda.max_memory_allocated() / 2**30
     assert all(np.isfinite(v) for v, _ in trainer.loop.storage.history("total_loss").values())
@@ -1069,16 +1149,7 @@ def train_bf16(dev, smi: str, initial: dict, pair: dict, ds: list, args, fp32: d
         f" images/s; peak memory allocated {peak:.2f} GiB | fp32 in this run: {fp32['step_s'] * 1e3:.2f} ms ="
         f" {TRAIN_BATCH / fp32['step_s']:.1f} images/s, {fp32['peak']:.2f} GiB")
 
-    model.processor.train(True)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.loop.run_step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e6
-    model.processor.train(False)
-    model.module.eval()
+    prof, wall = trainer.profile
     busy, by_name = device_busy(prof)
     sh = kernel_shares(by_name, busy)
     bwd = sum(v for k, v in by_name.items() if "msda_backward_" in k)
@@ -1639,7 +1710,7 @@ def phase_lifecycle(dev, smi: str, b16_images_per_s: float) -> dict:
     def args(iters: int, **kw) -> TrainerArgs:
         return TrainerArgs(run_name="lifecycle", output_dir=out_dir, batch_size=LIFECYCLE_BATCH, max_iters=iters,
                            eval_period=3, checkpointer_period=3, ckpt_dir=ckpt_dir, ema_enabled=True, log_period=1,
-                           seed=0, **kw)
+                           seed=0, workers_timeout=300, **kw)
 
     try:
         res, counts = counted(lambda: model.train(args(6), train_ds, val_ds))
@@ -1683,6 +1754,231 @@ def phase_lifecycle(dev, smi: str, b16_images_per_s: float) -> dict:
     log(f"[lifecycle] launches over the phase's counted runs: {total}")
     return total
 
+def finetune_run(model, args, train_ds, val_ds) -> tuple:
+    """FocoosModel.train with both MSDA kernels' counts at 0 just before and
+    read just after → (its result, {kernel: launches}, metrics.json's last
+    row: ``time`` and ``data_time`` are medians over the run's steps)."""
+    import os
+
+    from focoos_tpu_torch.ops.msda import msda_backward, msda_forward
+
+    for k in (msda_forward, msda_backward):
+        k.launches = 0
+        k.paths = {"vector": 0, "general": 0}
+    res = model.train(args, train_ds, val_ds)
+    torch.cuda.synchronize()
+    counts = {"msda_forward": msda_forward.launches, "msda_backward": msda_backward.launches}
+    assert msda_forward.paths["general"] == 0 and msda_backward.paths["general"] == 0, "the MSDA vector paths were left"
+    with open(os.path.join(res["run_dir"], "metrics.json")) as f:
+        rows = [json.loads(line) for line in f]
+    return res, counts, rows[-1]
+
+
+def phase_finetune_m(dev, smi: str) -> dict:
+    """fai-detr-m fine-tuned from a dataset on disk through the port's data
+    pipeline: AutoDataset splits of a seeded Roboflow-COCO set → the loader
+    (worker processes bit-equal to in-process on the val split; the train
+    loader timed alone) → one step, card fp32 vs CPU fp64 → FocoosModel.train with
+    validation, in fp32 and bf16 (step and data_time p50, profiled steps,
+    peak memory, bbox/AP) → FocoosModel.eval → b1 and b16 serving. Returns
+    each MSDA kernel's launches summed over the counted runs."""
+    import copy
+    import os
+    import shutil
+    import tempfile
+
+    import cv2
+
+    from focoos_tpu_torch import ModelManager
+    from focoos_tpu_torch.data.auto_dataset import AutoDataset
+    from focoos_tpu_torch.data.default_aug import fai_detection_train_augs
+    from focoos_tpu_torch.data.loaders import InferenceSampler, build_train_loader
+    from focoos_tpu_torch.ops.msda import msda_backward, msda_forward
+    from focoos_tpu_torch.ports import TrainerArgs
+
+    total = {"msda_forward": 0, "msda_backward": 0}
+
+    def add(counts: dict) -> None:
+        for k, v in counts.items():
+            total[k] += v
+
+    # the host: cores for the loader's workers, the image libraries
+    cpus = os.cpu_count()
+    try:
+        import PIL
+
+        pil = PIL.__version__
+    except ImportError as e:
+        pil = None
+        os.environ["FOCOOS_RESIZE_BACKEND"] = "cv2"
+        log(f"[finetune_m] PIL does not import ({e}): this phase runs with FOCOOS_RESIZE_BACKEND=cv2, uint8"
+            " resizes through cv2's bilinear (not antialiased) in place of PIL's")
+    workers = min(8, cpus)
+    log(f"[finetune_m] os.cpu_count() {cpus}; cv2 {cv2.__version__}; PIL {pil or 'does not import'};"
+        f" loader workers {workers}")
+
+    # a seeded Roboflow-COCO dataset on local disk
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    from make_synthetic_dataset import make
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_finetune_m_")
+    try:
+        t0 = time.perf_counter()
+        make(os.path.join(root, "shapes"), n_train=FT_TRAIN, n_val=FT_VAL, size=LIFECYCLE_SIZE, seed=0)
+        auto = AutoDataset(os.path.join(root, "shapes"), task="detection")
+        train_ds, val_ds = auto.get_split(split="train"), auto.get_split(split="val")
+        fai_augs = copy.deepcopy(fai_detection_train_augs)
+        fai_train = auto.get_split(fai_augs, split="train")
+        classes = train_ds.metadata.classes
+        log(f"[finetune_m] wrote {FT_TRAIN} train and {FT_VAL} val {LIFECYCLE_SIZE}² JPEGs, 1-3 boxes of"
+            f" {len(classes)} classes each ({time.perf_counter() - t0:.1f}s); AutoDataset splits: the default"
+            " detection augmentations (train: color, flip, resize to 320-800 short edge, 640² crop; val: 640²)")
+
+        model = ModelManager.get("fai-detr-m-coco", device=dev, classes=classes, seed=0)
+        perturb(model.module, seed=1)
+        condition_for_training(model.module)
+        cfg = model.config
+        n_dec = cfg.transformer_predictor_dec_layers
+        initial = {k: v.detach().clone() for k, v in model.module.state_dict().items()}
+        log(f"[finetune_m] {model.name}: STDC (base {cfg.backbone_config.base}, layers"
+            f" {cfg.backbone_config.layers}), {cfg.pixel_decoder_num_encoder_layers} AIFI layers, encoder"
+            f" {cfg.pixel_decoder_feat_dim} wide, decoder {cfg.transformer_predictor_hidden_dim} wide, {n_dec}"
+            f" decoder layers, {cfg.num_queries} queries, {cfg.num_classes} classes,"
+            f" {sum(p.numel() for p in model.module.parameters()) / 1e6:.2f}M params, im_size {model.im_size}")
+
+        # the loader: the val split (its augmentations draw nothing) with 4 workers and in process
+        proc = model.processor.train(True)
+        val_batches = {}
+        for w in (4, 0):
+            loader = build_train_loader(val_ds, proc, 4, num_workers=w, sampler=InferenceSampler(len(val_ds)),
+                                        timeout=300 if w else 0)
+            val_batches[w] = list(loader)
+            loader.close()
+        same = len(val_batches[4]) == len(val_batches[0]) == FT_VAL // 4 and all(
+            torch.equal(a, b) and all(torch.equal(getattr(ta, f), getattr(tb, f)) for f in ("labels", "boxes", "valid"))
+            for (a, ta), (b, tb) in zip(val_batches[4], val_batches[0]))
+        log(f"[finetune_m] val split through the loader, batch 4: workers=4 and workers=0 give"
+            f" {len(val_batches[4])} and {len(val_batches[0])} batches, bit-equal and in order: {same}")
+        assert same, "the loader's workers and the in-process loader disagree on the val split"
+
+        # the train loader alone: the fai detection augmentations (zoom-out to 4x side, PIL resizes)
+        np.random.seed(0)
+        t0 = time.perf_counter()
+        mapped = [fai_train[i] for i in range(FT_BATCH)]
+        map_ms = (time.perf_counter() - t0) * 1e3 / FT_BATCH
+        loader = build_train_loader(fai_train, proc, FT_BATCH, num_workers=workers, seed=0, pin_memory=True,
+                                    timeout=300)
+        t0 = time.perf_counter()
+        next(loader)
+        first_s = time.perf_counter() - t0
+        n_batches = 8
+        t0 = time.perf_counter()
+        shapes = [tuple(next(loader)[0].shape[1:3]) for _ in range(n_batches)]
+        load_s = time.perf_counter() - t0
+        loader.close()
+        log(f"[finetune_m] {smi}: train loader alone, fai_detection_train_augs at 640, B={FT_BATCH}, {workers}"
+            f" workers: {FT_BATCH * n_batches / load_s:.1f} images/s over {n_batches} batches"
+            f" ({load_s * 1e3 / n_batches:.1f} ms a batch; the first, workers starting, {first_s:.2f}s); batch shapes"
+            f" {sorted(set(shapes))}; one image mapped in process {map_ms:.1f} ms (mean of {FT_BATCH}, largest"
+            f" {max(e.image.shape[:2] for e in mapped)})")
+        proc.train(False)
+        del mapped
+
+        # one fp32 step on the card against the CPU's step in fp64, on mapped train records (the
+        # CPU's assignment carried to the card)
+        cpu_model = ModelManager.get("fai-detr-m-coco", device="cpu", classes=classes, init_weights=False)
+        cpu_model.module.load_state_dict(model.module.state_dict())
+        np.random.seed(3)
+        t0 = time.perf_counter()
+        msda_forward.launches = msda_backward.launches = 0
+        with cpu_fp64(cpu_model.module):
+            pair = compare_train_step(model, cpu_model, cfg, [train_ds[i] for i in range(8)])
+        torch.cuda.synchronize()
+        gate = {"msda_forward": msda_forward.launches, "msda_backward": msda_backward.launches}
+        log(f"[finetune_m] card fp32 vs CPU fp64 on one step of fai-detr-m: max loss rel err {pair['loss_rel']:.3e}"
+            f" (tol {TRAIN_LOSS_RTOL:.0e}), grad_norm rel err {pair['norm_rel']:.3e} (tol"
+            f" {TRAIN_GRAD_NORM_RTOL:.0e}) ({time.perf_counter() - t0:.1f}s); the card's steps launched msda_forward"
+            f" {gate['msda_forward']}, msda_backward {gate['msda_backward']} ({n_dec} each a step)")
+        # every card step of the gate (its own selection, then the CPU's assignment) ran both kernels per layer
+        assert gate["msda_forward"] == gate["msda_backward"] >= 2 * n_dec, gate
+        assert gate["msda_forward"] % n_dec == 0, gate
+        model.module.zero_grad(set_to_none=True)
+        del cpu_model
+
+        out_dir = tempfile.mkdtemp(prefix="ft_", dir=root)
+
+        def args(iters: int, eval_period: int = FT_EVAL_PERIOD) -> TrainerArgs:
+            return TrainerArgs(run_name="finetune_m", output_dir=out_dir, batch_size=FT_BATCH, max_iters=iters,
+                               workers=workers, eval_period=eval_period, checkpointer_period=iters,
+                               log_period=iters, ema_enabled=True, seed=0, workers_timeout=300)
+
+        runs = {}
+        for dtype in ("float32", "bfloat16"):
+            m = model if dtype == "float32" else ModelManager.get("fai-detr-m-coco", device=dev, classes=classes,
+                                                                   dtype=dtype, init_weights=False)
+            m.module.load_state_dict(initial)
+            torch.cuda.reset_peak_memory_stats()
+            res, counts, row = finetune_run(m, args(FT_STEPS), train_ds, val_ds)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            add(counts)
+            ap = res["metrics"]["bbox"]
+            log(f"[finetune_m] {smi}, {dtype}: FocoosModel.train {res['iterations']} steps at B={FT_BATCH} from"
+                f" disk, {workers} workers, eval_period {FT_EVAL_PERIOD}: step p50 {row['time'] * 1e3:.2f} ms ="
+                f" {FT_BATCH / row['time']:.1f} images/s, data_time p50 {row['data_time'] * 1e3:.2f} ms; peak memory"
+                f" allocated {peak:.2f} GiB; val bbox {ap_line(ap)}; launches msda_forward"
+                f" {counts['msda_forward']}, msda_backward {counts['msda_backward']} ({n_dec} decoder layers)")
+            assert res["iterations"] == FT_STEPS and counts["msda_backward"] == n_dec * FT_STEPS, counts
+            # the steps' forwards, then the validations' and the prediction mosaics' (a multiple of n_dec)
+            assert counts["msda_forward"] >= n_dec * FT_STEPS and counts["msda_forward"] % n_dec == 0, counts
+            assert all(np.isfinite(v) for k, v in row.items() if "loss" in k), row
+            assert 0.0 <= ap["AP"] <= 100.0, ap
+
+            # a few more steps with the middle ones under the profiler
+            trainer = profiled_trainer(m, args(FT_PROFILED + 2, eval_period=0), train_ds, first=1, n=FT_PROFILED)
+            trainer.train()
+            prof, wall = trainer.profile
+            busy, by_name = device_busy(prof)
+            fwd = sum(v for k, v in by_name.items() if "msda_forward_" in k)
+            bwd = sum(v for k, v in by_name.items() if "msda_backward_" in k)
+            log(f"[finetune_m] {dtype}: {FT_PROFILED} profiled steps: wall {wall / FT_PROFILED / 1e3:.2f} ms a step,"
+                f" device busy {busy / FT_PROFILED / 1e3:.2f} ms, idle share {1 - busy / wall:.3f}; cuDNN"
+                f" convolutions {kernel_shares(by_name, busy)['conv']:.1%} of busy; MSDA forward kernel"
+                f" {fwd / busy:.2%}, backward {bwd / busy:.2%}")
+            for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
+                log(f"[finetune_m]   {v / FT_PROFILED / 1e3:9.3f} ms {v / busy:6.1%}  {k[:110]}")
+            runs[dtype] = m
+
+        # FocoosModel.eval on the fine-tuned fp32 weights, then serving, fp32 and bf16
+        msda_forward.launches = 0
+        final = model.eval(TrainerArgs(run_name="eval", batch_size=8), val_ds)
+        torch.cuda.synchronize()
+        add({"msda_forward": msda_forward.launches})
+        log(f"[finetune_m] FocoosModel.eval ({len(val_ds)} val images from disk, batch 8): bbox {ap_line(final['bbox'])};"
+            f" launches msda_forward {msda_forward.launches}")
+        assert msda_forward.launches == n_dec * FT_VAL // 8 and all(np.isfinite(v) for v in final["bbox"].values())
+        batch = np.random.default_rng(5).integers(0, 256, (16, LIFECYCLE_SIZE, LIFECYCLE_SIZE, 3), dtype=np.uint8)
+        x1, x16 = torch.from_numpy(batch[:1]).to(dev), torch.from_numpy(batch).to(dev)
+        # both MSDA kernels on what the fine-tuned model's last decoder layer samples in a b16 forward
+        v, ss, loc, aw = capture_msda_inputs(model.module, x16, n_dec - 1)
+        label = f"fai-detr-m captured from decoder layer {n_dec - 1} of the b16 forward, B=16 Lq=300 Hh=8 D=32"
+        check_msda_forward(label, v, ss, loc, aw)
+        grad = torch.randn(v.shape[0], loc.shape[1], v.shape[2] * v.shape[3], generator=torch.Generator().manual_seed(9))
+        check_msda_backward(label, v, ss, loc, aw, grad.to(dev))
+        for dtype, m in runs.items():
+            msda_forward.launches = 0
+            dets = m(batch, threshold=0.0)
+            torch.cuda.synchronize()
+            add({"msda_forward": msda_forward.launches})
+            top_k = min(cfg.top_k, cfg.num_queries * cfg.num_classes)
+            assert msda_forward.launches == n_dec and len(dets) == 16 and all(len(d) == top_k for d in dets)
+            t = serve_timings(m.module, {"b1": x1, "b16": x16}, {"b1": 30, "b16": 10})
+            log(f"[finetune_m] {smi}, {dtype}: serving fai-detr-m, b1 forward p50 {t['b1'] * 1e3:.2f} ms; b16"
+                f" forward p50 {t['b16'] * 1e3:.2f} ms = {16 / t['b16']:.1f} images/s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[finetune_m] launches over the phase's counted runs: {total}")
+    return total
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1724,6 +2020,7 @@ def main() -> int:
     launches16.update(phase_rtmo_bf16(dev, smi, rtmo_ctx))
     del rtmo_ctx
     lifecycle = phase_lifecycle(dev, smi, b16_images_per_s)
+    finetune_m = phase_finetune_m(dev, smi)
 
     # library_ms: no single PyTorch call computes any of these functions (MSDA needs a
     # grid_sample per level and a weighted sum; the stem three convs, BN, ReLU and a
@@ -1754,6 +2051,7 @@ def main() -> int:
     for k in kernels:
         k["library_ms"] = None
         k["launches_lifecycle"] = lifecycle[k["name"]]
+        k["launches_finetune_m"] = finetune_m.get(k["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -120,8 +120,11 @@ __device__ __forceinline__ Corner corner(int lane, int base, int n, int P, const
   if (i < n) {
     const int l = i / P;
     const int hl = lv.h[l], wl = lv.w[l];
-    const float x = __ldg(loc_w + 2 * i) * wl - 0.5f;
-    const float y = __ldg(loc_w + 2 * i + 1) * hl - 0.5f;
+    // loc * size - 0.5 rounded after the product and again after the
+    // difference, as the plain version and JAX compute it: contracted into
+    // one FMA, a point within an ulp of a pixel edge falls in the other cell
+    const float x = __fsub_rn(__fmul_rn(__ldg(loc_w + 2 * i), (float)wl), 0.5f);
+    const float y = __fsub_rn(__fmul_rn(__ldg(loc_w + 2 * i + 1), (float)hl), 0.5f);
     const float xf = floorf(x), yf = floorf(y);
     const float cx = xf + (float)(c & 1), cy = yf + (float)(c >> 1);
     e.l = l;

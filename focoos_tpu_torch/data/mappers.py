@@ -1,0 +1,133 @@
+"""Dataset mappers: record dict → DatasetEntry (copy of
+``focoos_tpu/data/mappers.py``; reference: focoos/data/mappers/).
+
+A mapper reads the image, runs the augmentation pipeline, converts the
+annotations into numpy ``Instances`` and drops empty training records
+(returning None makes MapDataset retry another record). The detection and
+keypoint mappers are ported; the instance-segmentation, semantic and
+classification mappers raise until their families land (ROADMAP Queue 1
+item 7: they need masks and ``utils/native.py``'s RLE decode, or a family the
+port does not have yet).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+
+from focoos_tpu_torch.data.transforms import AugInput, Augmentation, AugmentationList, TransformList
+from focoos_tpu_torch.ports import DatasetEntry, Task
+from focoos_tpu_torch.structures import Boxes, BoxMode, Instances, Keypoints
+
+
+def _read_image(path: str) -> np.ndarray:
+    """RGB uint8 with EXIF orientation applied (reference: data/utils.py:310
+    _apply_exif_orientation: phone photos are often stored rotated).
+
+    cv2.imread applies EXIF orientation itself and decodes faster than PIL;
+    PIL reads the formats cv2 cannot. A file neither can read raises."""
+    import cv2
+
+    img = cv2.imread(path, cv2.IMREAD_COLOR)
+    if img is not None:
+        return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    from PIL import Image, ImageOps
+
+    with Image.open(path) as im:
+        im = ImageOps.exif_transpose(im)
+        return np.asarray(im.convert("RGB"))
+
+
+def _transform_keypoints(kpts: np.ndarray, tfm: TransformList, image_size) -> np.ndarray:
+    """[N, K, 3] → transformed, with out-of-image points marked invisible."""
+    if len(kpts) == 0:
+        return kpts
+    n, k, _ = kpts.shape
+    coords = tfm.apply_coords(kpts[..., :2].reshape(-1, 2)).reshape(n, k, 2)
+    vis = kpts[..., 2].copy()
+    h, w = image_size
+    oob = (coords[..., 0] < 0) | (coords[..., 0] >= w) | (coords[..., 1] < 0) | (coords[..., 1] >= h)
+    vis[oob] = 0
+    return np.concatenate([coords, vis[..., None]], axis=-1).astype(np.float32)
+
+
+class DatasetMapper:
+    """(reference: mappers/mapper.py:10)"""
+
+    def __init__(self, augmentations: List[Augmentation], is_train: bool = True, image_format: str = "RGB"):
+        self.augmentations = AugmentationList(augmentations)
+        self.is_train = is_train
+
+    def __call__(self, record: dict) -> Optional[DatasetEntry]:
+        raise NotImplementedError
+
+
+class DetectionDatasetMapper(DatasetMapper):
+    """(reference: mappers/detection_dataset_mapper.py:19)"""
+
+    use_keypoints = False
+
+    def __call__(self, record: dict) -> Optional[DatasetEntry]:
+        image = _read_image(record["file_name"])
+        h0, w0 = image.shape[:2]
+
+        # training drops crowd regions (reference detection_dataset_mapper.py
+        # filters iscrowd); eval keeps them, marked, so the COCO evaluator can
+        # apply the crowd-ignore convention (dts overlapping a crowd are
+        # neither TP nor FP) instead of counting them as plain FPs
+        anns = record.get("annotations", [])
+        if self.is_train:
+            anns = [a for a in anns if not a.get("iscrowd", 0)]
+        boxes = np.array(
+            [BoxMode.convert(np.asarray(a["bbox"], np.float64), BoxMode.XYWH_ABS, BoxMode.XYXY_ABS) for a in anns],
+            np.float32,
+        ).reshape(-1, 4)
+        aug_input = AugInput(image, boxes=boxes)
+        tfm = self.augmentations(aug_input)
+        image = aug_input.image
+        boxes = aug_input.boxes
+        hw = image.shape[:2]
+
+        classes = np.array([a["category_id"] for a in anns], np.int64)
+        inst = Instances(hw)
+        b = Boxes(boxes)
+        b.clip(hw)
+        inst.boxes = b
+        inst.classes = classes
+        inst.iscrowd = np.array([a.get("iscrowd", 0) for a in anns], np.int64)
+
+        if self.use_keypoints:
+            kpts = np.array(
+                [np.asarray(a.get("keypoints", [0] * 51), np.float32).reshape(-1, 3) for a in anns], np.float32
+            ).reshape(len(anns), -1, 3)
+            inst.keypoints = Keypoints(_transform_keypoints(kpts, tfm, hw))
+
+        keep = b.nonempty()
+        inst = inst[keep]
+        if self.is_train and len(inst) == 0:
+            return None  # retry another record (reference :150 filter empties)
+        return DatasetEntry(
+            image=image,
+            height=record.get("height", h0),
+            width=record.get("width", w0),
+            instances=inst,
+            file_name=record["file_name"],
+            image_id=record.get("image_id"),
+        )
+
+
+class KeypointDatasetMapper(DetectionDatasetMapper):
+    """(reference: mappers/keypoint.py:21)"""
+
+    use_keypoints = True
+
+
+def get_mapper_by_task(task: Task, augmentations: List[Augmentation], is_train: bool = True) -> DatasetMapper:
+    if task == Task.DETECTION:
+        return DetectionDatasetMapper(augmentations, is_train)
+    if task == Task.KEYPOINT:
+        return KeypointDatasetMapper(augmentations, is_train)
+    if task in (Task.INSTANCE_SEGMENTATION, Task.SEMSEG, Task.CLASSIFICATION):
+        raise NotImplementedError(f"the {Task(task).value} mapper is not ported yet (ROADMAP Queue 1 item 7)")
+    raise ValueError(f"No mapper for task {task}")

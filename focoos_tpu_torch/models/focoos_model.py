@@ -242,8 +242,11 @@ class FocoosModel:
 
     # ------------------------------------------------------------------
     def train(self, args, train_dataset, val_dataset=None):
-        """Fine-tune on ``train_dataset`` (a sequence of DatasetEntry) on the
-        model's device (reference: focoos_model.py:221-274) → {"run_dir",
+        """Fine-tune on ``train_dataset`` on the model's device (reference:
+        focoos_model.py:221-274): a sequence of DatasetEntry, such as the
+        ``MapDataset`` that ``AutoDataset.get_split`` returns, which
+        ``args.workers`` loader processes read and map (``val_dataset`` the
+        same, mapped in the evaluation's producer thread) → {"run_dir",
         "metrics", "iterations"}; the module ends in eval mode holding the
         final (EMA when enabled) weights. The step computes in the model's
         dtype with fp32 parameters, gradients and optimizer state, as the
@@ -253,7 +256,8 @@ class FocoosModel:
         return run_train(self, args, train_dataset, val_dataset)
 
     def eval(self, args, val_dataset):
-        """Score the model on ``val_dataset`` (a sequence of DatasetEntry) at
+        """Score the model on ``val_dataset`` (a sequence of DatasetEntry, such
+        as ``AutoDataset.get_split``'s ``MapDataset``) at
         ``args.batch_size`` → the task evaluator's results, e.g.
         ``{"bbox": {"AP": ..., "AP50": ...}}`` (reference: focoos_model.py:277)."""
         from focoos_tpu_torch.trainer.trainer import run_eval

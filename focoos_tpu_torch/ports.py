@@ -24,6 +24,7 @@ import numpy as np
 
 ROOT_DIR = os.path.expanduser(os.getenv("FOCOOS_TPU_ROOT", "~/FocoosTPU"))
 MODELS_DIR = os.path.join(ROOT_DIR, "models")
+DATASETS_DIR = os.path.join(ROOT_DIR, "datasets")
 
 
 class Task(str, Enum):
@@ -46,6 +47,15 @@ class ModelStatus(str, Enum):
     TRAINING_COMPLETED = "TRAINING_COMPLETED"
     TRAINING_STOPPED = "TRAINING_STOPPED"
     DEPLOYED = "DEPLOYED"
+
+
+class DatasetLayout(str, Enum):
+    """On-disk dataset formats the ingestion layer understands (focoos/ports.py:80)."""
+
+    ROBOFLOW_COCO = "roboflow_coco"
+    ROBOFLOW_SEG = "roboflow_seg"
+    CATALOG = "catalog"
+    CLS_FOLDER = "cls_folder"
 
 
 class ModelFamily(str, Enum):
@@ -214,6 +224,7 @@ class TrainerArgs:
     num_devices: int = -1  # -1 = all local devices (analog of num_gpus)
     device: str = "tpu"
     workers: int = 4
+    workers_timeout: float = 0  # seconds the training loader waits on its workers for a batch, then raises; 0: no limit
     amp_enabled: bool = True  # bf16 compute
     checkpointer_period: int = 1000
     checkpointer_max_to_keep: int = 1
@@ -276,6 +287,42 @@ class TrainerArgs:
         if "num_gpus" in d and "num_devices" not in d:
             d["num_devices"] = d.pop("num_gpus")
         return cls(**{k: v for k, v in d.items() if k in known})
+
+
+class DatasetSplitType(str, Enum):
+    TRAIN = "train"
+    VAL = "val"
+    TEST = "test"
+
+
+@dataclass
+class DatasetMetadata:
+    """Dataset-level metadata (focoos/ports.py:1070)."""
+
+    num_classes: int
+    task: Task
+    count: Optional[int] = None
+    name: Optional[str] = None
+    image_root: Optional[str] = None
+    thing_classes: Optional[List[str]] = None
+    stuff_classes: Optional[List[str]] = None
+    sem_seg_root: Optional[str] = None
+    ignore_label: Optional[int] = None
+    thing_dataset_id_to_contiguous_id: Optional[dict] = None
+    stuff_dataset_id_to_contiguous_id: Optional[dict] = None
+    json_file: Optional[str] = None
+    keypoints: Optional[List[str]] = None
+    keypoints_skeleton: Optional[List[Tuple[int, int]]] = None
+
+    @property
+    def classes(self) -> List[str]:
+        if self.task in (Task.DETECTION, Task.INSTANCE_SEGMENTATION, Task.CLASSIFICATION, Task.KEYPOINT):
+            assert self.thing_classes is not None, f"thing_classes required for {self.task}"
+            return self.thing_classes
+        if self.task == Task.SEMSEG:
+            assert self.stuff_classes is not None, "stuff_classes required for semseg"
+            return self.stuff_classes
+        raise ValueError(f"Task {self.task} not supported")
 
 
 @dataclass

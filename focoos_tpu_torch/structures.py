@@ -1,6 +1,6 @@
 """Host-side containers of the port (copy of ``focoos_tpu/structures.py``,
-trimmed to what ``focoos_tpu_torch`` and its tests use: ``Boxes``,
-``Keypoints``, ``Instances``, ``ImageList``).
+trimmed to what ``focoos_tpu_torch`` and its tests use: ``BoxMode``,
+``Boxes``, ``Keypoints``, ``Instances``, ``ImageList``).
 
 The port keeps its own copy so that it runs without ``focoos_tpu``. Names
 and behaviour are those of the JAX package's module. NumPy-backed: these
@@ -10,9 +10,32 @@ device is a tensor.
 
 from __future__ import annotations
 
+from enum import IntEnum
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+
+
+class BoxMode(IntEnum):
+    """Box coordinate conventions (reference: focoos/structures.py:426)."""
+
+    XYXY_ABS = 0
+    XYWH_ABS = 1
+
+    @staticmethod
+    def convert(box: np.ndarray, from_mode: "BoxMode", to_mode: "BoxMode") -> np.ndarray:
+        if from_mode == to_mode:
+            return box
+        box = np.asarray(box, dtype=np.float64).copy()
+        if from_mode == BoxMode.XYWH_ABS and to_mode == BoxMode.XYXY_ABS:
+            box[..., 2] += box[..., 0]
+            box[..., 3] += box[..., 1]
+            return box
+        if from_mode == BoxMode.XYXY_ABS and to_mode == BoxMode.XYWH_ABS:
+            box[..., 2] -= box[..., 0]
+            box[..., 3] -= box[..., 1]
+            return box
+        raise NotImplementedError(f"{from_mode} -> {to_mode}")
 
 
 class Boxes:

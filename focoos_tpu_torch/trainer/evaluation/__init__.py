@@ -4,7 +4,8 @@ reference: focoos/trainer/evaluation/).
 ``inference_on_dataset`` computes what the JAX package's does, in one process
 on the model's device: each entry of the dataset once, in order, in batches
 of ``batch_size`` (the last one short: nothing is padded to a static shape).
-A producer thread, two batches ahead, preprocesses a batch and copies it to
+A producer thread, two batches ahead, reads each entry (a ``MapDataset``
+reads and maps it from disk there), preprocesses a batch and copies it to
 the card (pinned memory, a side stream, an event the forward waits on). The
 consumer runs a software pipeline: batch k's forward is queued, then batch
 k-1 is postprocessed and scored on the host. Each batch's outputs are copied

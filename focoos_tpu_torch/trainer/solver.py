@@ -22,6 +22,7 @@ near ν = 0 differ by orders of magnitude.
 from __future__ import annotations
 
 import math
+import re
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -83,6 +84,12 @@ def ema_decay_schedule(decay: float, warmup: int) -> Callable[[int], float]:
     return lambda step: decay * (1.0 - math.exp(-(step + 1.0) / warmup))
 
 
+# STDC's BatchNorms that JAX does not name ``bn`` (``avd_bn``, ``skip_dw_bn``,
+# ``skip_pw_bn``), so its freeze_bn mask spares them: nn/backbone/stdc.py's
+# ``avd_layer`` and ``skip`` Sequentials
+_STDC_UNFROZEN_BN = re.compile(r"\.(avd_layer\.1|skip\.[13])$")
+
+
 def param_hyperparams(
     module: nn.Module,
     base_wd: float,
@@ -101,8 +108,9 @@ def param_hyperparams(
     module type take ``wd_norm``; a parameter under ``freeze_prefixes`` takes
     0 and 0 (it keeps its gradient, as JAX's masks do, and never moves), and
     so, with ``freeze_bn``, does a BatchNorm's scale and bias, except the
-    input projections' (JAX freezes the paths under ``/bn/``; its
-    ``input_proj_<i>_bn`` BatchNorms are not under one)."""
+    input projections' and STDC's ``avd_layer`` and ``skip`` ones (JAX
+    freezes the paths under ``/bn/``; its ``input_proj_<i>_bn``, ``avd_bn``
+    and ``skip_{dw,pw}_bn`` BatchNorms are not under one)."""
     norm_params = {
         f"{mname}.{pname}" if mname else pname
         for mname, m in module.named_modules() if isinstance(m, NORM_TYPES)
@@ -110,7 +118,8 @@ def param_hyperparams(
     }
     bn_params = {
         f"{mname}.{pname}"
-        for mname, m in module.named_modules() if isinstance(m, nn.BatchNorm2d) and "input_proj" not in mname
+        for mname, m in module.named_modules()
+        if isinstance(m, nn.BatchNorm2d) and "input_proj" not in mname and not _STDC_UNFROZEN_BN.search(mname)
         for pname, _ in m.named_parameters(recurse=False)
     } if freeze_bn else set()
     out = {}

@@ -242,8 +242,9 @@ class FocoosTrainer:
                 logger.info(f"Resumed from iteration {start_iter}")
         # as the JAX trainer's, a resumed run's loader starts its seeded stream from the beginning
         loader = build_train_loader(
-            self.train_dataset, model.processor, args.batch_size, seed=args.seed,
+            self.train_dataset, model.processor, args.batch_size, num_workers=args.workers, seed=args.seed,
             max_instances=args.max_instances_per_image, pin_memory=model.device.type == "cuda",
+            timeout=args.workers_timeout,
         )
         self.loop = loop = TrainerLoop(step_fn, state, loader, args.max_iters, model.device, start_iter=start_iter,
                                        gather_metric_period=args.gather_metric_period)
@@ -258,6 +259,7 @@ class FocoosTrainer:
             self._set_status(ModelStatus.TRAINING_ERROR, failure_reason=str(e))
             raise
         finally:
+            loader.close()
             for m in frozen:
                 m.frozen = False
             module.eval()

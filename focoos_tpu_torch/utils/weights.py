@@ -1,8 +1,8 @@
 """Carry weights between the JAX package and the port (``to_jax_variables``
 is the way back, for fai_detr).
 
-``from_jax_variables`` is the inverse of the ``fai_detr``/``resnet``/``rtmo``/
-``csp_darknet`` rules in ``focoos_tpu/utils/torch_convert.py`` (which imports
+``from_jax_variables`` is the inverse of the ``fai_detr``/``resnet``/``stdc``/
+``rtmo``/``csp_darknet`` rules in ``focoos_tpu/utils/torch_convert.py`` (which imports
 jax, so the port cannot use it): it maps the flat ``params/…``/``batch_stats/…`` arrays of a
 ``model_final.npz`` (``focoos_tpu/utils/checkpoint.py:40-50``) onto a port
 ``state_dict`` with the reference's torch names:
@@ -38,13 +38,29 @@ def _resnet_rules(jp: str, tp: str) -> List[Rule]:
     ]
 
 
+_STDC_PARTS = {"avd_conv": "avd_layer.0", "avd_bn": "avd_layer.1", "skip_dw": "skip.0", "skip_dw_bn": "skip.1",
+               "skip_pw": "skip.2", "skip_pw_bn": "skip.3"}
+
+
+def _stdc_rules(jp: str, tp: str) -> List[Rule]:
+    """STDC module paths: features_{i} → features.{i} (a ConvX keeps conv/bn),
+    conv_list_{j} → conv_list.{j}, avd_conv/avd_bn → avd_layer.{0,1},
+    skip_{dw,pw}[_bn] → skip.{0..3}."""
+    return [
+        (rf"{jp}features_(\d+)/conv_list_(\d+)", lambda m: f"{tp}features.{m[1]}.conv_list.{m[2]}"),
+        (rf"{jp}features_(\d+)/({'|'.join(_STDC_PARTS)})", lambda m: f"{tp}features.{m[1]}.{_STDC_PARTS[m[2]]}"),
+        (rf"{jp}features_(\d+)", lambda m: f"{tp}features.{m[1]}"),
+    ]
+
+
 def _csp(m: re.Match, tp: str) -> str:
     return f"{tp}{m[1]}.{m[2]}" + (f".bottlenecks.{m[3]}" if m[3] is not None else "") + f".{m[4]}"
 
 
 def _fai_detr_rules() -> List[Rule]:
     pd, pr = "pixel_decoder.", "head.predictor."
-    return _resnet_rules("backbone/", f"{pd}backbone.") + [
+    # every backbone's rules, as torch_convert.backbone_rules: their module paths are disjoint
+    return _resnet_rules("backbone/", f"{pd}backbone.") + _stdc_rules("backbone/", f"{pd}backbone.") + [
         (r"pixel_decoder/input_proj_(\d+)_conv", lambda m: f"{pd}input_proj.{m[1]}.0"),
         (r"pixel_decoder/input_proj_(\d+)_bn", lambda m: f"{pd}input_proj.{m[1]}.1"),
         (r"pixel_decoder/encoder_(\d+)_layers_(\d+)/(\w+)", lambda m: f"{pd}encoder.{m[1]}.layers.{m[2]}.{m[3]}"),
@@ -106,6 +122,7 @@ def _rtmo_rules() -> List[Rule]:
 FAMILY_RULES: Dict[str, Callable[[], List[Rule]]] = {
     "fai_detr": _fai_detr_rules,
     "resnet": lambda: _resnet_rules("", ""),
+    "stdc": lambda: _stdc_rules("", ""),
     "rtmo": _rtmo_rules,
     "csp_darknet": lambda: _csp_darknet_rules("", ""),
 }
@@ -181,6 +198,11 @@ INVERSE_RULES: Dict[str, Callable[[], List[Rule]]] = {
         (r"pixel_decoder\.backbone\.conv1\.(conv1_\d)", lambda m: f"backbone/{m[1]}"),
         (r"pixel_decoder\.backbone\.res_layers\.(\d+)\.blocks\.(\d+)",
          lambda m: f"backbone/res{int(m[1]) + 2}_block{m[2]}"),
+        (r"pixel_decoder\.backbone\.features\.(\d+)\.conv_list\.(\d+)",
+         lambda m: f"backbone/features_{m[1]}/conv_list_{m[2]}"),
+        *((rf"pixel_decoder\.backbone\.features\.(\d+)\.{re.escape(t)}", lambda m, j=j: f"backbone/features_{m[1]}/{j}")
+          for j, t in _STDC_PARTS.items()),
+        (r"pixel_decoder\.backbone\.features\.(\d+)", lambda m: f"backbone/features_{m[1]}"),
         (r"pixel_decoder\.input_proj\.(\d+)\.0", lambda m: f"pixel_decoder/input_proj_{m[1]}_conv"),
         (r"pixel_decoder\.input_proj\.(\d+)\.1", lambda m: f"pixel_decoder/input_proj_{m[1]}_bn"),
         (r"pixel_decoder\.encoder\.(\d+)\.layers\.(\d+)", lambda m: f"pixel_decoder/encoder_{m[1]}_layers_{m[2]}"),

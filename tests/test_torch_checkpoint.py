@@ -76,7 +76,7 @@ def _one_entry():
 
 
 def _args(tmp, name, max_iters, **kw):
-    kw = dict(dict(checkpointer_period=2, checkpointer_max_to_keep=1, log_period=1), **kw)
+    kw = dict(dict(checkpointer_period=2, checkpointer_max_to_keep=1, log_period=1, workers_timeout=120), **kw)
     return TrainerArgs(run_name=name, output_dir=str(tmp), batch_size=1, max_iters=max_iters, ema_enabled=True,
                        ema_warmup=3, max_instances_per_image=4, learning_rate=1e-3, **kw)
 

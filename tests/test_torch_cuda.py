@@ -274,6 +274,27 @@ def test_msda_main_path_shape_takes_vector_path(cuda):
     assert msda_forward.paths["vector"] == f0 + 1 and msda_backward.paths["vector"] == b0 + 1
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_msda_backward_at_a_pixel_edge_matches_plain(cuda, dtype):
+    """A location whose pixel coordinate is 8.0 rounded twice and 7.9999995
+    rounded once (W=80): the kernels round after the product and after the
+    difference, as the plain version does, so both take the cell [8, 9] and
+    d loc on a value |x - 8| is that cell's slope on both; the forward is 0
+    (tests/test_torch_msda_backward.py holds the plain side against JAX)."""
+    w, h, d = 80, 4, 8
+    value = torch.from_numpy(np.tile(np.abs(np.arange(w) - 8.0), h).astype(np.float32))
+    value = value.reshape(1, h * w, 1, 1).expand(1, h * w, 1, d).contiguous().to(cuda, dtype)
+    loc = torch.tensor([0.10624999552965164, 1.5 / h], dtype=torch.float32).reshape(1, 1, 1, 1, 1, 2).to(cuda)
+    aw = torch.ones(1, 1, 1, 1, 1, device=cuda)
+    grad = torch.ones(1, 1, d, device=cuda, dtype=dtype)
+    _, d_loc, _ = msda_backward(value, [(h, w)], loc, aw, grad)
+    _, ref, _ = ms_deform_attn_backward_reference(value.float(), [(h, w)], loc, aw, grad.float())
+    assert float(ref[..., 0]) == w * d
+    torch.testing.assert_close(d_loc.float(), ref, rtol=0, atol=1e-3 * w * d)
+    out = msda_forward(value, [(h, w)], loc, aw)
+    torch.testing.assert_close(out.float(), ms_deform_attn(value.float(), [(h, w)], loc, aw), rtol=0, atol=1e-6)
+
+
 def test_msda_backward_kernel_finite_differences(cuda):
     """d loc and d aw against central differences of the forward kernel, fp32
     (the kernels take no fp64). Pixel coordinates keep a fraction in [0.1, 0.9]
@@ -489,7 +510,8 @@ def test_train_step_launches_both_msda_kernels(cuda, tmp_path):
     ds = [DatasetEntry(image=rng.integers(0, 256, (64, 64, 3), dtype=np.uint8), height=64, width=64,
                        instances=Instances((64, 64), boxes=Boxes(boxes), classes=np.array([3, 7]))) for _ in range(2)]
     f0, b0 = msda_forward.launches, msda_backward.launches
-    args = TrainerArgs(run_name="t", output_dir=str(tmp_path), batch_size=2, max_iters=2, checkpointer_period=2)
+    args = TrainerArgs(run_name="t", output_dir=str(tmp_path), batch_size=2, max_iters=2, checkpointer_period=2,
+                       workers_timeout=120)
     res = model.train(args, ds)
     torch.cuda.synchronize()
     assert res["iterations"] == 2
@@ -567,7 +589,7 @@ def test_resume_on_the_card(cuda, tmp_path):
 
     def args(iters, **kw):
         return TrainerArgs(run_name="r", output_dir=str(tmp_path), batch_size=2, max_iters=iters, checkpointer_period=1,
-                           ckpt_dir=ckpt, ema_enabled=True, **kw)
+                           ckpt_dir=ckpt, ema_enabled=True, workers_timeout=120, **kw)
 
     model.train(args(2), ds)
     saved = torch.load(os.path.join(ckpt, "model_final", "state.pt"), map_location="cpu", weights_only=True)
@@ -588,3 +610,130 @@ def test_resume_on_the_card(cuda, tmp_path):
     torch.cuda.synchronize()
     assert trainer.loop.start_iter == 2 and res["iterations"] == 3 and msda_backward.launches - b0 == 2
     assert all(bool(torch.isfinite(p).all()) for p in model.module.parameters())
+
+
+# --------------------------------------------------------------------------- fai-detr-m and the data pipeline
+M_TINY = dict(image_size=96, num_queries=20, transformer_predictor_dec_layers=3, num_classes=3)
+
+
+def test_fai_detr_m_forward_matches_the_cpu(cuda):
+    """fai-detr-m (STDC, no AIFI layer) on the card against the same weights
+    on the CPU, on the CPU's query selection: every aux output to 1e-3
+    (fp32 both sides, TF32 off), the MSDA kernel once per decoder layer."""
+    from focoos_tpu_torch import ModelManager
+
+    gpu = ModelManager.get("fai-detr-m-coco", device=cuda, seed=2, **M_TINY)
+    cpu = ModelManager.get("fai-detr-m-coco", device="cpu", init_weights=False, **M_TINY)
+    cpu.module.load_state_dict(gpu.module.state_dict())
+    x = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (2, 96, 96, 3), dtype=np.uint8))
+    pred = gpu.module.predictor
+    with torch.inference_mode():
+        _, ref = cpu.module(x)
+        cp = cpu.module.predictor
+        idx = cp.select_queries(*cp.flatten_levels(cpu.module.encode(x)))[0]
+        real = type(pred).select_queries
+        pred.select_queries = lambda memory, ss: real(pred, memory, ss, idx.to(memory.device))
+        try:
+            before = msda_forward.launches
+            _, got = gpu.module(x.to(cuda))
+            torch.cuda.synchronize()
+        finally:
+            del pred.select_queries
+    assert msda_forward.launches - before == 3
+    for field in ("dec_logits", "dec_boxes", "enc_logits", "enc_boxes"):
+        torch.testing.assert_close(getattr(got, field).cpu(), getattr(ref, field), rtol=0, atol=1e-3)
+
+
+def test_stdc_stride2_block_gradients_match_the_cpu(cuda):
+    """A stride-2 STDC cat block in train mode on a channels-last input (the
+    layout the model hands it), card against the CPU in fp64: the input's
+    and every parameter's gradient to 1e-5 x max|ref|. Its pooled branch
+    goes through _avg_pool_3x3_s2: the card's channels-last avg_pool2d
+    backward alone returns wrong input gradients."""
+    from focoos_tpu_torch.nn.backbone.stdc import CatBottleneck
+    from focoos_tpu_torch.nn.layers.common import set_compute_dtype
+
+    g = torch.Generator().manual_seed(0)
+    cpu = CatBottleneck(32, 64, 4, stride=2).double().train()
+    set_compute_dtype(cpu, torch.float64)
+    for p in cpu.parameters():
+        p.data.copy_(torch.randn(p.shape, generator=g, dtype=torch.float64) * 0.3 + (1.0 if p.dim() == 1 else 0.0))
+    gpu = CatBottleneck(32, 64, 4, stride=2).train().to(cuda)
+    gpu.load_state_dict({k: v.float() for k, v in cpu.state_dict().items()})
+    x = torch.randn(2, 32, 41, 37, generator=g, dtype=torch.float64)
+    dy = torch.randn(2, 64, 21, 19, generator=g, dtype=torch.float64)
+    xr = x.clone().requires_grad_()
+    cpu(xr).backward(dy)
+    xc = x.float().to(cuda).contiguous(memory_format=torch.channels_last).requires_grad_()
+    gpu(xc).backward(dy.float().to(cuda).contiguous(memory_format=torch.channels_last))
+    pairs = [("input", xc.grad, xr.grad)] + [(n, p.grad, dict(cpu.named_parameters())[n].grad)
+                                              for n, p in gpu.named_parameters()]
+    for name, got, ref in pairs:
+        torch.testing.assert_close(got.double().cpu(), ref, rtol=0, atol=1e-5 * float(ref.abs().max()), msg=name)
+
+
+def _shapes_split(tmp_path, split: str):
+    """A seeded 96² Roboflow-COCO dataset's split through AutoDataset, with
+    96² square augmentations (no resize: the mapper needs cv2 only)."""
+    import os
+    import sys
+
+    from focoos_tpu_torch.data.auto_dataset import AutoDataset
+    from focoos_tpu_torch.data.default_aug import DatasetAugmentations
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "tools"))
+    from make_synthetic_dataset import make
+
+    root = str(tmp_path / "shapes")
+    if not os.path.isdir(root):
+        make(root, n_train=4, n_val=2, size=96, seed=0)
+    augs = DatasetAugmentations(resolution=96, square=1.0, horizontal_flip=0.5)
+    return AutoDataset(root, task="detection").get_split(augs, split=split)
+
+
+def test_loader_workers_feed_the_card_with_pinned_batches(cuda, tmp_path):
+    """Two worker processes map records from disk beside a process that holds
+    the card: pinned uint8 batches that copy to the card and go through a
+    fai-detr-m forward."""
+    from focoos_tpu_torch import ModelManager
+    from focoos_tpu_torch.data.loaders import build_train_loader
+
+    model = ModelManager.get("fai-detr-m-coco", device=cuda, **M_TINY)
+    ds = _shapes_split(tmp_path, "train")
+    loader = build_train_loader(ds, model.processor.train(True), 2, num_workers=2, pin_memory=True, timeout=120)
+    try:
+        for _ in range(3):
+            images, targets = next(loader)
+            assert images.is_pinned() and images.dtype == torch.uint8 and images.shape == (2, 96, 96, 3)
+            assert bool(targets.valid.any())
+            with torch.inference_mode():
+                out = model.forward(images.to(cuda, non_blocking=True))
+            assert bool(torch.isfinite(out.boxes).all())
+    finally:
+        loader.close()
+        model.processor.train(False)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fai_detr_m_train_step_on_the_card(cuda, tmp_path, dtype):
+    """FocoosModel.train of fai-detr-m from a dataset on disk, two loader
+    workers, two steps: finite losses, both MSDA kernels once per decoder
+    layer and step, fp32 parameters."""
+    import json
+    import os
+
+    from focoos_tpu_torch import ModelManager
+    from focoos_tpu_torch.ports import TrainerArgs
+
+    model = ModelManager.get("fai-detr-m-coco", device=cuda, dtype=dtype, **M_TINY)
+    f0, b0 = msda_forward.launches, msda_backward.launches
+    args = TrainerArgs(run_name="m", output_dir=str(tmp_path), batch_size=2, max_iters=2, workers=2, workers_timeout=120,
+                       checkpointer_period=2, log_period=1)
+    res = model.train(args, _shapes_split(tmp_path, "train"))
+    torch.cuda.synchronize()
+    assert res["iterations"] == 2
+    assert msda_forward.launches - f0 == 6 and msda_backward.launches - b0 == 6
+    with open(os.path.join(res["run_dir"], "metrics.json")) as f:
+        rows = [json.loads(line) for line in f]
+    assert all(np.isfinite(v) for r in rows for k, v in r.items() if "loss" in k)
+    assert all(p.dtype == torch.float32 for p in model.module.parameters())

@@ -401,6 +401,7 @@ def test_trainer_validates_during_training(tmp_path):
         head_out_dim=64, backbone_config={"model_type": "resnet", "depth": 18, "variant": "d", "freeze_norm": False},
     )
     args = TrainerArgs(run_name="v", output_dir=str(tmp_path), batch_size=2, max_iters=2, eval_period=1, log_period=1,
+                       workers_timeout=120,
                        checkpointer_period=10, samples=1, ema_enabled=True, max_instances_per_image=5)
     trainer = FocoosTrainer(model, args, _train_entries(2, 0), _train_entries(3, 1))
     res = trainer.train()

@@ -1,9 +1,10 @@
 """The port stands alone: with ``jax``, ``jaxlib``, ``flax``, ``PIL``, ``cv2``
 and the JAX package ``focoos_tpu`` made unimportable, every module of
-focoos_tpu_torch imports, each ported slice (fai-detr, rtmo) serves an
-ndarray image and is evaluated on the CPU, and fai-detr trains two steps
-with validation and resumes for a third on the CPU; and no source of the
-port, nor chip_smoke.py, imports ``focoos_tpu``."""
+focoos_tpu_torch imports, each ported slice (fai-detr-l, fai-detr-m, rtmo)
+serves an ndarray image and is evaluated on the CPU, fai-detr trains two
+steps with validation and resumes for a third on the CPU, and a dataset on
+disk parses, its images needing cv2 only when they are read; and no source
+of the port, nor chip_smoke.py, imports ``focoos_tpu``."""
 
 import os
 import re
@@ -85,14 +86,48 @@ ckpt = os.path.join(out, "ckpt")
 # two steps with validation (its prediction mosaics need cv2: they warn and training goes on),
 # then a resume for a third
 res = model.train(TrainerArgs(run_name="t", output_dir=out, batch_size=2, max_iters=2, checkpointer_period=10,
+                              workers_timeout=120,
                               eval_period=2, samples=1, ckpt_dir=ckpt), ds, ds)
 assert os.path.isfile(os.path.join(res["run_dir"], "model_final.npz")) and "AP" in res["metrics"]["bbox"]
 more = model.train(TrainerArgs(run_name="t", output_dir=out, batch_size=2, max_iters=3, checkpointer_period=10,
+                               workers_timeout=120,
                                ckpt_dir=ckpt, resume=True), ds)
 assert more["iterations"] == 3 and "AP" in model.eval(TrainerArgs(run_name="e", batch_size=2), ds)["bbox"]
 loaded = sorted(k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 print("OK", res["iterations"])
+"""
+
+
+DATA_SCRIPT = PRELUDE + r"""
+import json, os, tempfile
+from focoos_tpu_torch.data.auto_dataset import AutoDataset
+from focoos_tpu_torch.data.loaders import build_train_loader
+root = tempfile.mkdtemp()
+for split in ("train", "valid"):
+    os.makedirs(os.path.join(root, "ds", split))
+    coco = dict(images=[dict(id=0, file_name="a.jpg", height=64, width=64)],
+                annotations=[dict(id=1, image_id=0, category_id=1, bbox=[4, 4, 20, 20], iscrowd=0)],
+                categories=[dict(id=0, name="all", supercategory="none"), dict(id=1, name="box", supercategory="all")])
+    with open(os.path.join(root, "ds", split, "_annotations.coco.json"), "w") as f:
+        json.dump(coco, f)
+auto = AutoDataset("ds", task="detection", datasets_dir=root)
+train, val = auto.get_split(split="train"), auto.get_split(split="val")
+assert len(train) == len(val) == 1 and train.metadata.classes == ["box"]
+try:
+    val[0]
+except ImportError as e:  # reading an image is where cv2 is imported
+    assert "cv2" in str(e), e
+else:
+    raise AssertionError("an image was read without cv2")
+model = ModelManager.get("fai-detr-m-coco", device="cpu", image_size=64, num_queries=10,
+                         transformer_predictor_dec_layers=1, num_classes=1,
+                         backbone_config={"model_type": "stdc", "base": 16, "layers": [2, 2, 2]})
+res = model.infer(np.random.default_rng(0).integers(0, 256, (50, 70, 3), dtype=np.uint8), threshold=0.0)
+assert len(res) == 10 and all(d.cls_id == 0 and np.isfinite(d.conf) for d in res.detections)
+loaded = sorted(k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in BLOCKED)
+assert not loaded, loaded
+print("OK", len(res))
 """
 
 
@@ -110,6 +145,10 @@ def test_port_imports_and_serves_without_jax_pil_cv2():
 
 def test_fai_detr_trains_without_jax_pil_cv2():
     assert _run(TRAIN_SCRIPT).split()[-2:] == ["OK", "2"]
+
+
+def test_fai_detr_m_serves_and_datasets_parse_without_jax_pil_cv2():
+    assert _run(DATA_SCRIPT).split()[-2:] == ["OK", "10"]
 
 
 def test_rtmo_serves_without_jax_pil_cv2():

@@ -20,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from focoos_tpu.ops.deformable import ms_deform_attn_dispatch, ms_deform_attn_separable
+from focoos_tpu.ops.deformable import ms_deform_attn, ms_deform_attn_dispatch, ms_deform_attn_separable
+from focoos_tpu_torch.ops.deformable import ms_deform_attn as ms_deform_attn_torch
 from focoos_tpu_torch.ops.deformable import ms_deform_attn_backward_reference
 from focoos_tpu_torch.ops.msda import _MSDAFunction, msda_backward
 
@@ -45,11 +46,11 @@ def _inputs(b, lq, hh, d, ss, seed=0):
     return value, loc, aw, grad
 
 
-def _jax_grads(fn, value, ss, loc, aw, grad):
+def _jax_grads(fn, value, ss, loc, aw, grad, jit=True):
     def vjp(v, l, a, g):
         return jax.vjp(lambda v, l, a: fn(v, ss, l, a), v, l, a)[1](g)
 
-    return [np.asarray(g) for g in jax.jit(vjp)(*(jnp.asarray(x) for x in (value, loc, aw, grad)))]
+    return [np.asarray(g) for g in (jax.jit(vjp) if jit else vjp)(*(jnp.asarray(x) for x in (value, loc, aw, grad)))]
 
 
 def _assert_close(got, ref):
@@ -87,3 +88,33 @@ def test_autograd_function_cpu_route_matches_jax_vjp(shape):
     _MSDAFunction.apply(v, ss, lc, a).backward(torch.from_numpy(grad))
     assert v.grad is None
     np.testing.assert_allclose(lc.grad.numpy(), ref[1], rtol=0, atol=TOL[1] * np.abs(ref[1]).max())
+
+
+def test_plain_version_at_a_pixel_edge_matches_jax():
+    """A location one ulp below a pixel edge: at W=80 the fp32 location
+    0.10625 - 1 ulp gives loc * W = 8.4999995, and minus 0.5 rounds to 8.0.
+    JAX's gather (``ms_deform_attn``) as written, op by op, and the port's
+    plain version both round after the product and after the difference, so
+    both take the cell [8, 9]: on a value |x - 8| the output is 0 and d loc is
+    that cell's slope, +1 a pixel. The CUDA kernels round the same way (the
+    card test ``test_msda_backward_at_a_pixel_edge_matches_plain``). Under
+    ``jax.jit`` XLA's CPU compiler contracts the product and the difference
+    into one fused multiply-add, which rounds once, to 7.9999995, and takes
+    the cell [7, 8]: the JAX package's compiled result departs from its own
+    source at such a point, so the reference here runs uncompiled."""
+    w, h = 80, 4
+    loc_x = np.float32(0.10624999552965164)
+    assert np.float32(np.float32(loc_x * np.float32(w)) - np.float32(0.5)) == 8.0  # rounded twice
+    assert np.float32(np.float64(loc_x) * w - 0.5) < 8.0  # rounded once, it would be in the cell [7, 8]
+    value = np.tile(np.abs(np.arange(w) - 8.0), h).astype(np.float32).reshape(1, h * w, 1, 1)
+    loc = np.array([loc_x, 1.5 / h], np.float32).reshape(1, 1, 1, 1, 1, 2)  # y on row 1
+    aw = np.ones((1, 1, 1, 1, 1), np.float32)
+    grad = np.ones((1, 1, 1), np.float32)
+    ref = _jax_grads(ms_deform_attn, value, [(h, w)], loc, aw, grad, jit=False)
+    t = [torch.from_numpy(x) for x in (value, loc, aw, grad)]
+    got = ms_deform_attn_backward_reference(t[0], [(h, w)], t[1], t[2], t[3])
+    assert ref[1][0, 0, 0, 0, 0, 0] == got[1][0, 0, 0, 0, 0, 0] == w
+    _assert_close(got, ref)
+    out = ms_deform_attn_torch(t[0], [(h, w)], t[1], t[2])
+    ref_out = ms_deform_attn(jnp.asarray(value), [(h, w)], jnp.asarray(loc), jnp.asarray(aw))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), rtol=0, atol=1e-6)

@@ -516,6 +516,7 @@ def test_focoos_model_train_writes_jax_layout_weights(tiny, tmp_path):
         num_classes=NUM_CLASSES, backbone_config={"model_type": "resnet", "depth": 18, "variant": "d", "freeze_norm": False},
     )
     args = TrainerArgs(run_name="tiny", output_dir=str(tmp_path), batch_size=2, max_iters=2, ema_enabled=True,
+                       workers_timeout=120,
                        checkpointer_period=2, log_period=1, max_instances_per_image=N_TARGETS)
     res = model.train(args, _dataset(4))
     assert res["iterations"] == 2
