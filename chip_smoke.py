@@ -384,7 +384,7 @@ def capture_msda_inputs(module, x: torch.Tensor, layer: int) -> tuple:
 
 
 def phase_stem(dev) -> dict:
-    """→ {dtype: the record at 640² B=16}."""
+    """→ {dtype: the record at 640² B=16, "1024": {(B, dtype): the records at 1024² B=1 and B=8}}."""
     from focoos_tpu_torch.ops.stem import fused_resnet_stem, resnet_stem_reference
 
     g = torch.Generator().manual_seed(1)
@@ -395,10 +395,12 @@ def phase_stem(dev) -> dict:
             (1 + 0.1 * torch.randn(cout, generator=g)).to(dev),
             (0.1 * torch.randn(cout, generator=g)).to(dev),
         ]
-    record = {}
+    record = {"1024": {}}
     for b, h, w, scale, label in (
         (1, 640, 640, 1.0, "640x640 B=1"),
         (16, 640, 640, 1.0, "640x640 B=16"),
+        (1, 1024, 1024, 1.0, "1024x1024 B=1"),
+        (8, 1024, 1024, 1.0, "1024x1024 B=8"),
         (3, 641, 479, 1.0, "odd 641x479 B=3"),
         (2, 131, 67, 64.0, "131x67 B=2 inputs x64"),
     ):
@@ -412,7 +414,7 @@ def phase_stem(dev) -> dict:
             plain_ms = time_ms(lambda: resnet_stem_reference(x, *params))
             log(f"[stem] {label} {str(dtype)[6:]}: max_abs_err {err:.3e} (tol {STEM_TOL[dtype]:.1e} x max|ref|)"
                 f" | kernel {ms:.4f} ms, plain (cuDNN convs) {plain_ms:.4f} ms")
-            if label == "640x640 B=16":
+            if label in ("640x640 B=16", "1024x1024 B=1", "1024x1024 B=8"):
                 # three 3x3 convs (conv1 stride 2, then at its resolution) on the tensor cores
                 # (the TF32 peak for f32, bf16's for bf16), the input read and the pooled output written once
                 h1, w1 = (h - 1) // 2 + 1, (w - 1) // 2 + 1
@@ -421,7 +423,11 @@ def phase_stem(dev) -> dict:
                 bd = bound((x.numel() + out.numel()) * x.element_size(), ops, kind)
                 log(f"[stem] {label} {str(dtype)[6:]}: bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}:"
                     f" {ops / 1e9:.1f} GFLOP at the {kind.upper()} peak), kernel at {bd['bound_ms'] / ms:.1%} of it")
-                record[dtype] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd}
+                rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd}
+                if label == "640x640 B=16":
+                    record[dtype] = rec
+                else:
+                    record["1024"][(b, dtype)] = rec
     return record
 
 
@@ -1980,6 +1986,315 @@ def phase_finetune_m(dev, smi: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# fai_mf: instance segmentation at 1024² and semantic segmentation at 640²
+MF_TOL = {"float32": 1e-3, "bfloat16": 5e-2}  # abs, class and mask probabilities, card against the CPU's fp32
+MF_CARDS = {  # card → (its size, the card-vs-CPU batch)
+    "fai-mf-l-coco-ins": (1024, 1),
+    "fai-mf-l-ade": (640, 2),
+}
+MF_MASK_STD = 0.5  # the conditioned mask logits' std (the bf16 mask errors grow in proportion to it)
+# for the evaluations: sharper masks, so that fewer pixels sit at the mask threshold
+MF_EVAL_MASK_STD = 4.0
+MF_GT_IMAGES, MF_GT = 4, 20  # pseudo-GT: the CPU's top 20 x images instances over all images together
+MF_EVAL_IMAGES, MF_EVAL_BATCH = 32, 8
+MF_REQUEST = (768, 1024)  # one infer() request's image
+
+
+@torch.no_grad()
+def condition_mf(model, dev, std: float) -> float:
+    """Random init gives masks that cover the whole image or nothing (the mask
+    features' channel means dominate each query's mask) at a scale no trained
+    model has: centre the mask features' channels (their conv's bias) and
+    scale the mask head's last layer so that the last decoder layer's mask
+    logits have ``std``, both on a seeded 256² batch → the scale."""
+    x = torch.from_numpy(np.random.default_rng(30).integers(0, 256, (1, 256, 256, 3), dtype=np.uint8)).to(dev)
+    pd = model.module.pixel_decoder
+    seen = []
+    hook = pd.mask_features.register_forward_hook(lambda m, a, o: seen.append(o.float().mean((0, 2, 3))))
+    try:
+        model.module(x)
+    finally:
+        hook.remove()
+    pd.mask_features.bias.sub_(seen[0])
+    _, aux = model.module(x)
+    heads = model.module.predictor.forward_prediction_heads
+    scale = std / float(aux.masks[-1].float().std())
+    heads.mask_classifier.layers[-1].weight.mul_(scale)
+    heads.mask_classifier.layers[-1].bias.mul_(scale)
+    return scale
+
+
+def mf_run(module, x_uint8: np.ndarray, allowed=None):
+    """(class probabilities, mask probabilities, the attention masks used) of
+    one eval forward, on the host as fp32 (masks as stored: bf16 in bf16)."""
+    dev = next(module.parameters()).device
+    with torch.inference_mode():
+        out, aux = module(torch.from_numpy(x_uint8).to(dev),
+                          allowed=None if allowed is None else [a.to(dev) for a in allowed])
+    return out.logits.float().cpu(), out.masks.cpu(), [a.cpu() for a in aux.allowed]
+
+
+def compare_mf(tag: str, cpu_run: tuple, runs: dict) -> dict:
+    """Each run (class probabilities, masks) against the CPU's fp32 run → {name: (cls err, mask err)}."""
+    errs = {}
+    for name, (logits, masks, _) in runs.items():
+        errs[name] = (float((logits - cpu_run[0]).abs().max()), float((masks.float() - cpu_run[1]).abs().max()))
+        log(f"[{tag}] {name} against the CPU's fp32 on its attention masks: max_abs_err class probabilities"
+            f" {errs[name][0]:.3e}, mask probabilities {errs[name][1]:.3e}")
+    return errs
+
+
+def flip_share(a: list, b: list) -> float:
+    """Share of the attention masks' bits that differ between two runs."""
+    return sum(int((x != y).sum()) for x, y in zip(a, b)) / sum(x.numel() for x in a)
+
+
+def mf_entries(cpu_model, images: list, semantic: bool) -> tuple:
+    """DatasetEntries whose ground truth is the CPU's fp32 predictions (its
+    ``eval_postprocess``): the label maps for semantic; else the top
+    MF_GT x images instances of all images together (the cut moved past score
+    gaps under GT_SCORE_GAP, and up above the first empty mask), masks
+    unpacked from the decode → (entries, the CPU's own results scored by the
+    evaluator)."""
+    from focoos_tpu_torch.ports import DatasetEntry
+    from focoos_tpu_torch.structures import BitMasks, Instances
+    from focoos_tpu_torch.trainer.evaluation import get_evaluator
+
+    h, w = images[0].shape[:2]
+    blank = [DatasetEntry(image=img, height=h, width=w) for img in images]
+    preds = []
+    for i in range(0, len(images), 2):
+        with torch.inference_mode():
+            out = cpu_model.forward(np.stack(images[i:i + 2]))
+        preds += cpu_model.processor.eval_postprocess(out, blank[i:i + 2])
+    if semantic:
+        entries = [DatasetEntry(image=img, height=h, width=w, sem_seg=p["sem_seg"].astype(np.uint8))
+                   for img, p in zip(images, preds)]
+    else:
+        insts = [p["instances"] for p in preds]
+        scores = np.concatenate([np.asarray(i.scores) for i in insts])
+        image_of = np.concatenate([np.full(len(i), n) for n, i in enumerate(insts)])
+        order = np.argsort(-scores, kind="stable")
+        cut = MF_GT * len(images)
+        while cut < len(order) and scores[order[cut - 1]] - scores[order[cut]] < GT_SCORE_GAP:
+            cut += 1
+        # an empty mask has IoU 0 even with itself: the cut stops above the first empty prediction
+        empty = np.concatenate([(i.boxes.tensor[:, 2] <= i.boxes.tensor[:, 0]) for i in insts])[order]
+        if empty[:cut].any():
+            cut = int(np.argmax(empty))
+        assert cut >= 2 * len(images), f"pseudo-GT of {cut} instances: an empty mask ranks too high"
+        offsets = np.cumsum([0] + [len(i) for i in insts])
+        entries = []
+        for n, (img, inst) in enumerate(zip(images, insts)):
+            sel = np.sort(order[:cut][image_of[order[:cut]] == n]) - offsets[n]
+            packed = inst.masks_packed.cpu().numpy()[sel]
+            masks = np.unpackbits(packed, axis=-1, count=h * w).reshape(len(sel), h, w).astype(bool)
+            gt = Instances((h, w), boxes=BitMasks(masks).get_bounding_boxes(),
+                           classes=np.asarray(inst.classes)[sel], masks=BitMasks(masks))
+            entries.append(DatasetEntry(image=img, height=h, width=w, instances=gt))
+    ev = get_evaluator(cpu_model.task, len(cpu_model.classes), cpu_model.classes)
+    ev.process(entries, preds)
+    return entries, ev.evaluate()
+
+
+def mf_metric(res: dict, semantic: bool) -> tuple:
+    return ("sem_seg/mIoU", res["sem_seg"]["mIoU"]) if semantic else ("segm/AP", res["segm"]["AP"])
+
+
+def phase_mf(dev, smi: str) -> dict:
+    """fai-mf-l-coco-ins (ResNet-101-D, 6 pre-norm res5 layers, 9 masked
+    decoder layers) at 1024² and fai-mf-l-ade (ResNet-101-D, 6 masked layers,
+    150 classes) at 640², each at full width with seeded weights, the
+    BatchNorms perturbed and the mask head conditioned (``condition_mf``:
+    MF_MASK_STD, then MF_EVAL_MASK_STD for the evaluations), in fp32 then bf16: the requests (infer() on a 768x1024 image and a batch
+    through FocoosModel.__call__) with the stem kernel's launches counted
+    from 0; card against CPU on the CPU's attention masks; evaluate_dataset
+    against the CPU's own predictions taken as ground truth; evaluation
+    throughput at batch 8, the bytes copied to the host per batch and the
+    idle share; the device mask IoU against the host library; forward
+    times, infer() broken out, peak memory and a profiled forward. Returns
+    the stem's launches summed over the counted runs."""
+    from focoos_tpu_torch import ModelManager
+    from focoos_tpu_torch.ops.mask_iou import device_mask_iou_packed_batch
+    from focoos_tpu_torch.ops.stem import fused_resnet_stem
+    from focoos_tpu_torch.trainer import evaluation
+    from focoos_tpu_torch.utils import native
+
+    total = {"fused_resnet_stem": 0}
+
+    def counted(fn):
+        fused_resnet_stem.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        n = fused_resnet_stem.launches
+        total["fused_resnet_stem"] += n
+        return out, n
+
+    t0 = time.perf_counter()
+    assert native.available(), "the host library (csrc/focoos_native.cpp) did not build"
+    log(f"[fai_mf] host library built and loaded ({time.perf_counter() - t0:.2f}s): {native._build().name}")
+    for card, (size, b_cmp) in MF_CARDS.items():
+        tag = f"fai_mf {card}"
+        semantic = card.endswith("-ade")
+        t0 = time.perf_counter()
+        model = ModelManager.get(card, device=dev, seed=0)
+        perturb(model.module, seed=21)
+        scale = condition_mf(model, dev, MF_MASK_STD)
+        cfg = model.config
+        cpu = ModelManager.get(card, device="cpu", init_weights=False)
+        cpu.module.load_state_dict(model.module.state_dict())
+        log(f"[{tag}] ResNet-{cfg.backbone_config.depth}{cfg.backbone_config.variant}, pixel decoder"
+            f" {cfg.pixel_decoder_feat_dim} wide with {cfg.pixel_decoder_transformer_layers} res5 layers,"
+            f" {cfg.transformer_predictor_dec_layers} masked decoder layers, {cfg.num_queries} queries,"
+            f" {cfg.num_classes} classes, {cfg.postprocessing_type}; {sum(p.numel() for p in model.module.parameters()) / 1e6:.2f}M"
+            f" params; mask head scaled x{scale:.3g} (built in {time.perf_counter() - t0:.1f}s)")
+        rng = np.random.default_rng(31)
+        request = rng.integers(0, 256, (*MF_REQUEST, 3), dtype=np.uint8)
+        batch = rng.integers(0, 256, (b_cmp, size, size, 3), dtype=np.uint8)
+
+        # card against the CPU on the CPU's attention masks
+        t0 = time.perf_counter()
+        cpu_run = mf_run(cpu.module, batch)
+        cpu_secs = time.perf_counter() - t0
+        runs16 = {}
+        model16 = ModelManager.get(card, device=dev, dtype="bfloat16", init_weights=False)
+        model16.module.load_state_dict(model.module.state_dict())
+        card_run = mf_run(model.module, batch, cpu_run[2])
+        own = mf_run(model.module, batch)
+        errs = compare_mf(tag, cpu_run, {"card fp32": card_run})
+        assert max(errs["card fp32"]) <= MF_TOL["float32"], f"{card}: card fp32 and CPU disagree"
+        runs16["card bf16"] = mf_run(model16.module, batch, cpu_run[2])
+        t0 = time.perf_counter()
+        cpu16 = ModelManager.get(card, device="cpu", dtype="bfloat16", init_weights=False)
+        cpu16.module.load_state_dict(model.module.state_dict())
+        runs16["CPU bf16"] = mf_run(cpu16.module, batch, cpu_run[2])
+        cpu16_secs = time.perf_counter() - t0
+        del cpu16
+        errs16 = compare_mf(tag, cpu_run, runs16)
+        assert max(errs16["card bf16"]) <= MF_TOL["bfloat16"], f"{card}: card bf16 and the CPU's fp32 disagree"
+        log(f"[{tag}] card bf16 / CPU bf16 distance to the CPU's fp32: class probabilities"
+            f" {errs16['card bf16'][0] / errs16['CPU bf16'][0]:.2f}, masks {errs16['card bf16'][1] / errs16['CPU bf16'][1]:.2f}")
+        log(f"[{tag}] card vs CPU at {size}² B={b_cmp} (CPU fp32 forward {cpu_secs:.1f}s, CPU bf16 {cpu16_secs:.1f}s):"
+            f" fp32 within {MF_TOL['float32']:.0e}, bf16 within {MF_TOL['bfloat16']:.0e}; attention-mask bits that"
+            f" flip without carrying: {flip_share(own[2], cpu_run[2]):.3e} of"
+            f" {sum(a.numel() for a in own[2])}; card bf16's own masks {flip_share(mf_run(model16.module, batch)[2], cpu_run[2]):.3e}")
+        del own, card_run, runs16
+
+        for dtype, m in (("float32", model), ("bfloat16", model16)):
+            # the requests: the stem's count from 0 just before, read just after
+            def serve():
+                one = m.infer(request, threshold=0.0)
+                many = m(batch, threshold=0.0)
+                return one, many
+
+            (one, many), n = counted(serve)
+            log(f"[{tag}] {dtype}: served one infer() at {MF_REQUEST[0]}x{MF_REQUEST[1]} and a batch of {b_cmp} at {size}²: stem launches {n};"
+                f" {len(one.detections)} + {[len(r.detections) for r in many]} detections")
+            assert n == 2, f"{card} {dtype}: the stem kernel did not run once per forward"
+            for r, (hh, ww) in [(one, MF_REQUEST)] + [(r, (size, size)) for r in many]:
+                assert len(r.detections) > 0
+                for d in r.detections:
+                    x0, y0, x1, y1 = d.bbox
+                    assert 0 <= x0 <= x1 < ww and 0 <= y0 <= y1 < hh and 0.0 <= d.conf <= 1.0 and d.mask
+                    assert 0 <= d.cls_id < cfg.num_classes
+
+        # evaluation against the CPU's own predictions, on sharper masks
+        scale = condition_mf(model, dev, MF_EVAL_MASK_STD)
+        for m in (cpu, model16):
+            m.module.load_state_dict(model.module.state_dict())
+        rng = np.random.default_rng(32)
+        images = [rng.integers(0, 256, (size, size, 3), dtype=np.uint8) for _ in range(MF_GT_IMAGES)]
+        t0 = time.perf_counter()
+        entries, cpu_res = mf_entries(cpu, images, semantic)
+        key, cpu_metric = mf_metric(cpu_res, semantic)
+        if semantic:
+            maps = np.stack([e.sem_seg for e in entries])
+            shares = [float(np.bincount(m.ravel()).max()) / m.size for m in maps]
+            # random weights: one class's summed probability over the 100 queries wins nearly
+            # everywhere, so the mIoU gate checks little; the card tests' random probabilities do
+            what = (f" ({len(np.unique(maps))} classes in the label maps, the largest covering"
+                    f" {', '.join(f'{v:.4f}' for v in shares)} of each)")
+        else:
+            what = f" (top {sum(len(e.instances) for e in entries)} instances together)"
+        log(f"[{tag}] mask head rescaled to logits of std {MF_EVAL_MASK_STD} (x{scale:.3g}); pseudo-GT: the CPU fp32"
+            f" predictions of {len(images)} seeded {size}² images{what}, {time.perf_counter() - t0:.1f}s; the CPU's"
+            f" own predictions score {key} {cpu_metric:.3f}")
+        assert cpu_metric == 100.0, "the CPU's predictions do not score 100 against themselves"
+        for dtype, m in (("float32", model), ("bfloat16", model16)):
+            (res, secs), n = counted(lambda: evaluate_timed(m, entries, 2))
+            metric = mf_metric(res, semantic)[1]
+            extra = "" if semantic else f", bbox/AP {res['bbox']['AP']:.3f}"
+            log(f"[{tag}] {smi}: evaluate_dataset {dtype} on the card, batch 2: {key} {metric:.3f}{extra}"
+                f" ({secs:.2f}s); stem launches {n}; {evaluation.stats['host_bytes'] / evaluation.stats['batches']:.0f}"
+                " bytes to the host a batch")
+            assert n == len(images) // 2
+            if dtype == "float32":
+                assert metric >= 99.0, f"{card}: card fp32 {key} {metric} against the CPU's own predictions"
+
+        # the device mask IoU against the host library, on a decode of this model's predictions
+        if not semantic:
+            dec = model.processor.eval_decode(model.forward(np.stack(images[:2])), entries[:2])
+            gts = [list(e.instances.masks.tensor) for e in entries[:2]]
+            got = device_mask_iou_packed_batch(list(dec.packed_on_device), dec.hw, gts)
+            packed = dec.packed_on_device.cpu().numpy()
+            for i, g in enumerate(gts):
+                dense = np.unpackbits(packed[i], axis=-1, count=size * size).reshape(-1, size, size)
+                ref = native.mask_iou(list(dense), g)
+                assert got[i].shape == ref.shape and np.array_equal(got[i], ref), "device mask IoU != host library"
+            t0 = time.perf_counter()
+            for _ in range(3):
+                device_mask_iou_packed_batch(list(dec.packed_on_device), dec.hw, gts)
+            t = (time.perf_counter() - t0) / 3 * 1e3
+            log(f"[{tag}] device mask IoU equals native.mask_iou bit for bit: [{packed.shape[1]}, G] x 2 images at"
+                f" {size}² ({[len(g) for g in gts]} ground truths); {t:.2f} ms a call on the host clock (the"
+                " ground truth packed and copied up, the matrices copied back)")
+
+        # evaluation throughput, the bytes to the host and the idle share
+        data = [entries[i % len(entries)] for i in range(MF_EVAL_IMAGES)]
+        evaluate_timed(model, data[:MF_EVAL_BATCH], MF_EVAL_BATCH)
+        (_, secs), n = counted(lambda: evaluate_timed(model, data, MF_EVAL_BATCH))
+        per_batch = evaluation.stats["host_bytes"] / evaluation.stats["batches"]
+        assert n == MF_EVAL_IMAGES // MF_EVAL_BATCH
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            _, wall = evaluate_timed(model, data[:2 * MF_EVAL_BATCH], MF_EVAL_BATCH)
+        busy, by_name = device_busy(prof)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+        log(f"[{tag}] {smi}, fp32: evaluate_dataset over {MF_EVAL_IMAGES} images at batch {MF_EVAL_BATCH}:"
+            f" {secs:.2f}s = {MF_EVAL_IMAGES / secs:.2f} images/s; {per_batch:.0f} bytes to the host a batch (the"
+            f" output stack would be {MF_EVAL_BATCH * cfg.num_queries * size * size * 4} bytes); profiled"
+            f" {2 * MF_EVAL_BATCH} images: idle share {1 - busy / (wall * 1e6):.3f}; largest kernels "
+            + ", ".join(f"{k[:50]} {v / busy:.1%}" for k, v in top))
+
+        # times: host clock around synchronized forwards
+        shapes = {"b1": 1, "b8": 8} if size == 1024 else {}
+        shapes.update({"b1@640": 1, "b16@640": 16})
+        g = np.random.default_rng(33)
+        for dtype, m in (("float32", model), ("bfloat16", model16)):
+            xs = {k: torch.from_numpy(g.integers(0, 256, (b, 640 if "640" in k else size, 640 if "640" in k else size, 3),
+                                                 dtype=np.uint8)).to(dev) for k, b in shapes.items()}
+            torch.cuda.reset_peak_memory_stats()
+            t = serve_timings(m.module, xs, {k: (10 if b == 1 else 4) for k, b in shapes.items()})
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            lat = []
+            for _ in range(5):
+                r = m.infer(request, threshold=0.5)
+                lat.append((r.latency.preprocess, r.latency.inference, r.latency.postprocess))
+            p50 = np.median(np.array(lat), 0) * 1e3
+            log(f"[{tag}] {smi}, {dtype}: " + "; ".join(
+                f"{k} forward p50 {v * 1e3:.2f} ms = {shapes[k] / v:.2f} images/s" for k, v in t.items())
+                + f"; peak memory {peak:.2f} GiB; infer() {MF_REQUEST[0]}x{MF_REQUEST[1]} p50: preprocess"
+                f" {p50[0]:.2f} ms, forward {p50[1]:.2f} ms, postprocess {p50[2]:.2f} ms (the [1, {cfg.num_queries},"
+                f" {MF_REQUEST[0]}, {MF_REQUEST[1]}] mask stack to the host and the host decode)")
+            big = "b8" if size == 1024 else "b16@640"
+            profile_forwards(tag, f"{big} forward {dtype}", m.module, xs[big], n=2)
+        del model, model16, cpu
+        torch.cuda.empty_cache()
+    log(f"[fai_mf] stem launches over the phase's counted runs: {total['fused_resnet_stem']}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -2021,6 +2336,7 @@ def main() -> int:
     del rtmo_ctx
     lifecycle = phase_lifecycle(dev, smi, b16_images_per_s)
     finetune_m = phase_finetune_m(dev, smi)
+    fai_mf = phase_mf(dev, smi)
 
     # library_ms: no single PyTorch call computes any of these functions (MSDA needs a
     # grid_sample per level and a weighted sum; the stem three convs, BN, ReLU and a
@@ -2042,7 +2358,8 @@ def main() -> int:
          **msda_bwd[f32], **bf16(msda_bwd[b16], train_launches16["msda_backward"])},
         {"name": "fused_resnet_stem", "route": "cuda", "source": "focoos_tpu_torch/csrc/stem.cu",
          "replaces": "focoos_tpu/ops/pallas/stem.py:224", "launches": launches["fused_resnet_stem"], **stem[f32],
-         **bf16(stem[b16], launches16["fused_resnet_stem"]), "path": None},
+         **bf16(stem[b16], launches16["fused_resnet_stem"]), "path": None,
+         **{f"b{b}_1024_{str(dt)[6:]}_{key}": v for (b, dt), rec in stem["1024"].items() for key, v in rec.items()}},
         # a bf16 rtmo forward hands NMS fp32 boxes and scores: the same fp32 kernel
         {"name": "nms_keep", "route": "cuda", "source": "focoos_tpu_torch/csrc/nms.cu",
          "replaces": "focoos_tpu/ops/pallas/nms_kernel.py:59", "launches": launches["nms_keep"], **nms, "path": None,
@@ -2052,6 +2369,7 @@ def main() -> int:
         k["library_ms"] = None
         k["launches_lifecycle"] = lifecycle[k["name"]]
         k["launches_finetune_m"] = finetune_m.get(k["name"], 0)
+        k["launches_fai_mf"] = fai_mf.get(k["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

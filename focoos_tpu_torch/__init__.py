@@ -8,7 +8,8 @@ Public surface (mirrors focoos_tpu/__init__.py)::
 
 The package imports torch and never jax, flax or focoos_tpu: it keeps its
 own copies of the numpy-only modules it needs from focoos_tpu (ports,
-structures, model_registry, trainer events and hooks, logger, vision).
+structures, model_registry, trainer events and hooks and evaluators, the data
+pipeline, logger, vision, native with its C++).
 """
 
 __version__ = "0.1.0"

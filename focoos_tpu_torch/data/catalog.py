@@ -4,8 +4,7 @@ reference: focoos/data/catalog/catalog.py:17-209).
 Registers well-known datasets (COCO det/instseg/keypoints, ADE20K, VOC) by
 their standard on-disk layouts under ``DATASETS_DIR``. Entries resolve
 lazily: a catalog name only needs its files present when it is loaded, and
-nothing is downloaded. The semantic-segmentation and instance entries parse
-here; mapping them waits for their mappers (ROADMAP Queue 1 item 7).
+nothing is downloaded.
 """
 
 from __future__ import annotations

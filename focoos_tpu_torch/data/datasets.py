@@ -3,10 +3,9 @@ reference: focoos/data/datasets/).
 
 ``DictDataset`` holds a list of record dicts and a ``DatasetMetadata``
 (COCO-style: file_name, height, width, annotations[{bbox (XYWH),
-category_id, segmentation, keypoints, iscrowd}], label). Parsers:
-Roboflow-COCO (detection, instance segmentation, keypoints) and
-classification folders; the Roboflow semantic-segmentation layout needs the
-mask mappers, which are not ported yet. ``MapDataset`` applies a mapper,
+category_id, segmentation, keypoints, iscrowd}], sem_seg_file_name, label). Parsers:
+Roboflow-COCO (detection, instance segmentation, keypoints), Roboflow
+semantic segmentation (PNG masks) and classification folders. ``MapDataset`` applies a mapper,
 retrying other records where the mapper returns None. Records are plain
 dicts, so the loader's worker processes share them as they are.
 """
@@ -114,9 +113,33 @@ class DictDataset:
 
     @classmethod
     def from_roboflow_seg(cls, split_dir: str) -> "DictDataset":
-        raise NotImplementedError(
-            "the Roboflow semantic-segmentation layout needs the mask mappers, not ported yet (ROADMAP Queue 1 item 7)"
+        """Roboflow semantic-segmentation layout: images with ``*_mask.png``
+        pairs and ``_classes.csv`` (reference: dict_dataset.py:450)."""
+        classes_csv = os.path.join(split_dir, "_classes.csv")
+        class_names: List[str] = []
+        if os.path.isfile(classes_csv):
+            with open(classes_csv) as f:
+                lines = [line.strip() for line in f if line.strip()]
+            for line in lines[1:]:
+                class_names.append(line.split(",")[-1].strip())
+        records = []
+        for fn in sorted(os.listdir(split_dir)):
+            if fn.endswith("_mask.png") or not fn.lower().endswith((".jpg", ".jpeg", ".png")):
+                continue
+            mask = os.path.join(split_dir, os.path.splitext(fn)[0] + "_mask.png")
+            if not os.path.isfile(mask):
+                continue
+            records.append(dict(file_name=os.path.join(split_dir, fn), sem_seg_file_name=mask))
+        meta = DatasetMetadata(
+            num_classes=len(class_names) or 1,
+            task=Task.SEMSEG,
+            count=len(records),
+            name=os.path.basename(os.path.dirname(split_dir)),
+            image_root=split_dir,
+            stuff_classes=class_names,
+            ignore_label=255,
         )
+        return cls(records, meta)
 
     @classmethod
     def from_folder(cls, split_dir: str) -> "DictDataset":

@@ -3,11 +3,10 @@
 
 A mapper reads the image, runs the augmentation pipeline, converts the
 annotations into numpy ``Instances`` and drops empty training records
-(returning None makes MapDataset retry another record). The detection and
-keypoint mappers are ported; the instance-segmentation, semantic and
-classification mappers raise until their families land (ROADMAP Queue 1
-item 7: they need masks and ``utils/native.py``'s RLE decode, or a family the
-port does not have yet).
+(returning None makes MapDataset retry another record). The detection,
+instance-segmentation (COCO polygons or RLE into ``BitMasks``), keypoint and
+semantic mappers are ported; the classification mapper lands with fai_cls
+(ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -18,7 +17,7 @@ import numpy as np
 
 from focoos_tpu_torch.data.transforms import AugInput, Augmentation, AugmentationList, TransformList
 from focoos_tpu_torch.ports import DatasetEntry, Task
-from focoos_tpu_torch.structures import Boxes, BoxMode, Instances, Keypoints
+from focoos_tpu_torch.structures import BitMasks, Boxes, BoxMode, Instances, Keypoints, polygons_to_bitmask
 
 
 def _read_image(path: str) -> np.ndarray:
@@ -66,6 +65,7 @@ class DatasetMapper:
 class DetectionDatasetMapper(DatasetMapper):
     """(reference: mappers/detection_dataset_mapper.py:19)"""
 
+    use_masks = False
     use_keypoints = False
 
     def __call__(self, record: dict) -> Optional[DatasetEntry]:
@@ -97,6 +97,22 @@ class DetectionDatasetMapper(DatasetMapper):
         inst.classes = classes
         inst.iscrowd = np.array([a.get("iscrowd", 0) for a in anns], np.int64)
 
+        if self.use_masks and anns and anns[0].get("segmentation") is not None:
+            masks = []
+            for a in anns:
+                seg = a.get("segmentation")
+                if isinstance(seg, list):
+                    m = polygons_to_bitmask([np.asarray(p) for p in seg], h0, w0)
+                elif isinstance(seg, dict):
+                    # COCO crowd regions ship as RLE (a compressed string or a counts list)
+                    from focoos_tpu_torch.utils.native import coco_rle_decode
+
+                    m = coco_rle_decode(seg, h0, w0)
+                else:
+                    m = np.asarray(seg, bool)
+                masks.append(tfm.apply_segmentation(m.astype(np.uint8)).astype(bool))
+            inst.masks = BitMasks(np.stack(masks) if masks else np.zeros((0, *hw), bool))
+
         if self.use_keypoints:
             kpts = np.array(
                 [np.asarray(a.get("keypoints", [0] * 51), np.float32).reshape(-1, 3) for a in anns], np.float32
@@ -117,17 +133,70 @@ class DetectionDatasetMapper(DatasetMapper):
         )
 
 
+class InstanceDatasetMapper(DetectionDatasetMapper):
+    """(reference: detection_dataset_mapper.py:187)"""
+
+    use_masks = True
+
+
 class KeypointDatasetMapper(DetectionDatasetMapper):
     """(reference: mappers/keypoint.py:21)"""
 
     use_keypoints = True
 
 
+class SemanticDatasetMapper(DatasetMapper):
+    """(reference: mappers/semantic_dataset_mapper.py:27)"""
+
+    def __init__(self, augmentations, is_train: bool = True, ignore_label: int = 255):
+        super().__init__(augmentations, is_train)
+        self.ignore_label = ignore_label
+
+    def __call__(self, record: dict) -> Optional[DatasetEntry]:
+        from PIL import Image
+
+        image = _read_image(record["file_name"])
+        h0, w0 = image.shape[:2]
+        with Image.open(record["sem_seg_file_name"]) as m:
+            sem_seg = np.asarray(m)
+        if sem_seg.ndim == 3:
+            sem_seg = sem_seg[..., 0]
+        sem_seg = sem_seg.astype(np.uint8)
+
+        aug_input = AugInput(image, sem_seg=sem_seg)
+        self.augmentations(aug_input)
+        image, sem_seg = aug_input.image, aug_input.sem_seg
+
+        # MaskFormer-style targets: one instance per class present
+        classes = np.unique(sem_seg)
+        classes = classes[classes != self.ignore_label]
+        masks = np.stack([sem_seg == c for c in classes]) if len(classes) else np.zeros((0, *sem_seg.shape), bool)
+        inst = Instances(image.shape[:2])
+        inst.classes = classes.astype(np.int64)
+        inst.masks = BitMasks(masks)
+        inst.boxes = inst.masks.get_bounding_boxes() if len(classes) else Boxes(np.zeros((0, 4)))
+        if self.is_train and len(classes) == 0:
+            return None
+        return DatasetEntry(
+            image=image,
+            height=record.get("height", h0),
+            width=record.get("width", w0),
+            instances=inst,
+            sem_seg=sem_seg,
+            file_name=record["file_name"],
+            image_id=record.get("image_id"),
+        )
+
+
 def get_mapper_by_task(task: Task, augmentations: List[Augmentation], is_train: bool = True) -> DatasetMapper:
     if task == Task.DETECTION:
         return DetectionDatasetMapper(augmentations, is_train)
+    if task == Task.INSTANCE_SEGMENTATION:
+        return InstanceDatasetMapper(augmentations, is_train)
     if task == Task.KEYPOINT:
         return KeypointDatasetMapper(augmentations, is_train)
-    if task in (Task.INSTANCE_SEGMENTATION, Task.SEMSEG, Task.CLASSIFICATION):
+    if task == Task.SEMSEG:
+        return SemanticDatasetMapper(augmentations, is_train)
+    if task == Task.CLASSIFICATION:
         raise NotImplementedError(f"the {Task(task).value} mapper is not ported yet (ROADMAP Queue 1 item 7)")
     raise ValueError(f"No mapper for task {task}")

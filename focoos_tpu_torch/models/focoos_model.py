@@ -4,7 +4,7 @@ focoos_tpu/models/focoos_model.py; reference: focoos/models/focoos_model.py).
 Owns ``(nn.Module on a device, ModelInfo, Processor)`` and exposes the
 reference's verbs. The forward runs eagerly under ``torch.inference_mode()``;
 ``train`` runs the port's trainer (fai_detr) and ``eval`` its evaluation
-loop. Export is ported in a later slice (ROADMAP Queue 1 item 6). The model
+loop (every ported family). Export is ported in a later slice (ROADMAP Queue 1 item 6). The model
 computes in its ``compute_dtype`` (fp32 or bf16) with fp32 parameters, as the
 JAX package's FocoosModel (focoos_model.py:48,53).
 """
@@ -126,7 +126,8 @@ class FocoosModel:
     # ------------------------------------------------------------------
     def forward(self, images: Union[np.ndarray, torch.Tensor]):
         """Raw batched forward: NHWC uint8/float → family ModelOutput (fp32
-        outputs in either compute dtype)."""
+        outputs in either compute dtype, except fai_mf's masks, which stay in
+        the compute dtype as the JAX package's)."""
         x = torch.as_tensor(images).to(self.device)
         with torch.inference_mode():
             out, _aux = self.module(x)

@@ -1,7 +1,7 @@
 """Shared NN building blocks (PyTorch).
 
-Port of the subset of ``focoos_tpu/nn/layers/common.py`` the fai_detr serving
-path uses. Convolutions take NCHW tensors (the port's internal layout; an NHWC
+Port of the subset of ``focoos_tpu/nn/layers/common.py`` that the fai_detr,
+rtmo and fai_mf paths use. Convolutions take NCHW tensors (the port's internal layout; an NHWC
 tensor permuted to NCHW is a channels-last view and needs no copy); sequence
 layers take ``[B, L, C]``. Parameter names follow the reference's torch
 modules, so ``focoos_tpu.utils.torch_convert`` maps a port ``state_dict`` onto
@@ -21,6 +21,7 @@ the CPU and the card run the same dtypes.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -199,7 +200,9 @@ class MultiHeadAttention(ComputeDtype, nn.Module):
     """Multi-head attention with torch ``nn.MultiheadAttention``'s merged
     ``in_proj_weight``/``in_proj_bias`` storage; plain matmuls in the compute
     dtype with the softmax in fp32, as the JAX layer computes it
-    (common.py:298-304)."""
+    (common.py:272-307). ``attn_mask`` is boolean, True where a key is
+    allowed, broadcast against the ``[..., heads, queries, keys]`` logits; a
+    blocked logit takes its dtype's lowest finite value."""
 
     def __init__(self, embed_dim: int, num_heads: int):
         super().__init__()
@@ -209,7 +212,13 @@ class MultiHeadAttention(ComputeDtype, nn.Module):
         self.out_proj = Linear(embed_dim, embed_dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self,
+        query: torch.Tensor,
+        key: torch.Tensor,
+        value: torch.Tensor,
+        attn_mask: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
         e, h = self.embed_dim, self.num_heads
         hd = e // h
         dt = self.compute_dtype
@@ -219,18 +228,26 @@ class MultiHeadAttention(ComputeDtype, nn.Module):
         k = F.linear(key.to(dt), wk, bk).unflatten(-1, (h, hd))
         v = F.linear(value.to(dt), wv, bv).unflatten(-1, (h, hd))
         logits = torch.einsum("...qhd,...khd->...hqk", q * hd**-0.5, k)
+        if attn_mask is not None:
+            logits = logits.masked_fill(~attn_mask, torch.finfo(logits.dtype).min)
         weights = torch.softmax(logits.float(), dim=-1).to(q.dtype)
         out = torch.einsum("...hqk,...khd->...qhd", weights, v).flatten(-2)
         return self.out_proj(out)
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Post-norm transformer encoder layer
-    (reference: focoos/nn/layers/transformer.py:553, normalize_before=False);
-    attention and FFN in the compute dtype, the LayerNorms (and so the
-    output) in fp32."""
+    """Transformer encoder layer (reference: focoos/nn/layers/transformer.py:553),
+    post-norm or, with ``normalize_before``, pre-norm; attention and FFN in
+    the compute dtype, the LayerNorms in fp32 (JAX common.py:310-341)."""
 
-    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048, activation: str = "relu"):
+    def __init__(
+        self,
+        d_model: int,
+        nhead: int,
+        dim_feedforward: int = 2048,
+        activation: str = "relu",
+        normalize_before: bool = False,
+    ):
         super().__init__()
         self.self_attn = MultiHeadAttention(d_model, nhead)
         self.linear1 = Linear(d_model, dim_feedforward)
@@ -238,11 +255,77 @@ class TransformerEncoderLayer(nn.Module):
         self.norm1 = LayerNorm(d_model, eps=1e-5)
         self.norm2 = LayerNorm(d_model, eps=1e-5)
         self.activation = get_activation(activation)
+        self.normalize_before = normalize_before
+
+    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear2(self.activation(self.linear1(x)))
 
     def forward(self, src: torch.Tensor, pos_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.normalize_before:
+            s2 = self.norm1(src)
+            q = s2 if pos_embed is None else s2 + pos_embed
+            src = src + self.self_attn(q, q, s2)
+            return src + self._ffn(self.norm2(src))
         q = src if pos_embed is None else src + pos_embed
         src = self.norm1(src + self.self_attn(q, q, src))
-        return self.norm2(src + self.linear2(self.activation(self.linear1(src))))
+        return self.norm2(src + self._ffn(src))
+
+
+class SelfAttentionBlock(nn.Module):
+    """Pre/post-norm residual self-attention (reference:
+    focoos/nn/layers/transformer.py:17 SelfAttentionLayer; JAX common.py:438)."""
+
+    def __init__(self, d_model: int, nhead: int, normalize_before: bool = False):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(d_model, nhead)
+        self.norm = LayerNorm(d_model, eps=1e-5)
+        self.normalize_before = normalize_before
+
+    def forward(self, tgt, query_pos=None, attn_mask=None):
+        if self.normalize_before:
+            t2 = self.norm(tgt)
+            q = t2 if query_pos is None else t2 + query_pos
+            return tgt + self.self_attn(q, q, t2, attn_mask=attn_mask)
+        q = tgt if query_pos is None else tgt + query_pos
+        return self.norm(tgt + self.self_attn(q, q, tgt, attn_mask=attn_mask))
+
+
+class CrossAttentionBlock(nn.Module):
+    """Pre/post-norm residual cross-attention (reference:
+    focoos/nn/layers/transformer.py:131 CrossAttentionLayer; JAX common.py:459)."""
+
+    def __init__(self, d_model: int, nhead: int, normalize_before: bool = False):
+        super().__init__()
+        self.multihead_attn = MultiHeadAttention(d_model, nhead)
+        self.norm = LayerNorm(d_model, eps=1e-5)
+        self.normalize_before = normalize_before
+
+    def forward(self, tgt, memory, pos=None, query_pos=None, attn_mask=None):
+        k = memory if pos is None else memory + pos
+        if self.normalize_before:
+            t2 = self.norm(tgt)
+            q = t2 if query_pos is None else t2 + query_pos
+            return tgt + self.multihead_attn(q, k, memory, attn_mask=attn_mask)
+        q = tgt if query_pos is None else tgt + query_pos
+        return self.norm(tgt + self.multihead_attn(q, k, memory, attn_mask=attn_mask))
+
+
+class FFNBlock(nn.Module):
+    """Pre/post-norm residual FFN (reference: focoos/nn/layers/transformer.py:267
+    FFNLayer; JAX common.py:481)."""
+
+    def __init__(self, d_model: int, dim_feedforward: int, activation: str = "relu", normalize_before: bool = False):
+        super().__init__()
+        self.linear1 = Linear(d_model, dim_feedforward)
+        self.linear2 = Linear(dim_feedforward, d_model)
+        self.norm = LayerNorm(d_model, eps=1e-5)
+        self.activation = get_activation(activation)
+        self.normalize_before = normalize_before
+
+    def forward(self, tgt):
+        if self.normalize_before:
+            return tgt + self.linear2(self.activation(self.linear1(self.norm(tgt))))
+        return self.norm(tgt + self.linear2(self.activation(self.linear1(tgt))))
 
 
 def sine_position_embedding_2d(
@@ -278,6 +361,41 @@ def bilinear_resize(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
     """Bilinear NCHW resize with half-pixel centers and no antialiasing — the
     same sampling as the JAX package's ``jax.image.resize(..., antialias=False)``."""
     return F.interpolate(x, size=(int(size[0]), int(size[1])), mode="bilinear", align_corners=False, antialias=False)
+
+
+def nearest_resize_torch(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
+    """Nearest NCHW resize with torch's floor mapping, src = floor(dst · in / out)
+    (JAX common.py:382 ``nearest_resize_torch``: the FPN's upsample at odd sizes)."""
+    return F.interpolate(x, size=(int(size[0]), int(size[1])), mode="nearest")
+
+
+def sine_position_embedding_2d_normalized(
+    h: int,
+    w: int,
+    num_pos_feats: int,
+    temperature: float = 10000.0,
+    scale: float = 2.0 * math.pi,
+    eps: float = 1e-6,
+    device: Optional[torch.device] = None,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Normalized 2-D sine position embedding → [H*W, 2*num_pos_feats]
+    (reference PositionEmbeddingSine(normalize=True),
+    focoos/nn/layers/position_encoding.py:7; JAX common.py:397): 1-based
+    coordinates scaled into (0, scale], sin/cos interleaved per pair, the
+    y half then the x half."""
+    y = (torch.arange(h, dtype=torch.float32, device=device) + 1.0) / (h + eps) * scale
+    x = (torch.arange(w, dtype=torch.float32, device=device) + 1.0) / (w + eps) * scale
+    dim_t = torch.arange(num_pos_feats, dtype=torch.float32, device=device)
+    dim_t = temperature ** (2.0 * torch.floor(dim_t / 2.0) / num_pos_feats)
+
+    def interleave(p: torch.Tensor) -> torch.Tensor:
+        return torch.stack([torch.sin(p[:, 0::2]), torch.cos(p[:, 1::2])], dim=-1).reshape(p.shape[0], -1)
+
+    py = interleave(y[:, None] / dim_t)  # [H, F]
+    px = interleave(x[:, None] / dim_t)  # [W, F]
+    out = torch.cat([py[:, None, :].expand(h, w, num_pos_feats), px[None, :, :].expand(h, w, num_pos_feats)], -1)
+    return out.reshape(h * w, 2 * num_pos_feats).to(dtype)
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:

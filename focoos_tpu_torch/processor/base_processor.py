@@ -104,5 +104,11 @@ class Processor:
     def postprocess(self, output, inputs, class_names: List[str] = [], **kw) -> List[FocoosDetections]:
         raise NotImplementedError
 
+    def eval_decode(self, output, batched_inputs: List[DatasetEntry]):
+        """The device half of ``eval_postprocess``, which the evaluation loop
+        queues right behind the forward before it copies the result's tensors
+        to the host: by default the output as it is."""
+        return output
+
     def eval_postprocess(self, output, batched_inputs: List[DatasetEntry], **kw):
         raise NotImplementedError

@@ -1,6 +1,7 @@
 """Host-side containers of the port (copy of ``focoos_tpu/structures.py``,
 trimmed to what ``focoos_tpu_torch`` and its tests use: ``BoxMode``,
-``Boxes``, ``Keypoints``, ``Instances``, ``ImageList``).
+``Boxes``, ``BitMasks`` with ``polygons_to_bitmask``, ``Keypoints``,
+``Instances``, ``ImageList``).
 
 The port keeps its own copy so that it runs without ``focoos_tpu``. Names
 and behaviour are those of the JAX package's module. NumPy-backed: these
@@ -70,6 +71,59 @@ class Boxes:
 
     def __repr__(self) -> str:
         return f"Boxes({self.tensor})"
+
+
+def polygons_to_bitmask(polygons: List[np.ndarray], height: int, width: int) -> np.ndarray:
+    """Rasterize COCO polygons into a bool mask (reference: focoos/structures.py:228),
+    with cv2.fillPoly (pycocotools is not a dependency)."""
+    import cv2
+
+    mask = np.zeros((height, width), dtype=np.uint8)
+    pts = [np.round(np.asarray(p, dtype=np.float64).reshape(-1, 2)).astype(np.int32) for p in polygons]
+    pts = [p for p in pts if len(p) >= 3]
+    if pts:
+        cv2.fillPoly(mask, pts, 1)
+    return mask.astype(bool)
+
+
+class BitMasks:
+    """N binary masks of shape [N, H, W] (reference: focoos/structures.py:292)."""
+
+    def __init__(self, tensor: np.ndarray):
+        t = np.asarray(tensor)
+        if t.dtype != bool:
+            t = t.astype(bool)
+        assert t.ndim == 3, t.shape
+        self.tensor = t
+        self.image_size = t.shape[1:]
+
+    def __getitem__(self, item) -> "BitMasks":
+        t = self.tensor[item]
+        if t.ndim == 2:
+            t = t[None]
+        return BitMasks(t)
+
+    def __len__(self) -> int:
+        return self.tensor.shape[0]
+
+    def nonempty(self) -> np.ndarray:
+        return self.tensor.reshape(len(self), -1).any(axis=1)
+
+    def get_bounding_boxes(self) -> Boxes:
+        """[xmin, ymin, xmax + 1, ymax + 1] of each mask, zeros for an empty one."""
+        boxes = np.zeros((len(self), 4), dtype=np.float32)
+        for i, m in enumerate(self.tensor):
+            ys, xs = np.nonzero(m)
+            if len(xs):
+                boxes[i] = [xs.min(), ys.min(), xs.max() + 1, ys.max() + 1]
+        return Boxes(boxes)
+
+    @classmethod
+    def from_polygon_masks(cls, polygons: List[List[np.ndarray]], height: int, width: int) -> "BitMasks":
+        masks = [polygons_to_bitmask(p, height, width) for p in polygons]
+        if len(masks) == 0:
+            return cls(np.zeros((0, height, width), dtype=bool))
+        return cls(np.stack(masks))
 
 
 class Keypoints:

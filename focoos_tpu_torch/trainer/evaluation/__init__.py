@@ -8,10 +8,16 @@ A producer thread, two batches ahead, reads each entry (a ``MapDataset``
 reads and maps it from disk there), preprocesses a batch and copies it to
 the card (pinned memory, a side stream, an event the forward waits on). The
 consumer runs a software pipeline: batch k's forward is queued, then batch
-k-1 is postprocessed and scored on the host. Each batch's outputs are copied
-to pinned host memory right behind its own forward, and an event marks the
-copy: waiting on that event after queuing batch k's forward waits for the
-copy alone, where a copy queued behind batch k's forward would wait for it.
+k-1 is postprocessed and scored on the host. Right behind each batch's
+forward the loop queues the device half of the processor's decode
+(``Processor.eval_decode``: the output itself for fai_detr and rtmo, the
+label map or the packed instance masks for fai_mf), then copies that
+decode's tensors to pinned host memory, and an event marks the copy:
+waiting on that event after queuing batch k's forward waits for the copy
+alone, where a copy queued behind batch k's forward would wait for it. A
+field whose metadata says ``device`` stays on the card (fai_mf's packed
+masks, which the evaluator's mask IoU reads there). ``stats`` holds the last
+run's batches and bytes copied to the host.
 """
 
 from __future__ import annotations
@@ -29,7 +35,9 @@ from focoos_tpu_torch.trainer.evaluation.evaluators import (
     DatasetEvaluator,
     DatasetEvaluators,
     DetectionEvaluator,
+    InstanceSegmentationEvaluator,
     KeypointEvaluator,
+    SemSegEvaluator,
     get_evaluator,
 )
 from focoos_tpu_torch.utils.logger import get_logger
@@ -40,7 +48,9 @@ __all__ = [
     "DatasetEvaluator",
     "DatasetEvaluators",
     "DetectionEvaluator",
+    "InstanceSegmentationEvaluator",
     "KeypointEvaluator",
+    "SemSegEvaluator",
     "get_evaluator",
     "inference_on_dataset",
     "print_csv_format",
@@ -48,19 +58,22 @@ __all__ = [
 ]
 
 _END = object()
+stats = {"batches": 0, "host_bytes": 0}
 
 
 def _to_host(output, device: torch.device):
-    """(``output`` with every tensor field copied to pinned host memory,
-    the event that marks the copies) for a card output; (``output``, None) on the CPU."""
+    """(``output`` with every tensor field, except those marked ``device``,
+    copied to pinned host memory, the event that marks the copies) for a card
+    output; (``output``, None) on the CPU."""
     if device.type != "cuda":
         return output, None
     fields = {}
     for f in dataclasses.fields(output):
         t = getattr(output, f.name)
-        if isinstance(t, torch.Tensor):
+        if isinstance(t, torch.Tensor) and not f.metadata.get("device"):
             host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             fields[f.name] = host.copy_(t, non_blocking=True)
+            stats["host_bytes"] += t.numel() * t.element_size()
     done = torch.cuda.Event()
     done.record()
     return dataclasses.replace(output, **fields), done
@@ -71,6 +84,7 @@ def inference_on_dataset(model, dataset, evaluator: DatasetEvaluator, batch_size
     sequence of DatasetEntry, with data and compute timing
     (reference: trainer/evaluation/evaluator.py:115-236) → the evaluator's results."""
     evaluator.reset()
+    stats.update(batches=0, host_bytes=0)
     n = len(dataset)
     device = model.device
     cuda = device.type == "cuda"
@@ -134,7 +148,8 @@ def inference_on_dataset(model, dataset, evaluator: DatasetEvaluator, batch_size
             if ready is not None:
                 torch.cuda.current_stream(device).wait_event(ready)
                 x.record_stream(torch.cuda.current_stream(device))
-            out = model.forward(x)
+            out = model.processor.eval_decode(model.forward(x), entries)
+            stats["batches"] += 1
             prev, pending = pending, (entries, *_to_host(out, device))
             if prev is not None:
                 consume(prev)

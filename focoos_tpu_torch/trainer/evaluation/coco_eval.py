@@ -6,15 +6,15 @@ The reference delegates to the ``faster_coco_eval`` C++ extension
 (SURVEY.md §2.13); this module implements the COCOeval protocol directly:
 greedy per-image matching at IoU thresholds 0.5:0.05:0.95, 101-point
 interpolated precision, area ranges (all/small/medium/large), maxDets=100,
--1 for a slice without ground truth. The IoU kernel is bbox IoU or OKS, so
-the detection and keypoint evaluators share one core. Mask IoU needs the
-host C++ of ``utils/native.py`` and lands with the segmentation evaluator
-(ROADMAP Queue 1 item 7, fai_mf).
+-1 for a slice without ground truth. The IoU kernel is pluggable (bbox IoU,
+mask IoU on the host C++ of ``utils/native.py``, a precomputed matrix, or
+OKS), so the detection, instance-segmentation and keypoint evaluators share
+one core.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -42,6 +42,12 @@ def bbox_iou_matrix(dt_boxes: np.ndarray, gt_boxes: np.ndarray, gt_crowd: np.nda
     area_g = ((gt_boxes[:, 2] - gt_boxes[:, 0]) * (gt_boxes[:, 3] - gt_boxes[:, 1]))[None, :]
     union = np.where(gt_crowd[None, :], area_d, area_d + area_g - inter)
     return inter / np.maximum(union, 1e-9)
+
+
+def mask_iou_matrix(dt_masks: Sequence[np.ndarray], gt_masks: Sequence[np.ndarray], gt_crowd: np.ndarray) -> np.ndarray:
+    from focoos_tpu_torch.utils.native import mask_iou
+
+    return mask_iou(dt_masks, gt_masks, gt_crowd).astype(np.float64)
 
 
 # COCO keypoint sigmas (person)
@@ -81,12 +87,10 @@ class CocoStyleEvaluator:
     def __init__(
         self,
         num_classes: int,
-        iou_fn: str = "bbox",  # "bbox" | "oks"
+        iou_fn: str = "bbox",  # "bbox" | "mask" | "oks"
         class_names: Optional[List[str]] = None,
         kpt_sigmas: Optional[np.ndarray] = None,
     ):
-        if iou_fn not in ("bbox", "oks"):
-            raise NotImplementedError(f"iou_fn {iou_fn!r}: mask IoU is not ported yet (ROADMAP Queue 1 item 7, fai_mf)")
         self.num_classes = num_classes
         self.iou_fn = iou_fn
         self.class_names = class_names
@@ -103,9 +107,15 @@ class CocoStyleEvaluator:
         gt_crowd: Optional[np.ndarray] = None,
         dt_boxes: Optional[np.ndarray] = None,
         gt_boxes: Optional[np.ndarray] = None,
+        dt_masks: Optional[Sequence[np.ndarray]] = None,
+        gt_masks: Optional[Sequence[np.ndarray]] = None,
         dt_kpts: Optional[np.ndarray] = None,
         gt_kpts: Optional[np.ndarray] = None,
+        iou_matrix: Optional[np.ndarray] = None,
     ) -> None:
+        """``iou_matrix``: an optional precomputed [n_dt, n_gt] IoU (the mask
+        IoU on the device, ops/mask_iou.py), sliced per class in place of an
+        IoU from dense masks."""
         gt_crowd = gt_crowd if gt_crowd is not None else np.zeros(len(gt_classes), bool)
         for c in np.unique(np.concatenate([dt_classes, gt_classes])).astype(int):
             dsel = dt_classes == c
@@ -118,14 +128,22 @@ class CocoStyleEvaluator:
                 keep_local = np.argsort(-dt_scores[didx], kind="stable")[:MAX_DETS]
                 dsel = np.zeros_like(dsel)
                 dsel[didx[keep_local]] = True
-            if self.iou_fn == "bbox":
+            if iou_matrix is not None:
+                iou = np.asarray(iou_matrix, np.float64)[np.ix_(dsel, gsel)]
+            elif self.iou_fn == "bbox":
                 iou = bbox_iou_matrix(dt_boxes[dsel], gt_boxes[gsel], gt_crowd[gsel])
+            elif self.iou_fn == "mask":
+                dm = [m for m, s in zip(dt_masks or [], dsel) if s]
+                gm = [m for m, s in zip(gt_masks or [], gsel) if s]
+                iou = mask_iou_matrix(dm, gm, gt_crowd[gsel])
             else:
                 iou = oks_matrix(dt_kpts[dsel], gt_kpts[gsel], gt_areas[gsel], self.kpt_sigmas)
             # det areas for area-range filtering (use boxes if available)
             if dt_boxes is not None:
                 db = dt_boxes[dsel]
                 d_areas = (db[:, 2] - db[:, 0]) * (db[:, 3] - db[:, 1])
+            elif dt_masks is not None:
+                d_areas = np.array([m.sum() for m, s in zip(dt_masks, dsel) if s], dtype=np.float64)
             else:
                 d_areas = np.full(int(dsel.sum()), 50.0**2)
             self._entries.append(

@@ -1,13 +1,14 @@
 """Dataset evaluators (copy of ``focoos_tpu/trainer/evaluation/evaluators.py``,
 trimmed to the tasks the port serves; reference: focoos/trainer/evaluation/).
 
-``DatasetEvaluator`` protocol, and COCO bbox AP (``DetectionEvaluator``) and
-OKS keypoint AP (``KeypointEvaluator``) on the numpy core of ``coco_eval.py``.
-One process evaluates the whole dataset, so the JAX package's multi-host
-gather seam is left out. The other tasks' evaluators land with their
-families: instance segmentation and semantic segmentation with fai_mf and
-bisenetformer (they need mask IoU from ``utils/native.py`` and a resize of
-the prediction), classification with fai_cls (ROADMAP Queue 1 item 7).
+``DatasetEvaluator`` protocol; COCO bbox AP (``DetectionEvaluator``), segm
+and bbox AP (``InstanceSegmentationEvaluator``, the mask IoU on the device
+where the decode left its packed masks there) and OKS keypoint AP
+(``KeypointEvaluator``) on the numpy core of ``coco_eval.py``; the
+confusion-matrix mIoU of ``SemSegEvaluator``. One process evaluates the
+whole dataset, so the JAX package's multi-host gather seam is left out. The
+classification evaluator lands with fai_cls and the panoptic one with
+fai_mf's panoptic decode (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -53,19 +54,22 @@ class DatasetEvaluators(DatasetEvaluator):
 
 
 def _gt_from_entry(entry: DatasetEntry):
-    """(classes, boxes, areas, keypoints [G, K, 3] or None, crowd) of an entry's instances."""
+    """(classes, boxes, areas, masks [G, H, W] or None, keypoints [G, K, 3] or None, crowd)
+    of an entry's instances."""
     inst = entry.instances
     if inst is None or len(inst) == 0:
-        return np.zeros(0, np.int64), np.zeros((0, 4), np.float32), np.zeros(0, np.float64), None, np.zeros(0, bool)
+        return (np.zeros(0, np.int64), np.zeros((0, 4), np.float32), np.zeros(0, np.float64), None, None,
+                np.zeros(0, bool))
     boxes = inst.boxes.tensor
     classes = np.asarray(inst.classes, np.int64)
     areas = ((boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])).astype(np.float64)
+    masks = inst.masks.tensor if inst.has("masks") else None
     kpts = np.asarray(inst.keypoints.tensor) if inst.has("keypoints") else None
     # eval-time mappers keep crowd regions marked; both IoU kernels take the
     # COCO crowd (IoA) convention, and the matcher treats crowd GTs as
     # ignores: without this, dts overlapping crowds count as FPs
     crowd = (np.asarray(inst.iscrowd, np.int64) > 0) if inst.has("iscrowd") else np.zeros(len(inst), bool)
-    return classes, boxes, areas, kpts, crowd
+    return classes, boxes, areas, masks, kpts, crowd
 
 
 class DetectionEvaluator(DatasetEvaluator):
@@ -82,7 +86,7 @@ class DetectionEvaluator(DatasetEvaluator):
     def process(self, inputs, outputs):
         for entry, out in zip(inputs, outputs):
             inst = out["instances"]
-            gt_classes, gt_boxes, gt_areas, _, gt_crowd = _gt_from_entry(entry)
+            gt_classes, gt_boxes, gt_areas, _, _, gt_crowd = _gt_from_entry(entry)
             self._coco.add_image(
                 dt_classes=np.asarray(inst.classes, np.int64),
                 dt_scores=np.asarray(inst.scores, np.float64),
@@ -95,6 +99,66 @@ class DetectionEvaluator(DatasetEvaluator):
 
     def evaluate(self):
         return {"bbox": self._coco.summarize("bbox")}
+
+
+class InstanceSegmentationEvaluator(DatasetEvaluator):
+    """COCO segm AP, with bbox AP beside it (reference: detection_evaluation.py:356)."""
+
+    def __init__(self, class_names: Optional[List[str]] = None, num_classes: Optional[int] = None):
+        self.class_names = class_names
+        self.num_classes = num_classes or (len(class_names) if class_names else 80)
+        self.reset()
+
+    def reset(self):
+        self._coco = CocoStyleEvaluator(self.num_classes, "mask", self.class_names)
+        self._box = CocoStyleEvaluator(self.num_classes, "bbox", self.class_names)
+
+    def process(self, inputs, outputs):
+        per_image = []
+        for entry, out in zip(inputs, outputs):
+            inst = out["instances"]
+            gt_classes, gt_boxes, gt_areas, gt_masks, _, gt_crowd = _gt_from_entry(entry)
+            gm = [np.asarray(m) for m in gt_masks] if gt_masks is not None else []
+            per_image.append((inst, gt_classes, gt_areas, gm, gt_boxes, gt_crowd))
+
+        # detections the decode left packed on the device: the IoU is taken there,
+        # for the whole batch at once, and only the [K, G] matrices come back
+        packed = [(i, t) for i, t in enumerate(per_image) if t[0].has("masks_packed")]
+        ious = {}
+        if packed:
+            from focoos_tpu_torch.ops.mask_iou import device_mask_iou_packed_batch
+
+            batch_ious = device_mask_iou_packed_batch(
+                [t[0].masks_packed for _, t in packed],
+                packed[0][1][0]._masks_packed_hw,
+                [t[3] for _, t in packed],
+                gt_crowds=[t[5] for _, t in packed],
+            )
+            ious = {i: m for (i, _), m in zip(packed, batch_ious)}
+
+        for i, (inst, gt_classes, gt_areas, gm, gt_boxes, gt_crowd) in enumerate(per_image):
+            dt_classes = np.asarray(inst.classes, np.int64)
+            dt_scores = np.asarray(inst.scores, np.float64)
+            dt_boxes = np.asarray(inst.boxes.tensor, np.float64)
+            if i in ious:
+                self._coco.add_image(
+                    dt_classes=dt_classes, dt_scores=dt_scores, dt_boxes=dt_boxes,
+                    gt_classes=gt_classes, gt_areas=gt_areas, iou_matrix=ious[i], gt_crowd=gt_crowd,
+                )
+            else:
+                dt_masks = [np.asarray(m) for m in inst.masks.tensor] if inst.has("masks") else []
+                self._coco.add_image(
+                    dt_classes=dt_classes, dt_scores=dt_scores, dt_masks=dt_masks, dt_boxes=dt_boxes,
+                    gt_classes=gt_classes, gt_areas=gt_areas, gt_masks=gm, gt_crowd=gt_crowd,
+                )
+            self._box.add_image(
+                dt_classes=dt_classes, dt_scores=dt_scores, dt_boxes=dt_boxes,
+                gt_classes=gt_classes, gt_boxes=np.asarray(gt_boxes, np.float64), gt_areas=gt_areas,
+                gt_crowd=gt_crowd,
+            )
+
+    def evaluate(self):
+        return {"segm": self._coco.summarize("segm"), "bbox": self._box.summarize("bbox")}
 
 
 class KeypointEvaluator(DatasetEvaluator):
@@ -111,7 +175,7 @@ class KeypointEvaluator(DatasetEvaluator):
     def process(self, inputs, outputs):
         for entry, out in zip(inputs, outputs):
             inst = out["instances"]
-            gt_classes, _, gt_areas, gt_kpts, gt_crowd = _gt_from_entry(entry)
+            gt_classes, _, gt_areas, _, gt_kpts, gt_crowd = _gt_from_entry(entry)
             dt_kpts = np.asarray(inst.get("keypoints"), np.float64) if inst.has("keypoints") else np.zeros((0, 17, 3))
             if gt_kpts is None:
                 gt_kpts = np.zeros((len(gt_classes), dt_kpts.shape[1] if len(dt_kpts) else 17, 3))
@@ -130,12 +194,70 @@ class KeypointEvaluator(DatasetEvaluator):
         return {"keypoints": self._coco.summarize("keypoints")}
 
 
+class SemSegEvaluator(DatasetEvaluator):
+    """Confusion-matrix mIoU / fwIoU / mACC / pACC (reference: sem_seg_evaluation.py:37)."""
+
+    def __init__(self, num_classes: int, ignore_label: int = 255, class_names: Optional[List[str]] = None):
+        self.num_classes = num_classes
+        self.ignore_label = ignore_label
+        self.class_names = class_names
+        self.reset()
+
+    def reset(self):
+        self._conf = np.zeros((self.num_classes + 1, self.num_classes + 1), np.int64)
+
+    def process(self, inputs, outputs):
+        for entry, out in zip(inputs, outputs):
+            pred = np.asarray(out["sem_seg"])
+            if pred.ndim == 3:  # [C, H, W] scores → argmax
+                pred = pred.argmax(0)
+            gt = entry.sem_seg
+            if gt is None:
+                continue
+            gt = np.asarray(gt, np.int64).copy()
+            gt[gt == self.ignore_label] = self.num_classes
+            pred = pred.astype(np.int64).clip(0, self.num_classes)
+            if pred.shape != gt.shape:
+                import cv2
+
+                pred = cv2.resize(pred.astype(np.int32), (gt.shape[1], gt.shape[0]),
+                                  interpolation=cv2.INTER_NEAREST).astype(np.int64)
+            n = self.num_classes + 1
+            self._conf += np.bincount(n * gt.reshape(-1) + pred.reshape(-1), minlength=n**2).reshape(n, n)
+
+    def evaluate(self):
+        conf = self._conf[: self.num_classes, : self.num_classes].astype(np.float64)
+        # rows = gt, cols = pred, the ignore label's row and column dropped
+        # (reference sem_seg_evaluation.py:135-140 sums conf_matrix[:-1, :-1])
+        tp = np.diag(conf)
+        pos_gt = conf.sum(1)
+        pos_pred = conf.sum(0)
+        union = pos_gt + pos_pred - tp
+        valid = pos_gt > 0
+        iou = np.where(union > 0, tp / np.maximum(union, 1e-9), 0.0)
+        acc = np.where(pos_gt > 0, tp / np.maximum(pos_gt, 1e-9), 0.0)
+        miou = float(iou[valid].mean()) * 100 if valid.any() else 0.0
+        fwiou = float((iou * pos_gt / max(pos_gt.sum(), 1e-9)).sum()) * 100
+        macc = float(acc[valid].mean()) * 100 if valid.any() else 0.0
+        pacc = float(tp.sum() / max(pos_gt.sum(), 1e-9)) * 100
+        res = {"mIoU": miou, "fwIoU": fwiou, "mACC": macc, "pACC": pacc}
+        if self.class_names:
+            for i, name in enumerate(self.class_names[: self.num_classes]):
+                if valid[i]:
+                    res[f"IoU-{name}"] = float(iou[i]) * 100
+        return {"sem_seg": res}
+
+
 def get_evaluator(task: Task, num_classes: int, class_names: Optional[List[str]] = None) -> DatasetEvaluator:
     """Task → evaluator dispatch (reference: get_eval.py:5)."""
     if task == Task.DETECTION:
         return DetectionEvaluator(class_names, num_classes)
+    if task == Task.INSTANCE_SEGMENTATION:
+        return InstanceSegmentationEvaluator(class_names, num_classes)
     if task == Task.KEYPOINT:
         return KeypointEvaluator(class_names)
-    if task in (Task.INSTANCE_SEGMENTATION, Task.SEMSEG, Task.CLASSIFICATION):
+    if task == Task.SEMSEG:
+        return SemSegEvaluator(num_classes, class_names=class_names)
+    if task == Task.CLASSIFICATION:
         raise NotImplementedError(f"the {Task(task).value} evaluator is not ported yet (ROADMAP Queue 1 item 7)")
     raise ValueError(f"No evaluator for task {task}")

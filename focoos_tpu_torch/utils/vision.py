@@ -1,5 +1,5 @@
 """Image loading and annotation (copy of ``focoos_tpu/utils/vision.py``,
-trimmed to ``image_loader`` and ``annotate_image``; reference:
+trimmed to ``image_loader``, the mask PNG codec and ``annotate_image``; reference:
 focoos/utils/vision.py).
 
 The port keeps its own copy so that it runs without ``focoos_tpu``. PIL,
@@ -47,6 +47,15 @@ def _color_for(cls_id: int) -> tuple:
     # offset keeps class 0 visible (pure black would vanish on dark images)
     k = cls_id + 1
     return (int((k * 67 + 80) % 255), int((k * 131 + 40) % 255), int((k * 29 + 160) % 255))
+
+
+def mask_to_base64_png(mask: np.ndarray) -> str:
+    """bool HxW mask → base64 PNG (cropped mask payload in FocoosDet)."""
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray((mask.astype(np.uint8)) * 255).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode("ascii")
 
 
 def base64_png_to_mask(data: str) -> np.ndarray:

@@ -737,3 +737,93 @@ def test_fai_detr_m_train_step_on_the_card(cuda, tmp_path, dtype):
         rows = [json.loads(line) for line in f]
     assert all(np.isfinite(v) for r in rows for k, v in r.items() if "loss" in k)
     assert all(p.dtype == torch.float32 for p in model.module.parameters())
+
+
+# --------------------------------------------------------------------------- fai_mf
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b", [1, 8])
+def test_stem_kernel_at_1024_matches_plain(cuda, dtype, b):
+    """fai-mf-l-coco-ins's stem input: 1024², 256x256 pooled outputs an image."""
+    g, params = _stem_params(cuda, seed=5)
+    _check_stem(torch.randn(b, 1024, 1024, 3, generator=g).to(cuda, dtype), params)
+
+
+def test_device_mask_iou_on_the_card_equals_the_library(cuda):
+    """The IoU of packed masks on the card equals native.mask_iou bit for bit
+    at 1024² (2^20 pixels: the fp32 counts stay exact), crowds included."""
+    from focoos_tpu_torch.ops.mask_iou import device_mask_iou_packed_batch
+    from focoos_tpu_torch.utils import native
+
+    assert native.available()
+    rng = np.random.default_rng(7)
+    h = w = 1024
+    dt = rng.random((2, 40, h, w)) > 0.7
+    gts = [list(rng.random((5, h, w)) > 0.6), list(rng.random((3, h, w)) > 0.2)]
+    crowds = [np.array([0, 1, 0, 0, 1]), np.array([0, 0, 1])]
+    packed = torch.from_numpy(np.packbits(dt.reshape(2, 40, -1), axis=-1)).to(cuda)
+    got = device_mask_iou_packed_batch(list(packed), (h, w), gts, gt_crowds=crowds)
+    for i in range(2):
+        assert np.array_equal(got[i], native.mask_iou(list(dt[i]), gts[i], crowds[i]))
+
+
+def test_fai_mf_decodes_on_the_card_match_the_cpu(cuda):
+    """The instance decode (scores 1e-5; labels, packed bits and boxes equal)
+    and the semantic label map (equal) on the card against the CPU, on
+    probabilities away from the threshold and from ties."""
+    from focoos_tpu_torch.models.fai_mf.processor import _device_instance_decode, _device_semantic_argmax
+
+    rng = np.random.default_rng(8)
+    logits = torch.from_numpy(rng.dirichlet(np.ones(12), (2, 20))[..., :11].astype(np.float32))
+    masks = rng.random((2, 20, 96, 80)).astype(np.float32)
+    masks = torch.from_numpy(np.where(np.abs(masks - 0.5) < 1e-3, 0.9, masks).astype(np.float32))
+    ref = _device_instance_decode(logits, masks, 50, 0.5)
+    got = _device_instance_decode(logits.to(cuda), masks.to(cuda), 50, 0.5)
+    torch.testing.assert_close(got[0].cpu(), ref[0], rtol=1e-5, atol=0)
+    for g, r in zip(got[1:], ref[1:]):
+        assert torch.equal(g.cpu(), r)
+    assert torch.equal(_device_semantic_argmax(logits.to(cuda), masks.to(cuda)).cpu(),
+                       _device_semantic_argmax(logits, masks))
+
+
+@pytest.mark.parametrize("card", ["fai-mf-s-coco-ins", "fai-mf-l-ade"])
+def test_fai_mf_forward_on_the_card_matches_the_cpu(cuda, card):
+    """A tiny fai_mf on the card against the same weights on the CPU, on the
+    CPU's attention masks: class and mask probabilities to 1e-3 (fp32 both
+    sides, TF32 off), the stem kernel once a forward; then evaluate_dataset
+    on the card leaves the instance masks packed on the card."""
+    from focoos_tpu_torch import ModelManager
+    from focoos_tpu_torch.ops.stem import fused_resnet_stem as stem
+    from focoos_tpu_torch.ports import DatasetEntry
+    from focoos_tpu_torch.structures import BitMasks, Instances
+    from focoos_tpu_torch.trainer import evaluation
+
+    kw = dict(num_queries=10, transformer_predictor_dec_layers=2, num_classes=3)
+    gpu = ModelManager.get(card, device=cuda, seed=3, **kw)
+    cpu = ModelManager.get(card, device="cpu", init_weights=False, **kw)
+    cpu.module.load_state_dict(gpu.module.state_dict())
+    imgs = np.random.default_rng(9).integers(0, 256, (2, 96, 96, 3), dtype=np.uint8)
+    x = torch.from_numpy(imgs)
+    with torch.inference_mode():
+        ref, raux = cpu.module(x)
+        before = stem.launches
+        got, _ = gpu.module(x.to(cuda), allowed=[a.to(cuda) for a in raux.allowed])
+        torch.cuda.synchronize()
+    assert stem.launches - before == 1
+    torch.testing.assert_close(got.logits.cpu(), ref.logits, rtol=0, atol=1e-3)
+    torch.testing.assert_close(got.masks.cpu(), ref.masks, rtol=0, atol=1e-3)
+    masks = BitMasks(np.random.default_rng(10).random((2, 96, 96)) > 0.5)
+    entries = [DatasetEntry(image=img, height=96, width=96, sem_seg=np.zeros((96, 96), np.uint8),
+                            instances=Instances((96, 96), boxes=masks.get_bounding_boxes(), classes=np.array([0, 1]),
+                                                masks=masks)) for img in imgs]
+    seen = []
+    real = evaluation._to_host
+    evaluation._to_host = lambda out, device: (seen.append(out), real(out, device))[1]
+    try:
+        res = evaluation.evaluate_dataset(gpu, entries, batch_size=2)
+    finally:
+        evaluation._to_host = real
+    assert len(seen) == 1 and ("segm" in res if card.endswith("-ins") else "sem_seg" in res)
+    if card.endswith("-ins"):
+        assert seen[0].packed is None and seen[0].packed_on_device.is_cuda
+        assert evaluation.stats["host_bytes"] == sum(t.numel() * t.element_size()
+                                                     for t in (seen[0].scores, seen[0].labels, seen[0].boxes))

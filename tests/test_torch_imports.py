@@ -131,6 +131,30 @@ print("OK", len(res))
 """
 
 
+MF_SCRIPT = PRELUDE + r"""
+import torch
+torch.set_num_threads(2)
+from focoos_tpu_torch.ports import DatasetEntry, TrainerArgs
+from focoos_tpu_torch.structures import BitMasks, Instances
+rng = np.random.default_rng(0)
+img = rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)
+masks = BitMasks(rng.random((2, 64, 64)) > 0.5)
+gt = Instances((64, 64), boxes=masks.get_bounding_boxes(), classes=np.array([0, 1]), masks=masks)
+entry = DatasetEntry(image=img, height=64, width=64, instances=gt, sem_seg=rng.integers(0, 2, (64, 64)).astype(np.uint8))
+kw = dict(device="cpu", num_queries=10, transformer_predictor_dec_layers=2, num_classes=2)
+out = []
+for name in ("fai-mf-s-coco-ins", "fai-mf-l-ade"):
+    model = ModelManager.get(name, **kw)
+    scores = model.eval(TrainerArgs(run_name="e", batch_size=2), [entry])
+    res = model.infer(img, threshold=1.0)  # no detection: no mask PNG, so no PIL
+    assert len(res) == 0 and model.forward(img[None]).masks.shape == (1, 10, 64, 64)
+    out += sorted(scores)
+loaded = sorted(k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in BLOCKED)
+assert not loaded, loaded
+print("OK", *out)
+"""
+
+
 def _run(script: str) -> str:
     proc = subprocess.run(
         [sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True, timeout=300,
@@ -149,6 +173,10 @@ def test_fai_detr_trains_without_jax_pil_cv2():
 
 def test_fai_detr_m_serves_and_datasets_parse_without_jax_pil_cv2():
     assert _run(DATA_SCRIPT).split()[-2:] == ["OK", "10"]
+
+
+def test_fai_mf_evaluates_without_jax_pil_cv2():
+    assert _run(MF_SCRIPT).split()[-4:] == ["OK", "bbox", "segm", "sem_seg"]
 
 
 def test_rtmo_serves_without_jax_pil_cv2():
