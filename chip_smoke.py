@@ -73,7 +73,22 @@ non-zero:
    and in bf16, each with step and data_time p50, peak memory, bbox/AP and
    three profiled steps after it; FocoosModel.eval; both MSDA kernels on
    the fine-tuned model's captured locations; b1 and b16 serving in fp32
-   and bf16. Every counted run starts its MSDA counts at 0.
+   and bf16. Every counted run starts its MSDA counts at 0;
+10. fai_mf — fai-mf-l-coco-ins at 1024² and fai-mf-l-ade at 640², served
+   and evaluated in fp32 and bf16 (``phase_mf``);
+11. segm_train — mask-classification training at full width: one
+   fai-mf-l-ade step (B=2 640²) on the card against the CPU's step in fp64
+   on its attention masks, points and assignment, fp32 and bf16; then
+   fai-mf-l-coco-ins fine-tuned at 1024² from a seeded instance set of
+   640x480 JPEGs written to disk (the train loader alone; validation at the
+   preset's 1024 raising the resized-record ValueError of ROADMAP Queue 3;
+   FocoosModel.train at B=8 with validation at 480 in fp32 and bf16; a
+   64-step loop without validation timed whole, its last steps profiled;
+   the criterion alone; FocoosModel.eval); then bisenetformer-l-ade at 640² (infer(), card vs
+   CPU forwards, b1/b16, evaluation against the CPU's own predictions, one
+   step against the CPU, FocoosModel.train at B=16 from a semantic set on
+   disk, fp32 and bf16). The stem's launches count from 0 before each
+   counted run.
 
 Each model path runs again in bf16 compute (``ModelManager.get(...,
 dtype="bfloat16")``, fp32 parameters), right after its fp32 run and with its
@@ -89,8 +104,9 @@ stem phases time the bf16 kernels beside the fp32 ones (MSDA backward also
 at the training batch B=8), each with its bound and share.
 
 The last three lines are the kernels' JSON record (``launches`` from the
-serving and training main paths, ``launches_lifecycle`` and
-``launches_finetune_m`` summed over those phases' counted runs), the card's
+serving and training main paths, ``launches_lifecycle``,
+``launches_finetune_m``, ``launches_fai_mf`` and ``launches_segm_train``
+summed over those phases' counted runs), the card's
 name and power limit as
 nvidia-smi reports them, and the result JSON.
 """
@@ -784,8 +800,14 @@ def condition_for_training(module: torch.nn.Module) -> None:
     scale of each STDC cat block's convs after its first (the block's
     output near its 1x1 path: STDC has no residual, and ~50 train-mode
     BatchNorms in a row amplify a difference ~10x every few blocks), and
-    each decoder box head's last layer (small refinements, as a trained
-    model makes)."""
+    so does that of bisenetformer's BatchNorms over a 1x1 map (its ARMs'
+    attention and the global average's: at B=2 each normalizes the
+    difference of two nearly equal image means, which multiplies the
+    relative error of its input by the ratio of the means to their
+    difference), and each
+    decoder box head's last layer (small refinements, as a trained model
+    makes)."""
+    from focoos_tpu_torch.models.bisenetformer.modelling import AttentionRefinementModule, BiseNet
     from focoos_tpu_torch.nn.backbone.resnet import BottleNeck
     from focoos_tpu_torch.nn.backbone.stdc import CatBottleneck
 
@@ -795,7 +817,11 @@ def condition_for_training(module: torch.nn.Module) -> None:
         elif isinstance(m, CatBottleneck):  # STDC: the concat near its 1x1 path, the deeper convs' share x0.1
             for conv in m.conv_list[1:]:
                 conv.bn.weight.mul_(0.1)
-    for head in module.predictor.dec_bbox_classifier:
+        elif isinstance(m, AttentionRefinementModule):
+            m.bn_atten.weight.mul_(0.1)
+        elif isinstance(m, BiseNet):
+            m.cp.conv_avg.bn.weight.mul_(0.1)
+    for head in getattr(module.predictor, "dec_bbox_classifier", ()):  # fai_detr's box heads
         head.layers[-1].weight.mul_(0.1)
         head.layers[-1].bias.mul_(0.1)
 
@@ -803,11 +829,11 @@ def condition_for_training(module: torch.nn.Module) -> None:
 @contextlib.contextmanager
 def cpu_fp64(module: torch.nn.Module):
     """``module`` (on the CPU) computing in fp64 within the block: its
-    parameters, statistics and compute dtype, its LayerNorms, and the MSDA
-    plain version (the kernel wrapper takes fp32 and bf16 only); outputs
-    and losses stay fp32, as the model casts them. Only fp64 inputs take the
-    fp64 LayerNorm and the plain MSDA: a model on the card, run inside the
-    block, keeps its fp32 LayerNorms and its MSDA kernels. torch's CPU BatchNorm
+    parameters, statistics and compute dtype (its LayerNorms follow the
+    parameters' dtype), and the MSDA plain version (the kernel wrapper takes
+    fp32 and bf16 only); outputs and losses stay fp32, as the model casts
+    them. Only fp64 inputs take the plain MSDA: a model on the card, run
+    inside the block, keeps its MSDA kernels. torch's CPU BatchNorm
     sums its train statistics in fp32, over fai-detr-m's 2x320x320 values a
     channel at the stem's resolution, and STDC's chain of BatchNorms grows
     that drift by the encoder well past the card's (ROADMAP Queue 3). In
@@ -816,16 +842,14 @@ def cpu_fp64(module: torch.nn.Module):
     from focoos_tpu_torch.nn.layers import common
     from focoos_tpu_torch.ops.deformable import ms_deform_attn
 
-    real_ln, real_msda = common.LayerNorm.forward, modelling.msda_forward
+    real_msda = modelling.msda_forward
     module.double()
     common.set_compute_dtype(module, torch.float64)
-    common.LayerNorm.forward = lambda self, x: (torch.nn.LayerNorm.forward(self, x) if x.dtype == torch.float64
-                                                else real_ln(self, x))
     modelling.msda_forward = lambda v, *a: ms_deform_attn(v, *a) if v.dtype == torch.float64 else real_msda(v, *a)
     try:
         yield module
     finally:
-        common.LayerNorm.forward, modelling.msda_forward = real_ln, real_msda
+        modelling.msda_forward = real_msda
         module.float()
         common.set_compute_dtype(module, torch.float32)
 
@@ -953,7 +977,9 @@ def profiled_trainer(model, args, train_ds, first: int, n: int, val_ds=None):
     so the other hooks' after-step work, validation and checkpoints, falls
     outside the window of the last) under the profiler, CPU and CUDA
     activity, the card synchronized at both ends. After ``train()`` its
-    ``profile`` holds (the profiler, the window's wall time in µs)."""
+    ``profile`` holds (the profiler, the window's wall time in µs) and its
+    ``loop_s`` the wall time of steps 1 to ``first - 1``, the card
+    synchronized at both ends."""
     from focoos_tpu_torch.trainer.hooks import HookBase
     from focoos_tpu_torch.trainer.trainer import FocoosTrainer
 
@@ -961,12 +987,16 @@ def profiled_trainer(model, args, train_ds, first: int, n: int, val_ds=None):
         def before_step(self):
             if self.trainer.iter == first:
                 torch.cuda.synchronize()
+                trainer.loop_s = time.perf_counter() - self.t_first
                 self.prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                                torch.profiler.ProfilerActivity.CUDA])
                 self.prof.__enter__()
                 self.t0 = time.perf_counter()
 
         def after_step(self):
+            if self.trainer.iter == 0:
+                torch.cuda.synchronize()
+                self.t_first = time.perf_counter()
             if self.trainer.iter == first + n - 1:
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - self.t0) * 1e6
@@ -2005,18 +2035,21 @@ MF_REQUEST = (768, 1024)  # one infer() request's image
 def condition_mf(model, dev, std: float) -> float:
     """Random init gives masks that cover the whole image or nothing (the mask
     features' channel means dominate each query's mask) at a scale no trained
-    model has: centre the mask features' channels (their conv's bias) and
-    scale the mask head's last layer so that the last decoder layer's mask
-    logits have ``std``, both on a seeded 256² batch → the scale."""
+    model has: centre the mask features' channels (fai_mf: their conv's bias;
+    bisenetformer's come out of a ReLU and stay as they are) and scale the
+    mask head's last layer so that the last decoder layer's mask logits have
+    ``std``, both on a seeded 256² eval batch → the scale."""
     x = torch.from_numpy(np.random.default_rng(30).integers(0, 256, (1, 256, 256, 3), dtype=np.uint8)).to(dev)
-    pd = model.module.pixel_decoder
-    seen = []
-    hook = pd.mask_features.register_forward_hook(lambda m, a, o: seen.append(o.float().mean((0, 2, 3))))
-    try:
-        model.module(x)
-    finally:
-        hook.remove()
-    pd.mask_features.bias.sub_(seen[0])
+    model.module.eval()
+    feat = getattr(model.module.pixel_decoder, "mask_features", None)
+    if feat is not None:
+        seen = []
+        hook = feat.register_forward_hook(lambda m, a, o: seen.append(o.float().mean((0, 2, 3))))
+        try:
+            model.module(x)
+        finally:
+            hook.remove()
+        feat.bias.sub_(seen[0])
     _, aux = model.module(x)
     heads = model.module.predictor.forward_prediction_heads
     scale = std / float(aux.masks[-1].float().std())
@@ -2295,6 +2328,537 @@ def phase_mf(dev, smi: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# segm_train: mask-classification training (fai_mf, bisenetformer)
+SEG_STEP_CARD = "fai-mf-l-ade"  # the card-vs-CPU step: 640², B=2 mapped semantic records
+SEG_FT_CARD, SEG_FT_SIZE = "fai-mf-l-coco-ins", 1024  # the fine-tune from disk, the card's own resolution
+SEG_FT_HW = (480, 640)  # the instance set's originals (height, width): COCO's most common size
+SEG_FT_TRAIN, SEG_FT_VAL = 32, 8
+SEG_FT_BATCH, SEG_FT_STEPS, SEG_FT_EVAL_PERIOD = 8, 20, 10
+# the sustained run: steps 1 .. SEG_FT_SUSTAINED - SEG_FT_PROFILED - 1 timed as one loop, well past the
+# 8 workers x 2 batches the DataLoader prefetches; then SEG_FT_PROFILED steps under the profiler
+SEG_FT_SUSTAINED, SEG_FT_PROFILED = 64, 3
+BISENET_CARD, BISENET_SIZE, BISENET_BATCH = "bisenetformer-l-ade", 640, 16
+SEG_WORKERS = 8
+
+
+SHAPE_CLASSES = ["circle", "square", "triangle"]
+
+
+def draw_shapes(rng: np.random.Generator, height: int, width: int) -> tuple:
+    """A seeded height x width RGB image of 1-5 filled shapes of 3 classes
+    (between 1/12 and 1/3 of the short edge wide) on a noise background,
+    with per-pixel texture over all of it, as photographs have: on flat
+    fills a pre-activation within fp32 rounding of 0 switches a whole region
+    at once, and an fp32 training step then strays from the fp64 one far
+    past the step gates → (image, [(class, polygon [K, 2] px)]).
+    ``tools/make_synthetic_dataset.py`` writes the same layouts, but square
+    images with flat fills and shapes 30-90 px wide at any size."""
+    import cv2
+
+    img = rng.integers(0, 80, (height, width, 3), np.uint8)
+    shapes = []
+    short = min(height, width)
+    for _ in range(int(rng.integers(1, 6))):
+        cls = int(rng.integers(0, 3))
+        s = int(rng.integers(short // 12, short // 3))
+        x, y = int(rng.integers(0, width - s)), int(rng.integers(0, height - s))
+        if cls == 0:
+            t = np.linspace(0, 2 * np.pi, 24, endpoint=False)
+            poly = np.stack([x + s / 2 + s / 2 * np.cos(t), y + s / 2 + s / 2 * np.sin(t)], 1)
+        elif cls == 1:
+            poly = np.array([[x, y], [x + s, y], [x + s, y + s], [x, y + s]], float)
+        else:
+            poly = np.array([[x + s / 2, y], [x, y + s], [x + s, y + s]], float)
+        cv2.fillPoly(img, [poly.round().astype(np.int32)], tuple(int(c) for c in rng.integers(120, 255, 3)))
+        shapes.append((cls, poly))
+    img = np.clip(img.astype(np.int16) + rng.integers(-20, 21, img.shape), 0, 255).astype(np.uint8)
+    return img, shapes
+
+
+def write_instance_set(root: str, n_train: int, n_val: int, hw: tuple, seed: int) -> str:
+    """A seeded Roboflow-COCO instance-segmentation set on local disk:
+    ``draw_shapes`` JPEGs of ``hw`` = (height, width), each shape with its
+    polygon."""
+    import os
+
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("valid", n_val)):
+        sdir = os.path.join(root, split)
+        os.makedirs(sdir, exist_ok=True)
+        images, annotations = [], []
+        for i in range(n):
+            img, shapes = draw_shapes(rng, *hw)
+            for cls, poly in shapes:
+                x0, y0 = poly.min(0)
+                w, h = poly.max(0) - poly.min(0)
+                annotations.append(dict(id=len(annotations) + 1, image_id=i, category_id=cls + 1,
+                                        bbox=[float(x0), float(y0), float(w), float(h)], area=float(w * h), iscrowd=0,
+                                        segmentation=[poly.flatten().tolist()]))
+            fn = f"img_{i:04d}.jpg"
+            cv2.imwrite(os.path.join(sdir, fn), img[:, :, ::-1])
+            images.append(dict(id=i, file_name=fn, height=hw[0], width=hw[1]))
+        cats = [dict(id=0, name="shapes", supercategory="none")] + [
+            dict(id=c + 1, name=name, supercategory="shapes") for c, name in enumerate(SHAPE_CLASSES)]
+        with open(os.path.join(sdir, "_annotations.coco.json"), "w") as f:
+            json.dump(dict(images=images, annotations=annotations, categories=cats), f)
+    return root
+
+
+def write_semantic_set(root: str, n_train: int, n_val: int, size: int, seed: int) -> str:
+    """A seeded Roboflow semantic-segmentation set on local disk
+    (``from_roboflow_seg``'s layout: JPEG, ``*_mask.png`` of class indices,
+    ``_classes.csv`` with background at 0) of ``draw_shapes`` images."""
+    import os
+
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("valid", n_val)):
+        sdir = os.path.join(root, split)
+        os.makedirs(sdir, exist_ok=True)
+        with open(os.path.join(sdir, "_classes.csv"), "w") as f:
+            f.write("Pixel Value, Class\n0, background\n" + "".join(f"{c + 1}, {name}\n" for c, name in enumerate(SHAPE_CLASSES)))
+        for i in range(n):
+            img, shapes = draw_shapes(rng, size, size)
+            mask = np.zeros((size, size), np.uint8)
+            for cls, poly in shapes:
+                cv2.fillPoly(mask, [poly.round().astype(np.int32)], cls + 1)
+            cv2.imwrite(os.path.join(sdir, f"img_{i:04d}.jpg"), img[:, :, ::-1])
+            cv2.imwrite(os.path.join(sdir, f"img_{i:04d}_mask.png"), mask)
+    return root
+
+
+def mf_step_on(module, cfg, images: np.ndarray, targets, dev, carried=None, allowed=None) -> dict:
+    """One train-mode forward + criterion + backward of a mask-classification
+    ``module`` on ``dev``, on ``carried`` draws and ``allowed`` attention
+    masks where given (else its own: draws from a generator seeded 0 on
+    ``dev``) → losses, global grad norm, the draws and assignment used and
+    the attention masks, both on the CPU."""
+    from focoos_tpu_torch.models.fai_mf.loss import maskformer_criterion
+
+    module.train()
+    for p in module.parameters():
+        p.grad = None
+    _, aux = module(torch.from_numpy(images).to(dev), allowed=None if allowed is None else [a.to(dev) for a in allowed])
+    losses, used = maskformer_criterion(aux, targets.to(dev), cfg, torch.Generator(device=dev).manual_seed(0),
+                                        carried=None if carried is None else carried.to(dev))
+    losses["total"].backward()
+    norm = float(torch.sqrt(sum(torch.dot(p.grad.flatten().double(), p.grad.flatten().double())
+                                for p in module.parameters() if p.grad is not None)))
+    module.eval()
+    return dict(losses={k: float(v.detach()) for k, v in losses.items()}, norm=norm, used=used.to("cpu"),
+                allowed=[a.cpu() for a in aux.allowed])
+
+
+def compare_mf_train_step(tag: str, model, model16, cpu_model, images: np.ndarray, targets) -> dict:
+    """One training step, card against the CPU on the same weights and batch.
+    The CPU runs in fp64 (``cpu_fp64``: the reference the card is held to;
+    train-mode BatchNorm chains make the CPU's own fp32 step drift, as
+    fai-detr-m's does). Its attention masks, matcher and loss points and
+    assignment are carried to the card. First the card's own step on the
+    CPU's points alone (attention masks and assignment its own) is reported;
+    then the card fp32 (each loss 1e-4 rel, grad_norm 1e-3 rel) and bf16
+    (each loss within 1e-2 of the total, grad_norm 0.25 rel) steps on
+    everything carried."""
+    from focoos_tpu_torch.models.fai_mf.loss import CriterionDraws
+
+    cfg, dev = model.config, model.device
+    t0 = time.perf_counter()
+    with cpu_fp64(cpu_model.module):
+        ref = mf_step_on(cpu_model.module, cfg, images, targets, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    points = CriterionDraws(match_coords=ref["used"].match_coords, loss_coords=ref["used"].loss_coords)
+    own = mf_step_on(model.module, cfg, images, targets, dev, carried=points)
+    valid = targets.valid[None].expand_as(ref["used"].assign)
+    pairs = int((own["used"].assign != ref["used"].assign)[valid].sum())
+    log(f"[{tag}] one step at B={images.shape[0]} {images.shape[1]}x{images.shape[2]}: the CPU's fp64 step took"
+        f" {cpu_s:.1f}s; with only the CPU's points carried, the card's attention masks differ in"
+        f" {sum(int((a != b).sum()) for a, b in zip(own['allowed'], ref['allowed']))} of"
+        f" {sum(a.numel() for a in ref['allowed'])} bits and its assignment in {pairs} of {int(valid.sum())} pairs")
+    out = {}
+    for name, m, gate in (("fp32", model, TRAIN_LOSS_RTOL), ("bf16", model16, TRAIN_BF16_TOL)):
+        got = mf_step_on(m.module, cfg, images, targets, dev, carried=ref["used"], allowed=ref["allowed"])
+        if name == "fp32":
+            errs = {k: abs(got["losses"][k] - v) / max(abs(v), 1e-12) for k, v in ref["losses"].items()}
+        else:  # bf16: each loss within TRAIN_BF16_TOL of the total
+            errs = {k: abs(got["losses"][k] - v) / abs(ref["losses"]["total"]) for k, v in ref["losses"].items()}
+        worst = max(errs, key=errs.get)
+        norm_rel = abs(got["norm"] - ref["norm"]) / ref["norm"]
+        norm_gate = TRAIN_GRAD_NORM_RTOL if name == "fp32" else TRAIN_BF16_GRAD_NORM_RTOL
+        log(f"[{tag}] card {name} vs CPU fp64, everything carried: {len(errs)} loss keys, max"
+            f" {'rel err' if name == 'fp32' else 'err / total'} {errs[worst]:.3e} ({worst}, tol {gate:.0e}); total"
+            f" card {got['losses']['total']:.6f}, CPU {ref['losses']['total']:.6f}; grad_norm card {got['norm']:.6f},"
+            f" CPU {ref['norm']:.6f}, rel err {norm_rel:.3e} (tol {norm_gate:.0e})")
+        assert errs[worst] <= gate, f"{tag} {name} {worst}: card {got['losses'][worst]} vs CPU {ref['losses'][worst]}"
+        assert norm_rel <= norm_gate, f"{tag} {name} grad_norm: card {got['norm']} vs CPU {ref['norm']}"
+        out[name] = (errs[worst], norm_rel)
+    for m in (model, model16):
+        m.module.zero_grad(set_to_none=True)
+    return out
+
+
+def segm_finetune_run(model, args, train_ds, val_ds) -> tuple:
+    """FocoosModel.train with the stem's count at 0 just before and read just
+    after → (its result, the stem's launches, metrics.json's last row: ``time``
+    and ``data_time`` are medians over the run's steps)."""
+    import os
+
+    from focoos_tpu_torch.ops.stem import fused_resnet_stem
+
+    fused_resnet_stem.launches = 0
+    res = model.train(args, train_ds, val_ds)
+    torch.cuda.synchronize()
+    with open(os.path.join(res["run_dir"], "metrics.json")) as f:
+        rows = [json.loads(line) for line in f]
+    return res, fused_resnet_stem.launches, rows[-1]
+
+
+def criterion_alone_ms(model, images: np.ndarray, targets) -> tuple:
+    """The criterion and its backward alone on the card at a step's shapes:
+    a train-mode forward's outputs taken as leaves → (ms a call on the host
+    clock around synchronized calls, the auction's rounds, one profiled
+    call's device busy ms and its largest kernels)."""
+    from focoos_tpu_torch.models.fai_mf.loss import maskformer_criterion
+    from focoos_tpu_torch.ops.matching import batched_auction_assign
+    from focoos_tpu_torch.models.fai_mf.ports import MaskFormerAuxOutputs
+
+    dev = model.device
+    model.module.train()
+    with torch.no_grad():
+        _, aux = model.module(torch.from_numpy(images).to(dev))
+    model.module.eval()
+    logits, masks = aux.logits.detach().requires_grad_(), aux.masks.detach().requires_grad_()
+    t = targets.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def call():
+        losses, _ = maskformer_criterion(MaskFormerAuxOutputs(logits, masks), t, model.config, gen)
+        losses["total"].backward()
+
+    call()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    busy, by_name = device_busy(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return float(np.median(ts)) * 1e3, batched_auction_assign.rounds, busy / 1e3, top
+
+
+def phase_segm_train(dev, smi: str) -> dict:
+    """Mask-classification training at full width: one fai-mf-l-ade step on
+    the card against the CPU (fp32 and bf16); fai-mf-l-coco-ins fine-tuned
+    at 1024² from a seeded instance set of 640x480 JPEGs on disk (the train
+    loader alone, the preset's validation raising, FocoosModel.train with
+    validation at 480 in fp32 and bf16, a sustained loop and profiled steps,
+    the criterion alone, FocoosModel.eval); bisenetformer-l-ade served,
+    compared, evaluated and trained from a seeded semantic set on disk.
+    Returns the stem's launches summed over the counted runs (the ResNet-D
+    card's validations and evaluation: train-mode forwards take the plain
+    stem convs, STDC has no ResNet-D stem)."""
+    import copy
+    import os
+    import shutil
+    import tempfile
+
+    from focoos_tpu_torch import ModelManager
+    from focoos_tpu_torch.data.auto_dataset import AutoDataset
+    from focoos_tpu_torch.data.default_aug import fai_instance_train_augs, get_default_by_task
+    from focoos_tpu_torch.data.loaders import build_train_loader
+    from focoos_tpu_torch.ops.stem import fused_resnet_stem
+    from focoos_tpu_torch.ports import DatasetLayout, Task, TrainerArgs
+    from focoos_tpu_torch.trainer import evaluation
+
+    phase_t0 = time.perf_counter()
+    total = {"fused_resnet_stem": 0}
+    workers = min(SEG_WORKERS, os.cpu_count())
+    root = tempfile.mkdtemp(prefix="chip_smoke_segm_train_")
+    try:
+        # 1. fai-mf-l-ade at 640²: one step on the card against the CPU on mapped semantic records
+        t0 = time.perf_counter()
+        sem_root = write_semantic_set(os.path.join(root, "sem"), 2 * BISENET_BATCH, 8, BISENET_SIZE, seed=1)
+        sem = AutoDataset(sem_root, task="semseg", layout=DatasetLayout.ROBOFLOW_SEG)
+        sem_train, sem_val = sem.get_split(split="train"), sem.get_split(split="val")
+        sem_classes = sem_train.metadata.classes
+        np.random.seed(4)
+        pair = [sem_train[i] for i in range(2)]
+        log(f"[segm_train] wrote {2 * BISENET_BATCH} train and 8 val {BISENET_SIZE}² Roboflow semantic records, 1-5"
+            f" textured shapes each ({len(sem_classes)} classes with background; {time.perf_counter() - t0:.1f}s)")
+        tag = f"segm_train {SEG_STEP_CARD}"
+        model = ModelManager.get(SEG_STEP_CARD, device=dev, seed=0)
+        perturb(model.module, seed=21)
+        condition_for_training(model.module)
+        scale = condition_mf(model, dev, MF_MASK_STD)
+        model16 = ModelManager.get(SEG_STEP_CARD, device=dev, dtype="bfloat16", init_weights=False)
+        cpu = ModelManager.get(SEG_STEP_CARD, device="cpu", init_weights=False)
+        for m in (model16, cpu):
+            m.module.load_state_dict(model.module.state_dict())
+        cfg = model.config
+        images, targets = model.processor.train(True).preprocess_entries(pair)
+        model.processor.train(False)
+        log(f"[{tag}] ResNet-{cfg.backbone_config.depth}{cfg.backbone_config.variant},"
+            f" {cfg.transformer_predictor_dec_layers} decoder layers, {cfg.num_classes} classes, weights perturbed and"
+            f" conditioned (residual branches' last BatchNorm x0.1, mask head x{scale:.3g}); B=2 mapped records,"
+            f" {int(targets.valid.sum())} valid targets, masks {tuple(targets.masks.shape[-2:])},"
+            f" {cfg.criterion_num_points} points")
+        fused_resnet_stem.launches = 0
+        compare_mf_train_step(tag, model, model16, cpu, images, targets)
+        assert fused_resnet_stem.launches == 0, "a train-mode forward launched the stem kernel"
+        del model, model16, cpu
+        torch.cuda.empty_cache()
+
+        # 2. fai-mf-l-coco-ins fine-tuned at 1024² from a set on disk of COCO-sized originals. Validation at
+        # the preset's 1024 resizes every record, which meets ROADMAP Queue 3's fault: the evaluator pairs
+        # predictions at the original size with ground truth at the mapped one and raises. Validation at the
+        # originals' short edge keeps every record exact.
+        t0 = time.perf_counter()
+        ins_root = write_instance_set(os.path.join(root, "ins"), SEG_FT_TRAIN, SEG_FT_VAL, SEG_FT_HW, seed=2)
+        auto = AutoDataset(ins_root, task="instseg")
+        augs = copy.deepcopy(fai_instance_train_augs)
+        augs.resolution = SEG_FT_SIZE
+        ft_train = auto.get_split(augs, split="train")
+        preset_val = auto.get_split(get_default_by_task(Task.INSTANCE_SEGMENTATION, SEG_FT_SIZE)[1], split="val")
+        ft_val = auto.get_split(get_default_by_task(Task.INSTANCE_SEGMENTATION, min(SEG_FT_HW))[1], split="val")
+        classes = ft_train.metadata.classes
+        p0, v0 = preset_val[0], ft_val[0]
+        assert p0.image.shape[:2] != (p0.height, p0.width) and v0.image.shape[:2] == (v0.height, v0.width) == SEG_FT_HW
+        log(f"[segm_train] wrote {SEG_FT_TRAIN} train and {SEG_FT_VAL} val {SEG_FT_HW[1]}x{SEG_FT_HW[0]} JPEGs with"
+            f" 1-5 textured polygons of 3 classes ({time.perf_counter() - t0:.1f}s); train: fai_instance_train_augs"
+            f" ({SEG_FT_SIZE}, crop); segmentation_val_augs at {SEG_FT_SIZE} map a val record to"
+            f" {p0.image.shape[:2]} (the resized path), at {min(SEG_FT_HW)} to {v0.image.shape[:2]} (the exact path)")
+        tag = f"segm_train {SEG_FT_CARD}"
+        model = ModelManager.get(SEG_FT_CARD, device=dev, classes=classes, seed=0)
+        perturb(model.module, seed=22)
+        condition_for_training(model.module)
+        condition_mf(model, dev, MF_MASK_STD)
+        initial = {k: v.detach().clone() for k, v in model.module.state_dict().items()}
+        cfg = model.config
+
+        proc = model.processor.train(True)
+        np.random.seed(0)
+        t0 = time.perf_counter()
+        mapped = [ft_train[i] for i in range(SEG_FT_BATCH)]
+        map_ms = (time.perf_counter() - t0) * 1e3 / SEG_FT_BATCH
+        t0 = time.perf_counter()
+        _, tgt = proc.preprocess_entries(mapped)
+        collate_ms = (time.perf_counter() - t0) * 1e3
+        loader = build_train_loader(ft_train, proc, SEG_FT_BATCH, num_workers=workers, seed=0, pin_memory=True,
+                                    timeout=300)
+        t0 = time.perf_counter()
+        next(loader)
+        first_s = time.perf_counter() - t0
+        n_batches = 6
+        t0 = time.perf_counter()
+        for _ in range(n_batches):
+            next(loader)
+        load_s = time.perf_counter() - t0
+        loader.close()
+        proc.train(False)
+        target_bytes = sum(t.numel() * t.element_size() for t in (tgt.labels, tgt.masks, tgt.valid))
+        log(f"[{tag}] {smi}: train loader alone, B={SEG_FT_BATCH}, {workers} workers:"
+            f" {SEG_FT_BATCH * n_batches / load_s:.1f} images/s over {n_batches} batches ({load_s * 1e3 / n_batches:.1f}"
+            f" ms a batch; the first, workers starting, {first_s:.2f}s); in process: a record mapped in {map_ms:.1f} ms,"
+            f" the collate of {SEG_FT_BATCH} ({int(tgt.valid.sum())} instances resized with cv2) {collate_ms:.1f} ms;"
+            f" targets copied to the card a step: {target_bytes} bytes (masks {tuple(tgt.masks.shape)} fp32)")
+        del mapped
+
+        out_dir = tempfile.mkdtemp(prefix="ft_", dir=root)
+
+        def args(iters: int, eval_period: int = SEG_FT_EVAL_PERIOD) -> TrainerArgs:
+            return TrainerArgs(run_name="segm_train", output_dir=out_dir, batch_size=SEG_FT_BATCH, max_iters=iters,
+                               workers=workers, eval_period=eval_period, checkpointer_period=iters, log_period=iters,
+                               ema_enabled=True, seed=0, workers_timeout=300, samples=0)
+
+        # the preset's validation: the first one raises the pinned ValueError, and nothing else may
+        t0 = time.perf_counter()
+        try:
+            model.train(args(SEG_FT_EVAL_PERIOD), ft_train, preset_val)
+        except ValueError as e:
+            fault = str(e)
+        else:
+            raise AssertionError("validation of resized instance records ran: ROADMAP Queue 3's fault is gone,"
+                                 " so this phase should validate at the preset's resolution")
+        assert fault.startswith("mask_iou: masks of sizes"), fault
+        log(f"[{tag}] FocoosModel.train validating at the preset's {SEG_FT_SIZE}: {SEG_FT_EVAL_PERIOD} steps, then the"
+            f" first validation raised ValueError({fault!r}) ({time.perf_counter() - t0:.1f}s; ROADMAP Queue 3)."
+            f" The runs below validate at {min(SEG_FT_HW)}")
+        model.module.load_state_dict(initial)
+
+        for dtype in ("float32", "bfloat16"):
+            m = model if dtype == "float32" else ModelManager.get(SEG_FT_CARD, device=dev, classes=classes,
+                                                                   dtype=dtype, init_weights=False)
+            m.module.load_state_dict(initial)
+            torch.cuda.reset_peak_memory_stats()
+            res, n, row = segm_finetune_run(m, args(SEG_FT_STEPS), ft_train, ft_val)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            total["fused_resnet_stem"] += n
+            ap = res["metrics"]["segm"]
+            log(f"[{tag}] {smi}, {dtype}: FocoosModel.train {res['iterations']} steps at B={SEG_FT_BATCH}"
+                f" {SEG_FT_SIZE}² from disk, {workers} workers, validation at {min(SEG_FT_HW)} every"
+                f" {SEG_FT_EVAL_PERIOD}: step p50"
+                f" {row['time'] * 1e3:.2f} ms = {SEG_FT_BATCH / row['time']:.2f} images/s, data_time p50"
+                f" {row['data_time'] * 1e3:.2f} ms; peak memory allocated {peak:.2f} GiB; final val segm {ap_line(ap)};"
+                f" stem launches {n} (the validations' and final evaluation's forwards)")
+            assert res["iterations"] == SEG_FT_STEPS and n > 0, (res["iterations"], n)
+            assert all(np.isfinite(v) for k, v in row.items() if "loss" in k), row
+            assert 0.0 <= ap["AP"] <= 100.0, ap
+
+            m.module.load_state_dict(initial)
+            first = SEG_FT_SUSTAINED - SEG_FT_PROFILED
+            trainer = profiled_trainer(m, args(SEG_FT_SUSTAINED, eval_period=0), ft_train, first=first,
+                                       n=SEG_FT_PROFILED)
+            trainer.train()
+            waits = [v for v, it in trainer.loop.storage.history("data_time").values() if 1 <= it < first]
+            steps = [v for v, it in trainer.loop.storage.history("time").values() if 1 <= it < first]
+            log(f"[{tag}] {smi}, {dtype}: sustained, no validation: steps 1-{first - 1} as one loop"
+                f" {trainer.loop_s:.2f}s = {(first - 1) * SEG_FT_BATCH / trainer.loop_s:.2f} images/s (step p50"
+                f" {np.median(steps) * 1e3:.2f} ms = {SEG_FT_BATCH / np.median(steps):.2f} images/s); the loader's"
+                f" wait {sum(waits):.2f}s = {sum(waits) / trainer.loop_s:.1%} of the loop, {np.median(waits[-20:]) * 1e3:.2f}"
+                f" ms p50 over its last 20 steps (the prefetch holds {workers} workers x 2 batches)")
+            assert len(waits) == len(steps) == first - 1, (len(waits), len(steps))
+            prof, wall = trainer.profile
+            busy, by_name = device_busy(prof)
+            sh = kernel_shares(by_name, busy)
+            log(f"[{tag}] {dtype}: {SEG_FT_PROFILED} profiled steps (steps {first}-{first + SEG_FT_PROFILED - 1}): wall {wall / SEG_FT_PROFILED / 1e3:.2f} ms a step,"
+                f" device busy {busy / SEG_FT_PROFILED / 1e3:.2f} ms, idle share {1 - busy / wall:.3f}; cuDNN"
+                f" convolutions {sh['conv']:.1%} of busy, layout transposes {sh['transpose']:.1%}")
+            for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+                log(f"[{tag}]   {v / SEG_FT_PROFILED / 1e3:9.3f} ms {v / busy:6.1%}  {k[:110]}")
+            batch, tg = m.processor.train(True).preprocess_entries([ft_train[i] for i in range(SEG_FT_BATCH)])
+            m.processor.train(False)
+            crit_ms, rounds, crit_busy, top = criterion_alone_ms(m, batch, tg)
+            log(f"[{tag}] {dtype}: the criterion and its backward alone at B={SEG_FT_BATCH}"
+                f" ({cfg.transformer_predictor_dec_layers + 1} layers x {SEG_FT_BATCH} images in one auction,"
+                f" {rounds} rounds, {int(tg.valid.sum())} valid targets): {crit_ms:.2f} ms on the host clock ="
+                f" {crit_ms / (row['time'] * 1e3):.1%} of the step p50; a profiled call keeps the card busy"
+                f" {crit_busy:.2f} ms, largest kernels " + ", ".join(f"{k[:60]} {v / 1e3:.2f} ms" for k, v in top))
+            if dtype == "bfloat16":
+                del m
+        fused_resnet_stem.launches = 0
+        final = model.eval(TrainerArgs(run_name="eval", batch_size=4), ft_val)
+        torch.cuda.synchronize()
+        n = fused_resnet_stem.launches
+        total["fused_resnet_stem"] += n
+        log(f"[{tag}] FocoosModel.eval ({SEG_FT_VAL} val images from disk, batch 4): segm {ap_line(final['segm'])};"
+            f" stem launches {n}")
+        assert n == SEG_FT_VAL // 4 and all(np.isfinite(v) for v in final["segm"].values())
+        del model
+        torch.cuda.empty_cache()
+
+        # 3. bisenetformer-l-ade at 640²
+        tag = f"segm_train {BISENET_CARD}"
+        t0 = time.perf_counter()
+        model = ModelManager.get(BISENET_CARD, device=dev, seed=0)
+        perturb(model.module, seed=23)
+        condition_for_training(model.module)
+        scale = condition_mf(model, dev, MF_MASK_STD)
+        model16 = ModelManager.get(BISENET_CARD, device=dev, dtype="bfloat16", init_weights=False)
+        cpu = ModelManager.get(BISENET_CARD, device="cpu", init_weights=False)
+        for m in (model16, cpu):
+            m.module.load_state_dict(model.module.state_dict())
+        cfg = model.config
+        log(f"[{tag}] STDC (base {cfg.backbone_config.base}, layers {cfg.backbone_config.layers}), pixel decoder"
+            f" {cfg.pixel_decoder_feat_dim} wide, {cfg.transformer_predictor_dec_layers} decoder layers over 2 scales,"
+            f" {cfg.num_classes} classes, {sum(p.numel() for p in model.module.parameters()) / 1e6:.2f}M params; mask"
+            f" head x{scale:.3g} ({time.perf_counter() - t0:.1f}s to build)")
+        rng = np.random.default_rng(34)
+        requests = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(3)]
+        for dtype, m in (("float32", model), ("bfloat16", model16)):
+            dets = [m.infer(r, threshold=0.0) for r in requests]
+            assert all(len(d.detections) > 0 for d in dets)
+            for d in (x for r in dets for x in r.detections):
+                x0, y0, x1, y1 = d.bbox
+                assert 0 <= x0 <= x1 < 640 and 0 <= y0 <= y1 < 480 and 0.0 <= d.conf <= 1.0 and d.mask
+            log(f"[{tag}] {dtype}: infer() on three 480x640 images: {[len(r.detections) for r in dets]} detections")
+        batch = rng.integers(0, 256, (2, BISENET_SIZE, BISENET_SIZE, 3), dtype=np.uint8)
+        cpu_run = mf_run(cpu.module, batch)
+        own = mf_run(model.module, batch)
+        errs = compare_mf(tag, cpu_run, {"card fp32": mf_run(model.module, batch, cpu_run[2])})
+        assert max(errs["card fp32"]) <= MF_TOL["float32"], "bisenetformer: card fp32 and CPU disagree"
+        cpu16 = ModelManager.get(BISENET_CARD, device="cpu", dtype="bfloat16", init_weights=False)
+        cpu16.module.load_state_dict(model.module.state_dict())
+        errs16 = compare_mf(tag, cpu_run, {"card bf16": mf_run(model16.module, batch, cpu_run[2]),
+                                           "CPU bf16": mf_run(cpu16.module, batch, cpu_run[2])})
+        del cpu16
+        assert max(errs16["card bf16"]) <= MF_TOL["bfloat16"], "bisenetformer: card bf16 and the CPU's fp32 disagree"
+        log(f"[{tag}] card vs CPU at {BISENET_SIZE}² B=2 on the CPU's attention masks: fp32 within"
+            f" {MF_TOL['float32']:.0e}, bf16 within {MF_TOL['bfloat16']:.0e}; bits that flip without carrying:"
+            f" {flip_share(own[2], cpu_run[2]):.3e} of {sum(a.numel() for a in own[2])}")
+        g = np.random.default_rng(35)
+        xs = {"b1": 1, "b16": 16}
+        for dtype, m in (("float32", model), ("bfloat16", model16)):
+            x = {k: torch.from_numpy(g.integers(0, 256, (b, BISENET_SIZE, BISENET_SIZE, 3), dtype=np.uint8)).to(dev)
+                 for k, b in xs.items()}
+            torch.cuda.reset_peak_memory_stats()
+            t = serve_timings(m.module, x, {"b1": 10, "b16": 4})
+            log(f"[{tag}] {smi}, {dtype}: b1 forward p50 {t['b1'] * 1e3:.2f} ms; b16 forward p50"
+                f" {t['b16'] * 1e3:.2f} ms = {16 / t['b16']:.2f} images/s; peak memory"
+                f" {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+        # evaluation against the CPU's own predictions, then its throughput
+        images = [g.integers(0, 256, (BISENET_SIZE, BISENET_SIZE, 3), dtype=np.uint8) for _ in range(MF_GT_IMAGES)]
+        entries, cpu_res = mf_entries(cpu, images, semantic=True)
+        assert cpu_res["sem_seg"]["mIoU"] == 100.0
+        for dtype, m in (("float32", model), ("bfloat16", model16)):
+            res, secs = evaluate_timed(m, entries, 2)
+            log(f"[{tag}] {smi}: evaluate_dataset {dtype} against the CPU's fp32 predictions of {len(images)} seeded"
+                f" images: sem_seg/mIoU {res['sem_seg']['mIoU']:.3f} ({secs:.2f}s)")
+            if dtype == "float32":
+                assert res["sem_seg"]["mIoU"] >= 99.0, res["sem_seg"]
+        data = [entries[i % len(entries)] for i in range(MF_EVAL_IMAGES)]
+        evaluate_timed(model, data[:MF_EVAL_BATCH], MF_EVAL_BATCH)
+        _, secs = evaluate_timed(model, data, MF_EVAL_BATCH)
+        log(f"[{tag}] {smi}, fp32: evaluate_dataset over {MF_EVAL_IMAGES} images at batch {MF_EVAL_BATCH}:"
+            f" {MF_EVAL_IMAGES / secs:.2f} images/s; {evaluation.stats['host_bytes'] / evaluation.stats['batches']:.0f}"
+            " bytes to the host a batch")
+
+        # one step on the card against the CPU, then FocoosModel.train from disk
+        np.random.seed(5)
+        step_images, step_targets = model.processor.train(True).preprocess_entries([sem_train[i] for i in range(2)])
+        model.processor.train(False)
+        compare_mf_train_step(tag, model, model16, cpu, step_images, step_targets)
+        del cpu
+        b_model = ModelManager.get(BISENET_CARD, device=dev, classes=sem_classes, seed=0)
+        perturb(b_model.module, seed=24)
+        condition_for_training(b_model.module)
+        condition_mf(b_model, dev, MF_MASK_STD)
+        b_initial = {k: v.detach().clone() for k, v in b_model.module.state_dict().items()}
+        del model, model16
+        out_dir = tempfile.mkdtemp(prefix="bisenet_", dir=root)
+        for dtype in ("float32", "bfloat16"):
+            m = b_model if dtype == "float32" else ModelManager.get(BISENET_CARD, device=dev, classes=sem_classes,
+                                                                     dtype=dtype, init_weights=False)
+            m.module.load_state_dict(b_initial)
+            torch.cuda.reset_peak_memory_stats()
+            res, n, row = segm_finetune_run(m, TrainerArgs(
+                run_name="bisenet", output_dir=out_dir, batch_size=BISENET_BATCH, max_iters=SEG_FT_STEPS,
+                workers=workers, eval_period=SEG_FT_EVAL_PERIOD, checkpointer_period=SEG_FT_STEPS,
+                log_period=SEG_FT_STEPS, ema_enabled=True, seed=0, workers_timeout=300, samples=0), sem_train, sem_val)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            log(f"[{tag}] {smi}, {dtype}: FocoosModel.train {res['iterations']} steps at B={BISENET_BATCH}"
+                f" {BISENET_SIZE}² from disk ({len(sem_classes)} classes), validation every {SEG_FT_EVAL_PERIOD}:"
+                f" step p50 {row['time'] * 1e3:.2f} ms = {BISENET_BATCH / row['time']:.2f} images/s, data_time p50"
+                f" {row['data_time'] * 1e3:.2f} ms; peak memory allocated {peak:.2f} GiB; final val sem_seg/mIoU"
+                f" {res['metrics']['sem_seg']['mIoU']:.3f}")
+            assert res["iterations"] == SEG_FT_STEPS and n == 0
+            assert all(np.isfinite(v) for k, v in row.items() if "loss" in k), row
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[segm_train] stem launches over the phase's counted runs: {total['fused_resnet_stem']}; phase wall time"
+        f" {time.perf_counter() - phase_t0:.1f}s")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -2337,6 +2901,7 @@ def main() -> int:
     lifecycle = phase_lifecycle(dev, smi, b16_images_per_s)
     finetune_m = phase_finetune_m(dev, smi)
     fai_mf = phase_mf(dev, smi)
+    segm_train = phase_segm_train(dev, smi)
 
     # library_ms: no single PyTorch call computes any of these functions (MSDA needs a
     # grid_sample per level and a weighted sum; the stem three convs, BN, ReLU and a
@@ -2370,6 +2935,7 @@ def main() -> int:
         k["launches_lifecycle"] = lifecycle[k["name"]]
         k["launches_finetune_m"] = finetune_m.get(k["name"], 0)
         k["launches_fai_mf"] = fai_mf.get(k["name"], 0)
+        k["launches_segm_train"] = segm_train.get(k["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

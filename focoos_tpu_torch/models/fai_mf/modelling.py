@@ -17,8 +17,14 @@ runs in bf16, as the JAX package's (a sign test, equal away from zero).
 In a bf16 model the dtypes are flax's: convolutions, dense layers,
 attention and BatchNorm outputs are bf16, LayerNorms fp32; the class
 probabilities are fp32 and the eval masks are cast to bf16 before their
-bilinear upsample to the input size (JAX :272-276). Training lands with
-fai_mf's loss (ROADMAP Queue 1 item 7): a train-mode forward raises.
+bilinear upsample to the input size (JAX :272-276).
+
+In train mode (JAX ``train=True``) the BatchNorms take batch statistics
+(flax's biased variance, ``BatchNorm``), the cross-attention masks come from
+detached masks (JAX :194, ``stop_gradient``) and the forward skips the
+upsample: the criterion (``loss.py``) reads every layer's fp32 outputs in
+``aux``. The JAX package applies no dropout anywhere; a config that asks
+for pixel-decoder dropout is refused in training.
 """
 
 from __future__ import annotations
@@ -220,7 +226,7 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
         all_logits, all_masks, used = [logits.float()], [masks.float()], []
         for i in range(self.dec_layers):
             lvl = i % nlv
-            attn = allowed[i] if allowed is not None else _attn_allowed_from_masks(masks, sizes[lvl])
+            attn = allowed[i] if allowed is not None else _attn_allowed_from_masks(masks.detach(), sizes[lvl])
             used.append(attn)
             output = self.transformer_cross_attention_layers[i](
                 output, srcs[lvl], pos=poss[lvl], query_pos=qe, attn_mask=attn)
@@ -232,12 +238,30 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
         return MaskFormerAuxOutputs(logits=torch.stack(all_logits), masks=torch.stack(all_masks), allowed=used)
 
 
+def mask_classification_output(aux: MaskFormerAuxOutputs, images: torch.Tensor, cls_sigmoid: bool,
+                               compute_dtype: torch.dtype, training: bool) -> MaskFormerModelOutput:
+    """The last layer's class probabilities (fp32, without the no-object
+    column) and sigmoid masks, upsampled to the input outside training (JAX
+    :262-276; bisenetformer's too)."""
+    logits_raw = aux.logits[-1]
+    if cls_sigmoid:
+        cls_probs = torch.sigmoid(logits_raw)[..., :-1]
+    else:
+        cls_probs = torch.softmax(logits_raw, dim=-1)[..., :-1]
+    masks = torch.sigmoid(aux.masks[-1])
+    if not training:
+        # the [B, Q, H, W] upsample dominates the eval graph's bytes: it runs in the compute dtype
+        masks = bilinear_resize(masks.to(compute_dtype), images.shape[1:3])
+    return MaskFormerModelOutput(masks=masks, logits=cls_probs, loss=None)
+
+
 class FAIMaskFormer(ComputeDtype, nn.Module):
     """MaskFormer top-level module (reference: fai_mf/modelling.py:633-725; JAX :222).
 
-    ``forward(images NHWC uint8 or float) -> (MaskFormerModelOutput, MaskFormerAuxOutputs)``;
-    eval only. Normalization happens on the device in fp32, before the cast
-    to the compute dtype."""
+    ``forward(images NHWC uint8 or float, allowed=None) -> (MaskFormerModelOutput,
+    MaskFormerAuxOutputs)``; in train mode the output's masks stay at the
+    mask features' size. Normalization happens on the device in fp32,
+    before the cast to the compute dtype."""
 
     def __init__(self, config: MaskFormerConfig, backbone: BaseBackbone):
         super().__init__()
@@ -268,19 +292,12 @@ class FAIMaskFormer(ComputeDtype, nn.Module):
         return self.head["predictor"]
 
     def forward(self, images: torch.Tensor, allowed=None):
-        if self.training:
-            raise NotImplementedError("fai_mf training is not ported yet (ROADMAP Queue 1 item 7)")
+        if self.training and self.config.pixel_decoder_transformer_dropout != 0.0:
+            raise ValueError("pixel_decoder_transformer_dropout must be 0.0: the JAX reference applies no dropout")
         x = ((images.float() - self.pixel_mean) / self.pixel_std).to(self.compute_dtype)
         mask_features, ms = self.pixel_decoder(x.permute(0, 3, 1, 2))
         aux = self.predictor(ms, mask_features, allowed=allowed)
-        logits_raw = aux.logits[-1]
-        if self.config.cls_sigmoid:
-            cls_probs = torch.sigmoid(logits_raw)[..., :-1]
-        else:
-            cls_probs = torch.softmax(logits_raw, dim=-1)[..., :-1]
-        # the [B, Q, H, W] upsample dominates the eval graph's bytes: it runs in the compute dtype
-        masks = bilinear_resize(torch.sigmoid(aux.masks[-1]).to(self.compute_dtype), images.shape[1:3])
-        return MaskFormerModelOutput(masks=masks, logits=cls_probs, loss=None), aux
+        return mask_classification_output(aux, images, self.config.cls_sigmoid, self.compute_dtype, self.training), aux
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:

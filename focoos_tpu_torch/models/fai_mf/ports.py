@@ -1,7 +1,6 @@
 """fai_mf output containers (port of focoos_tpu/models/fai_mf/ports.py;
 reference: focoos/models/fai_mf/ports.py). Plain dataclasses of torch
-tensors; ``MaskFormerTargets`` lands with fai_mf training (ROADMAP Queue 1
-item 7)."""
+tensors; bisenetformer shares them."""
 
 from __future__ import annotations
 
@@ -34,3 +33,22 @@ class MaskFormerAuxOutputs:
     logits: torch.Tensor
     masks: torch.Tensor
     allowed: Optional[List[torch.Tensor]] = None
+
+
+@dataclass
+class MaskFormerTargets:
+    """Padded, batched training targets: ``labels`` [B, N] int64, ``masks``
+    [B, N, Hm, Wm] fp32 at the mask features' grid, ``valid`` [B, N] bool
+    (padding rows False)."""
+
+    labels: torch.Tensor
+    masks: torch.Tensor
+    valid: torch.Tensor
+
+    def to(self, device, non_blocking: bool = False) -> "MaskFormerTargets":
+        return MaskFormerTargets(*(t.to(device, non_blocking=non_blocking) for t in (self.labels, self.masks, self.valid)))
+
+    def pin_memory(self) -> "MaskFormerTargets":
+        """Page-locked copies, which the DataLoader's pin thread asks for: the
+        masks (~26 MB an image at 1024²) then copy to the card asynchronously."""
+        return MaskFormerTargets(*(t.pin_memory() for t in (self.labels, self.masks, self.valid)))

@@ -15,8 +15,9 @@ stay on the device for the evaluator's mask IoU (``ops/mask_iou.py``). The
 JAX package's switches pick the host paths instead: FOCOOS_SEMSEG_EVAL_HOST,
 FOCOOS_INSTSEG_EVAL_HOST (the reference's exact resize-then-decode) and
 FOCOOS_INSTSEG_EVAL_FETCH (packed masks to the host even when exact).
-Training targets and the panoptic and export decodes are not ported yet
-(ROADMAP Queue 1 items 6 and 7).
+In training, ``preprocess_entries`` makes the padded mask targets. The
+panoptic and export decodes are not ported yet (ROADMAP Queue 1 items 6
+and 7).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 
 from focoos_tpu_torch.models.fai_mf.config import MaskFormerConfig
-from focoos_tpu_torch.models.fai_mf.ports import MaskFormerModelOutput
+from focoos_tpu_torch.models.fai_mf.ports import MaskFormerModelOutput, MaskFormerTargets
 from focoos_tpu_torch.ops.topk import topk_lowest_index_first
 from focoos_tpu_torch.ports import DatasetEntry, FocoosDet, FocoosDetections
 from focoos_tpu_torch.processor.base_processor import Processor
@@ -151,6 +152,8 @@ def _numpy(t) -> np.ndarray:
 
 
 class MaskFormerProcessor(Processor):
+    mask_stride = 4  # the mask features' stride: the training targets' grid
+
     def __init__(self, config: MaskFormerConfig, image_size: Optional[Union[int, Tuple[int, int]]] = None):
         super().__init__(config, image_size)
         self.num_classes = config.num_classes
@@ -172,10 +175,37 @@ class MaskFormerProcessor(Processor):
             raise ValueError("training preprocess expects a list of DatasetEntry")
         return self.get_batch(inputs, None), None
 
-    def preprocess_entries(self, entries: List[DatasetEntry]):
-        if self.training:
-            raise NotImplementedError("fai_mf training targets are not ported yet (ROADMAP Queue 1 item 7)")
-        return ImageList.from_tensors([e.image for e in entries]).tensor.astype(np.uint8, copy=False), None
+    def preprocess_entries(self, entries: List[DatasetEntry], max_instances: int = 100):
+        """DatasetEntries → (NHWC uint8 batch padded to the largest image,
+        ``MaskFormerTargets`` in training, else None) (JAX processor.py:152-185).
+        Each instance's mask is copied into the top-left of an [h, w] canvas
+        and resized with cv2's bilinear, on fp32, to the mask features' grid
+        ``ceil(h / self.mask_stride)`` x ``ceil(w / self.mask_stride)`` (the
+        padded conv chain's size); at most ``max_instances`` a record (the
+        loader passes ``TrainerArgs.max_instances_per_image``). CPU tensors only:
+        this runs in the loader's worker processes."""
+        batch = ImageList.from_tensors([e.image for e in entries]).tensor.astype(np.uint8, copy=False)
+        if not self.training:
+            return batch, None
+        import cv2
+
+        b, h, w = batch.shape[:3]
+        hm, wm = -(-h // self.mask_stride), -(-w // self.mask_stride)
+        labels = np.zeros((b, max_instances), np.int64)
+        masks = np.zeros((b, max_instances, hm, wm), np.float32)
+        valid = np.zeros((b, max_instances), bool)
+        for i, e in enumerate(entries):
+            inst = e.instances
+            if inst is None or len(inst) == 0 or not inst.has("masks"):
+                continue
+            n = min(len(inst), max_instances)
+            for j, gj in enumerate(inst.masks.tensor[:n]):
+                canvas = np.zeros((h, w), np.float32)
+                canvas[: gj.shape[0], : gj.shape[1]] = gj
+                masks[i, j] = cv2.resize(canvas, (wm, hm), interpolation=cv2.INTER_LINEAR)
+            labels[i, :n] = inst.classes[:n]
+            valid[i, :n] = True
+        return batch, MaskFormerTargets(torch.from_numpy(labels), torch.from_numpy(masks), torch.from_numpy(valid))
 
     # ------------------------------------------------------------------
     def semantic_inference(self, cls_probs: np.ndarray, masks: np.ndarray) -> np.ndarray:

@@ -83,11 +83,12 @@ class Conv2d(ComputeDtype, nn.Conv2d):
 
 
 class LayerNorm(nn.LayerNorm):
-    """flax ``nn.LayerNorm()`` without ``dtype``: fp32 statistics and an fp32
-    output whatever the input's dtype (flax promotes to its fp32 scale)."""
+    """flax ``nn.LayerNorm()`` without ``dtype``: it computes and returns the
+    promotion of the input's dtype and its scale's, so fp32 statistics and
+    output for a bf16 input with fp32 parameters (fp64 for a model cast to fp64)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.float())
+        return super().forward(x.to(torch.promote_types(x.dtype, self.weight.dtype)))
 
 
 def get_activation(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor]:

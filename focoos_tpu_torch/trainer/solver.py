@@ -84,10 +84,12 @@ def ema_decay_schedule(decay: float, warmup: int) -> Callable[[int], float]:
     return lambda step: decay * (1.0 - math.exp(-(step + 1.0) / warmup))
 
 
-# STDC's BatchNorms that JAX does not name ``bn`` (``avd_bn``, ``skip_dw_bn``,
-# ``skip_pw_bn``), so its freeze_bn mask spares them: nn/backbone/stdc.py's
-# ``avd_layer`` and ``skip`` Sequentials
-_STDC_UNFROZEN_BN = re.compile(r"\.(avd_layer\.1|skip\.[13])$")
+# BatchNorms whose flax path is not under ``/bn/``, so JAX's freeze_bn mask
+# spares them (ROADMAP Queue 3): fai_detr's input projections
+# (``input_proj_<i>_bn``), STDC's ``avd_bn``, ``skip_dw_bn`` and ``skip_pw_bn``
+# (nn/backbone/stdc.py's ``avd_layer`` and ``skip`` Sequentials), fai_mf's FPN
+# norms (``adapter_<i>_norm``, ``layer_<i>_norm``) and bisenetformer's ARM ``bn_atten``
+_UNFROZEN_BN = re.compile(r"input_proj|\.(avd_layer\.1|skip\.[13])$|^pixel_decoder\.(adapter|layer)_\d\.norm$|\.bn_atten$")
 
 
 def param_hyperparams(
@@ -107,10 +109,8 @@ def param_hyperparams(
     decoder's), ``head`` outside the classifiers takes the head's; norms by
     module type take ``wd_norm``; a parameter under ``freeze_prefixes`` takes
     0 and 0 (it keeps its gradient, as JAX's masks do, and never moves), and
-    so, with ``freeze_bn``, does a BatchNorm's scale and bias, except the
-    input projections' and STDC's ``avd_layer`` and ``skip`` ones (JAX
-    freezes the paths under ``/bn/``; its ``input_proj_<i>_bn``, ``avd_bn``
-    and ``skip_{dw,pw}_bn`` BatchNorms are not under one)."""
+    so, with ``freeze_bn``, does a BatchNorm's scale and bias, except those
+    whose JAX path is not under ``/bn/`` (``_UNFROZEN_BN``)."""
     norm_params = {
         f"{mname}.{pname}" if mname else pname
         for mname, m in module.named_modules() if isinstance(m, NORM_TYPES)
@@ -119,7 +119,7 @@ def param_hyperparams(
     bn_params = {
         f"{mname}.{pname}"
         for mname, m in module.named_modules()
-        if isinstance(m, nn.BatchNorm2d) and "input_proj" not in mname and not _STDC_UNFROZEN_BN.search(mname)
+        if isinstance(m, nn.BatchNorm2d) and not _UNFROZEN_BN.search(mname)
         for pname, _ in m.named_parameters(recurse=False)
     } if freeze_bn else set()
     out = {}

@@ -188,10 +188,17 @@ def rle_area(counts: np.ndarray) -> int:
 
 def mask_iou(masks_a: Sequence[np.ndarray], masks_b: Sequence[np.ndarray],
              crowd_b: Optional[np.ndarray] = None) -> np.ndarray:
-    """[Na] × [Nb] dense-mask IoU matrix (COCO crowd convention on b)."""
+    """[Na] × [Nb] dense-mask IoU matrix (COCO crowd convention on b). Masks
+    of two sizes raise: the JAX package's library reads past the smaller
+    ones (ROADMAP Queue 3, a record resized for evaluation)."""
     na, nb = len(masks_a), len(masks_b)
     if na == 0 or nb == 0:
         return np.zeros((na, nb), np.float32)
+    sizes = {np.shape(m) for m in (*masks_a, *masks_b)}
+    if len(sizes) > 1:
+        raise ValueError("mask_iou: masks of sizes " + ", ".join("x".join(map(str, s)) for s in sorted(sizes))
+                         + " (a record resized for evaluation pairs predictions at its original size with"
+                         " ground truth at the mapped size)")
     a = np.ascontiguousarray(np.stack([m.reshape(-1) for m in masks_a]).astype(np.uint8))
     b = np.ascontiguousarray(np.stack([m.reshape(-1) for m in masks_b]).astype(np.uint8))
     crowd = np.ascontiguousarray((crowd_b if crowd_b is not None else np.zeros(nb)).astype(np.uint8))

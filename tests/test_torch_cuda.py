@@ -827,3 +827,85 @@ def test_fai_mf_forward_on_the_card_matches_the_cpu(cuda, card):
         assert seen[0].packed is None and seen[0].packed_on_device.is_cuda
         assert evaluation.stats["host_bytes"] == sum(t.numel() * t.element_size()
                                                      for t in (seen[0].scores, seen[0].labels, seen[0].boxes))
+
+
+# --------------------------------------------------------------------------- mask-classification training
+def test_point_sample_on_the_card_matches_the_cpu(cuda):
+    """point_sample at the criterion's shapes (12544 points, 3x oversampled
+    for the pick) and one point set shared by every query, card against the
+    CPU on the same points: 1e-6 abs."""
+    from focoos_tpu_torch.ops.point_sample import point_sample
+
+    g = torch.Generator().manual_seed(11)
+    maps = torch.randn(64, 256, 256, generator=g) * 3
+    coords = torch.rand(64, 3 * 12544, 2, generator=g) * 1.2 - 0.1
+    torch.testing.assert_close(point_sample(maps.to(cuda), coords.to(cuda)).cpu(), point_sample(maps, coords),
+                               rtol=0, atol=1e-6)
+    shared = torch.rand(2, 1, 12544, 2, generator=g)
+    stack = maps.reshape(2, 32, 256, 256)
+    torch.testing.assert_close(point_sample(stack.to(cuda), shared.to(cuda)).cpu(), point_sample(stack, shared),
+                               rtol=0, atol=1e-6)
+
+
+def test_mask_criterion_on_the_card_matches_the_cpu(cuda):
+    """maskformer_criterion on random predictions of 3 layers x 2 images x 100
+    queries at 64x64: the card's matcher on the CPU's points gives the CPU's
+    assignment; on the CPU's points and assignment every loss key is within
+    1e-5 rel and the gradient of the total within 1e-5 x its max."""
+    from focoos_tpu_torch.models.fai_mf.config import MaskFormerConfig
+    from focoos_tpu_torch.models.fai_mf.loss import match, maskformer_criterion
+    from focoos_tpu_torch.models.fai_mf.ports import MaskFormerAuxOutputs, MaskFormerTargets
+
+    g = torch.Generator().manual_seed(12)
+    cfg = MaskFormerConfig(num_classes=20)
+    logits = torch.randn(3, 2, 100, 21, generator=g) * 2
+    masks = torch.randn(3, 2, 100, 64, 64, generator=g) * 3
+    n = 12
+    valid = torch.arange(n)[None] < torch.tensor([[7], [12]])
+    tmasks = (torch.rand(2, n, 64, 64, generator=g) > 0.7).float() * valid[..., None, None]
+    targets = MaskFormerTargets(torch.randint(0, 20, (2, n), generator=g) * valid, tmasks, valid)
+    runs = {}
+    for dev in ("cpu", cuda):
+        lg, mk = logits.clone().to(dev).requires_grad_(), masks.clone().to(dev).requires_grad_()
+        carried = None if dev == "cpu" else runs["cpu"][1]
+        losses, used = maskformer_criterion(MaskFormerAuxOutputs(lg, mk), targets.to(dev), cfg,
+                                            torch.Generator().manual_seed(0), carried=carried and carried.to(dev))
+        losses["total"].backward()
+        runs["cpu" if dev == "cpu" else "card"] = ({k: float(v) for k, v in losses.items()}, used, lg.grad.cpu(),
+                                                   mk.grad.cpu())
+    cpu, card = runs["cpu"], runs["card"]
+    own = match(MaskFormerAuxOutputs(logits.to(cuda), masks.to(cuda)), targets.to(cuda), cfg,
+                cpu[1].match_coords.to(cuda)).cpu()
+    assert torch.equal(own[:, valid], cpu[1].assign[:, valid])
+    for k, v in cpu[0].items():
+        assert abs(card[0][k] - v) <= 1e-5 * abs(v), (k, card[0][k], v)
+    for got, ref in zip(card[2:], cpu[2:]):
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+
+
+def test_fai_mf_stem_runs_in_eval_and_not_in_train(cuda):
+    """A ResNet-D fai_mf card launches the stem kernel once an eval forward
+    and never in a train-mode forward (the stem wrapper refuses autograd:
+    training takes the plain convs), whose loss backpropagates."""
+    from focoos_tpu_torch import ModelManager
+    from focoos_tpu_torch.models.fai_mf.loss import make_loss_fn
+    from focoos_tpu_torch.models.fai_mf.ports import MaskFormerTargets
+    from focoos_tpu_torch.ops.stem import fused_resnet_stem as stem
+
+    model = ModelManager.get("fai-mf-s-coco-ins", device=cuda, num_queries=10, transformer_predictor_dec_layers=2,
+                             num_classes=3, criterion_num_points=256)
+    x = torch.from_numpy(np.random.default_rng(13).integers(0, 256, (2, 128, 128, 3), dtype=np.uint8)).to(cuda)
+    before = stem.launches
+    with torch.inference_mode():
+        model.module.eval()(x)
+    torch.cuda.synchronize()
+    assert stem.launches == before + 1
+    valid = torch.tensor([[True, False], [True, True]])
+    targets = MaskFormerTargets(torch.tensor([[1, 0], [2, 0]]), (torch.rand(2, 2, 32, 32) > 0.5).float(), valid)
+    model.module.train()
+    total, losses = make_loss_fn(model.module, model.config)(x, targets.to(cuda))
+    total.backward()
+    torch.cuda.synchronize()
+    model.module.eval()
+    assert stem.launches == before + 1 and torch.isfinite(total)
+    assert all(p.grad is not None for p in model.module.pixel_decoder.backbone.conv1.parameters())

@@ -251,15 +251,6 @@ def test_cards_build_at_full_width():
             ModelManager.get("fai-mf-l-coco-ins")
 
 
-def test_train_mode_raises(tiny):
-    tiny["pmodel"].train()
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-            tiny["pmodel"](torch.from_numpy(_images(0)))
-    finally:
-        tiny["pmodel"].eval()
-
-
 def test_weights_roundtrip_through_torch_convert(tiny):
     """torch_convert maps the port's state_dict onto exactly the JAX tree
     with no key unmatched, and to_jax_variables writes the same flat arrays."""
