@@ -88,7 +88,24 @@ non-zero:
    CPU forwards, b1/b16, evaluation against the CPU's own predictions, one
    step against the CPU, FocoosModel.train at B=16 from a semantic set on
    disk, fp32 and bf16). The stem's launches count from 0 before each
-   counted run.
+   counted run;
+12. fai_cls — fai-cls-m-coco (STDC-small, 80 classes) at 224², full width,
+   the classifier conditioned (``condition_cls``): infer() on three 480x640
+   images, card vs CPU probabilities at B=2 (fp32 and bf16, the CPU's own
+   bf16 beside), b1 and b128 forwards and a profiled b128, evaluate_dataset
+   against the CPU's fp32 predictions (classification/f1), one step against
+   the CPU's fp64 step on one dropout mask carried to both, the train loader
+   alone and FocoosModel.train at B=64 from a seeded folder-per-class set on
+   disk (fp32 and bf16, three profiled steps), FocoosModel.eval; no kernel
+   of the port may launch;
+13. rtmo_train — rtmo-s-coco at 640², full width (``perturb_rtmo``,
+   ``condition_for_training``): one B=2 step on mapped records of a seeded
+   COCO-keypoints set on disk, the card's SimOTA equal to the CPU's, then
+   on the CPU's assignment against the CPU's fp64 step (every loss, the
+   gradient norm, DCC's running statistics; bf16 too); the train loader and
+   the criterion alone; FocoosModel.train at B=16 with keypoint validation
+   at 480 (fp32 and bf16, profiled steps) and FocoosModel.eval, the NMS
+   kernel counted from 0 before each run: one launch a validation forward.
 
 Each model path runs again in bf16 compute (``ModelManager.get(...,
 dtype="bfloat16")``, fp32 parameters), right after its fp32 run and with its
@@ -105,8 +122,9 @@ at the training batch B=8), each with its bound and share.
 
 The last three lines are the kernels' JSON record (``launches`` from the
 serving and training main paths, ``launches_lifecycle``,
-``launches_finetune_m``, ``launches_fai_mf`` and ``launches_segm_train``
-summed over those phases' counted runs), the card's
+``launches_finetune_m``, ``launches_fai_mf``, ``launches_segm_train``,
+``launches_fai_cls`` and ``launches_rtmo_train`` summed over those phases'
+counted runs), the card's
 name and power limit as
 nvidia-smi reports them, and the result JSON.
 """
@@ -795,7 +813,7 @@ def condition_for_training(module: torch.nn.Module) -> None:
     this, the CPU's own fp32 and fp64 runs of one step differ in the
     decoder's last logits by 1.3 (max 8), as much as card and CPU do (an
     H100 and its host's CPU, B=2 640²). Each residual branch's last
-    BatchNorm scale goes to a tenth
+    BatchNorm scale (ResNet's and CSPDarknet's) goes to a tenth
     (near-identity blocks, as a zero-γ init), and so does the BatchNorm
     scale of each STDC cat block's convs after its first (the block's
     output near its 1x1 path: STDC has no residual, and ~50 train-mode
@@ -808,12 +826,15 @@ def condition_for_training(module: torch.nn.Module) -> None:
     decoder box head's last layer (small refinements, as a trained model
     makes)."""
     from focoos_tpu_torch.models.bisenetformer.modelling import AttentionRefinementModule, BiseNet
+    from focoos_tpu_torch.nn.backbone.csp_darknet import DarknetBottleneck
     from focoos_tpu_torch.nn.backbone.resnet import BottleNeck
     from focoos_tpu_torch.nn.backbone.stdc import CatBottleneck
 
     for m in module.modules():
         if isinstance(m, BottleNeck):
             m.branch2c.norm.weight.mul_(0.1)
+        elif isinstance(m, DarknetBottleneck) and m.add_identity:  # rtmo's CSPDarknet: residual as ResNet's
+            m.conv2.bn.weight.mul_(0.1)
         elif isinstance(m, CatBottleneck):  # STDC: the concat near its 1x1 path, the deeper convs' share x0.1
             for conv in m.conv_list[1:]:
                 conv.bn.weight.mul_(0.1)
@@ -821,7 +842,7 @@ def condition_for_training(module: torch.nn.Module) -> None:
             m.bn_atten.weight.mul_(0.1)
         elif isinstance(m, BiseNet):
             m.cp.conv_avg.bn.weight.mul_(0.1)
-    for head in getattr(module.predictor, "dec_bbox_classifier", ()):  # fai_detr's box heads
+    for head in getattr(getattr(module, "predictor", None), "dec_bbox_classifier", ()):  # fai_detr's box heads
         head.layers[-1].weight.mul_(0.1)
         head.layers[-1].bias.mul_(0.1)
 
@@ -2859,6 +2880,678 @@ def phase_segm_train(dev, smi: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# fai_cls: classification served, evaluated and fine-tuned; rtmo fine-tuned
+
+CLS_CARD, CLS_SIZE = "fai-cls-m-coco", 224
+CLS_TOL = {"float32": 1e-3, "bfloat16": 5e-2}  # abs, sigmoid probabilities, card against the CPU's fp32
+CLS_LOGIT_STD = 4.0  # the conditioned classifier's logit spread over the compared images
+CLS_GT_IMAGES, CLS_EVAL_BATCH = 64, 32
+CLS_FT_HW = (240, 320)  # the folder set's JPEGs (height, width)
+CLS_FT_TRAIN, CLS_FT_VAL = 64, 16
+CLS_FT_BATCH, CLS_FT_STEPS, CLS_FT_EVAL_PERIOD, CLS_FT_PROFILED = 64, 20, 10, 3
+KP_CARD, KP_SIZE = "rtmo-s-coco", 640
+KP_FT_HW = (480, 640)  # the keypoint set's JPEGs (height, width): COCO's most common size
+KP_FT_TRAIN, KP_FT_VAL = 64, 16
+KP_FT_BATCH, KP_FT_STEPS, KP_FT_EVAL_PERIOD, KP_FT_PROFILED = 16, 20, 10, 3
+KP_DCC_TOL = 1e-5  # DCC's running statistics after the card's fp32 step against the CPU's fp64 step, per feature
+KP_NAMES = ["nose", "left_eye", "right_eye", "left_ear", "right_ear", "left_shoulder", "right_shoulder", "left_elbow",
+            "right_elbow", "left_wrist", "right_wrist", "left_hip", "right_hip", "left_knee", "right_knee",
+            "left_ankle", "right_ankle"]
+
+
+def kernel_counts() -> dict:
+    """Every kernel's launch count, as its wrapper keeps it."""
+    from focoos_tpu_torch.ops.msda import msda_backward, msda_forward
+    from focoos_tpu_torch.ops.nms import nms_keep
+    from focoos_tpu_torch.ops.stem import fused_resnet_stem
+
+    return {"msda_forward": msda_forward.launches, "msda_backward": msda_backward.launches,
+            "fused_resnet_stem": fused_resnet_stem.launches, "nms_keep": nms_keep.launches}
+
+
+def zero_kernel_counts() -> None:
+    from focoos_tpu_torch.ops.msda import msda_backward, msda_forward
+    from focoos_tpu_torch.ops.nms import nms_keep
+    from focoos_tpu_torch.ops.stem import fused_resnet_stem
+
+    for k in (msda_forward, msda_backward, fused_resnet_stem, nms_keep):
+        k.launches = 0
+
+
+def counted(run, total: dict) -> tuple:
+    """``run()`` with every kernel's count set to 0 just before and read just
+    after (the card synchronized) → (its result, the counts), the counts also
+    added to ``total``."""
+    zero_kernel_counts()
+    out = run()
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    for k, v in counts.items():
+        total[k] += v
+    return out, counts
+
+
+def dcc_stat_errs(got: tuple, ref: tuple, initial: tuple, momentum: float) -> dict:
+    """DCC's statistics after one step, ``got`` against ``ref`` (fp64
+    running mean and variance, ``rtmo_step_on``), each the max over the
+    features: the running mean's error over the running std and the running
+    variance's relative error (``running``); the step's own batch
+    statistics, recovered as (running - (1 - momentum) * initial) /
+    momentum, the mean's error over the batch std and the biased variance's
+    relative error (``batch``), with |mean| / std of the feature whose
+    variance is worst (``offset``): a variance taken around a mean that many
+    times its std loses that many times its inputs' relative precision."""
+    (gm, gv), (rm, rv), (m0, v0) = got, ref, (t.double() for t in initial)
+    batch = lambda run, init: (run - (1 - momentum) * init) / momentum  # noqa: E731
+    bm, bv = batch(rm, m0), batch(rv, v0)
+    var_rel = (batch(gv, v0) - bv).abs() / bv
+    return dict(running=(float(((gm - rm).abs() / rv.sqrt()).max()), float(((gv - rv).abs() / rv).max())),
+                batch=(float(((batch(gm, m0) - bm).abs() / bv.sqrt()).max()), float(var_rel.max())),
+                offset=float(bm.abs()[var_rel.argmax()] / bv.sqrt()[var_rel.argmax()]))
+
+
+def textured(rng: np.random.Generator, img: np.ndarray) -> np.ndarray:
+    """Per-pixel texture over an image (see ``draw_shapes``)."""
+    return np.clip(img.astype(np.int16) + rng.integers(-20, 21, img.shape), 0, 255).astype(np.uint8)
+
+
+def write_folder_set(root: str, n_train: int, n_val: int, hw: tuple, seed: int) -> str:
+    """A seeded folder-per-class classification set on local disk (``train/``
+    and ``valid/``, one folder per class of ``SHAPE_CLASSES``): JPEGs of ``hw``,
+    each a noise background with one textured filled shape of its class,
+    classes in turn."""
+    import os
+
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    for split, n in (("train", n_train), ("valid", n_val)):
+        for i in range(n):
+            cls = i % len(SHAPE_CLASSES)
+            cdir = os.path.join(root, split, SHAPE_CLASSES[cls])
+            os.makedirs(cdir, exist_ok=True)
+            img = rng.integers(0, 80, (h, w, 3), np.uint8)
+            s = int(rng.integers(min(hw) // 3, min(hw) * 3 // 4))
+            x, y = int(rng.integers(0, w - s)), int(rng.integers(0, h - s))
+            if cls == 0:
+                t = np.linspace(0, 2 * np.pi, 24, endpoint=False)
+                poly = np.stack([x + s / 2 + s / 2 * np.cos(t), y + s / 2 + s / 2 * np.sin(t)], 1)
+            elif cls == 1:
+                poly = np.array([[x, y], [x + s, y], [x + s, y + s], [x, y + s]], float)
+            else:
+                poly = np.array([[x + s / 2, y], [x, y + s], [x + s, y + s]], float)
+            cv2.fillPoly(img, [poly.round().astype(np.int32)], tuple(int(c) for c in rng.integers(120, 255, 3)))
+            cv2.imwrite(os.path.join(cdir, f"img_{i:04d}.jpg"), textured(rng, img)[:, :, ::-1])
+    return root
+
+
+def write_keypoint_set(root: str, n_train: int, n_val: int, hw: tuple, seed: int) -> str:
+    """A seeded Roboflow-COCO person-keypoints set on local disk: JPEGs of
+    ``hw``, each with 1-3 textured person shapes (a filled ellipse 1/5 to 1/2
+    of the short edge wide, twice as tall) with 17 keypoints inside, drawn
+    as bright dots where visible; about a fifth of them unlabelled
+    (v = 0, x = y = 0, as COCO marks them)."""
+    import os
+
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    for split, n in (("train", n_train), ("valid", n_val)):
+        sdir = os.path.join(root, split)
+        os.makedirs(sdir, exist_ok=True)
+        images, annotations = [], []
+        for i in range(n):
+            img = rng.integers(0, 80, (h, w, 3), np.uint8)
+            for _ in range(int(rng.integers(1, 4))):
+                bw = int(rng.integers(min(hw) // 5, min(hw) // 2))
+                bh = min(2 * bw, h - 2)
+                x, y = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+                cv2.ellipse(img, (x + bw // 2, y + bh // 2), (bw // 2, bh // 2), 0, 0, 360,
+                            tuple(int(c) for c in rng.integers(120, 255, 3)), -1)
+                kpts = []
+                for _k in range(17):
+                    kx, ky = float(rng.uniform(x + 0.2 * bw, x + 0.8 * bw)), float(rng.uniform(y + 0.1 * bh, y + 0.9 * bh))
+                    v = 0 if rng.random() < 0.2 else int(rng.integers(1, 3))
+                    if v:
+                        cv2.circle(img, (int(kx), int(ky)), 3, (255, 255, 255), -1)
+                        kpts += [kx, ky, v]
+                    else:
+                        kpts += [0.0, 0.0, 0]
+                annotations.append(dict(id=len(annotations) + 1, image_id=i, category_id=1, bbox=[x, y, bw, bh],
+                                        area=float(bw * bh), iscrowd=0, keypoints=kpts,
+                                        num_keypoints=int(sum(1 for j in range(17) if kpts[3 * j + 2]))))
+            fn = f"img_{i:04d}.jpg"
+            cv2.imwrite(os.path.join(sdir, fn), textured(rng, img)[:, :, ::-1])
+            images.append(dict(id=i, file_name=fn, height=h, width=w))
+        cats = [dict(id=0, name="people", supercategory="none"),
+                dict(id=1, name="person", supercategory="people", keypoints=KP_NAMES,
+                     skeleton=[[16, 14], [14, 12], [17, 15], [15, 13], [12, 13], [6, 12], [7, 13], [6, 7], [6, 8],
+                               [7, 9], [8, 10], [9, 11], [2, 3], [1, 2], [1, 3], [2, 4], [3, 5], [4, 6], [5, 7]])]
+        with open(os.path.join(sdir, "_annotations.coco.json"), "w") as f:
+            json.dump(dict(images=images, annotations=annotations, categories=cats), f)
+    return root
+
+
+def loader_alone(ds, proc, batch: int, workers: int, n_batches: int = 6) -> tuple:
+    """The train loader timed alone → (images/s over ``n_batches`` after the
+    first, ms a batch, the first batch's seconds, workers starting)."""
+    from focoos_tpu_torch.data.loaders import build_train_loader
+
+    proc.train(True)
+    loader = build_train_loader(ds, proc, batch, num_workers=workers, seed=0, pin_memory=True, timeout=300)
+    try:
+        t0 = time.perf_counter()
+        next(loader)
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(n_batches):
+            next(loader)
+        load_s = time.perf_counter() - t0
+    finally:
+        loader.close()
+        proc.train(False)
+    return batch * n_batches / load_s, load_s * 1e3 / n_batches, first_s
+
+
+def grad_norm(module) -> float:
+    return float(torch.sqrt(sum(torch.dot(p.grad.flatten().double(), p.grad.flatten().double())
+                                for p in module.parameters() if p.grad is not None)))
+
+
+def cls_logits(module, images: np.ndarray) -> torch.Tensor:
+    """Eval logits [N, C] of uint8 NHWC ``images`` on the module's device, in batches of 32, on the CPU."""
+    dev = next(module.parameters()).device
+    out = []
+    with torch.inference_mode():
+        for i in range(0, len(images), 32):
+            out.append(module(torch.from_numpy(images[i:i + 32]).to(dev))[0].logits.float().cpu())
+    return torch.cat(out)
+
+
+def condition_cls(cpu_model, images: np.ndarray) -> tuple:
+    """Condition the random classifier for the comparisons and the
+    evaluation gate: its logits scaled to a spread of ``CLS_LOGIT_STD`` over
+    ``images`` and the classes (the CPU's fp32 forward), and each class's
+    bias set to the middle of the widest gap between two of its sorted
+    logits, so that every class has images on both sides of the 0.5
+    threshold and no logit sits nearer it than half that gap. Random
+    features barely tell the images apart (a class's logits spread ~1e-3 of
+    the spread over the classes): scaling each class to that spread would
+    scale the bf16 rounding of the features with it → (the scale, the
+    smallest |logit| over the images)."""
+    conv = cpu_model.module.cls_head.classifier[-1]
+    u = cls_logits(cpu_model.module, images) - conv.bias.detach()  # [N, C] without the bias
+    scale = CLS_LOGIT_STD / float(u.std())
+    v = torch.sort(u * scale, dim=0).values
+    j = (v[1:] - v[:-1]).argmax(0)
+    cols = torch.arange(v.shape[1])
+    mid = (v[j, cols] + v[j + 1, cols]) / 2
+    with torch.no_grad():
+        conv.weight.mul_(scale)
+        conv.bias.copy_(-mid)
+    return scale, float((u * scale - mid).abs().min())
+
+
+def phase_fai_cls(dev, smi: str) -> dict:
+    """fai-cls-m-coco (STDC-small, 80 classes) at 224², full width: served
+    (infer(), card vs CPU at B=2 in fp32 and bf16, b1, b128 and a profiled
+    b128 forward), evaluated (classification/f1 against the CPU's own fp32
+    predictions), one step against the CPU's in fp64 on a carried dropout
+    mask, and FocoosModel.train from a seeded folder-per-class JPEG set on
+    disk in fp32 and bf16. No kernel of the port is on this path (STDC has no
+    ResNet-D stem): every count must stay 0. Returns the counts."""
+    import os
+    import shutil
+    import tempfile
+
+    from focoos_tpu_torch import ModelManager
+    from focoos_tpu_torch.data.auto_dataset import AutoDataset
+    from focoos_tpu_torch.data.default_aug import get_default_by_task
+    from focoos_tpu_torch.models.fai_cls.loss import classification_loss
+    from focoos_tpu_torch.ports import DatasetEntry, Task, TrainerArgs
+
+    phase_t0 = time.perf_counter()
+    zero_kernel_counts()
+    tag = f"fai_cls {CLS_CARD}"
+    workers = min(SEG_WORKERS, os.cpu_count())
+    t0 = time.perf_counter()
+    model = ModelManager.get(CLS_CARD, device=dev, seed=0)
+    perturb(model.module, seed=40)
+    condition_for_training(model.module)
+    cpu = ModelManager.get(CLS_CARD, device="cpu", init_weights=False)
+    cpu.module.load_state_dict(model.module.state_dict())
+    rng = np.random.default_rng(41)
+    gt_images = np.stack([draw_shapes(rng, CLS_SIZE, CLS_SIZE)[0] for _ in range(CLS_GT_IMAGES)])
+    scale, margin = condition_cls(cpu, gt_images)
+    model.module.load_state_dict(cpu.module.state_dict())
+    model16 = ModelManager.get(CLS_CARD, device=dev, dtype="bfloat16", init_weights=False)
+    model16.module.load_state_dict(model.module.state_dict())
+    cfg = model.config
+    log(f"[{tag}] STDC-{cfg.backbone_config.size} to {cfg.features}, {cfg.num_layers}-layer head, {cfg.num_classes}"
+        f" classes, dropout {cfg.dropout_rate}, {sum(p.numel() for p in model.module.parameters()) / 1e6:.2f}M"
+        f" params, {CLS_SIZE}²; weights perturbed and conditioned (logits scaled x{scale:.3g} to std {CLS_LOGIT_STD} over"
+        f" {CLS_GT_IMAGES} seeded images, each class's bias in its widest gap: smallest |logit| {margin:.2e})"
+        f" ({time.perf_counter() - t0:.1f}s)")
+
+    # the requests
+    requests = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(3)]
+    for dtype, m in (("float32", model), ("bfloat16", model16)):
+        dets = [m.infer(r, threshold=0.0) for r in requests]
+        for d in dets:
+            assert len(d.detections) == cfg.num_classes, len(d.detections)
+            assert all(0.0 <= x.conf <= 1.0 and x.label == m.classes[x.cls_id] for x in d.detections)
+        over = [len(m.infer(r).detections) for r in requests]
+        log(f"[{tag}] {dtype}: infer() on three 480x640 images: {cfg.num_classes} classes each at threshold 0,"
+            f" {over} over the card's threshold {cfg.threshold}; last inference {dets[-1].latency.inference * 1e3:.2f} ms")
+
+    # card vs CPU at B=2 on the same weights
+    x2 = gt_images[:2]
+    ref = torch.sigmoid(cls_logits(cpu.module, x2))
+    cpu16 = ModelManager.get(CLS_CARD, device="cpu", dtype="bfloat16", init_weights=False)
+    cpu16.module.load_state_dict(model.module.state_dict())
+    errs = {name: float((torch.sigmoid(cls_logits(m.module, x2)) - ref).abs().max())
+            for name, m in (("card fp32", model), ("card bf16", model16), ("CPU bf16", cpu16))}
+    del cpu16
+    log(f"[{tag}] card vs the CPU's fp32 at B=2 {CLS_SIZE}², max abs err of the probabilities: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tol fp32 {CLS_TOL['float32']:.0e}, bf16 {CLS_TOL['bfloat16']:.0e})")
+    assert errs["card fp32"] <= CLS_TOL["float32"] and errs["card bf16"] <= CLS_TOL["bfloat16"], errs
+
+    # timings: b1 and the JAX bench's b128
+    g = np.random.default_rng(42)
+    xs = {"b1": torch.from_numpy(g.integers(0, 256, (1, CLS_SIZE, CLS_SIZE, 3), dtype=np.uint8)).to(dev),
+          "b128": torch.from_numpy(g.integers(0, 256, (128, CLS_SIZE, CLS_SIZE, 3), dtype=np.uint8)).to(dev)}
+    for dtype, m in (("float32", model), ("bfloat16", model16)):
+        torch.cuda.reset_peak_memory_stats()
+        t = serve_timings(m.module, xs, {"b1": 30, "b128": 10})
+        log(f"[{tag}] {smi}, {dtype}: b1 forward p50 {t['b1'] * 1e3:.3f} ms; b128 forward p50 {t['b128'] * 1e3:.2f} ms"
+            f" = {128 / t['b128']:.1f} images/s; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        profile_forwards(f"{tag} {dtype}", "b128 forward", m.module, xs["b128"])
+
+    # evaluation against the CPU's own fp32 predictions
+    cpu_logits = cls_logits(cpu.module, gt_images)
+    labels = [torch.nonzero(z > 0)[:, 0].tolist() for z in cpu_logits]
+    entries = [DatasetEntry(image=im, height=CLS_SIZE, width=CLS_SIZE, label=lab, image_id=i)
+               for i, (im, lab) in enumerate(zip(gt_images, labels))]
+    near = {tol: int((cpu_logits.abs() < tol).sum()) for tol in (1e-3, 1e-2)}
+    for dtype, m in (("float32", model), ("bfloat16", model16)):
+        res, secs = evaluate_timed(m, entries, CLS_EVAL_BATCH)
+        f1 = res["classification"]["f1"]
+        log(f"[{tag}] {smi}: evaluate_dataset {dtype} against the CPU's fp32 predictions of {CLS_GT_IMAGES} images"
+            f" ({sum(map(len, labels))} positive labels; of {cpu_logits.numel()} logits, within 1e-3 of the threshold's 0:"
+            f" {near[1e-3]}, within 1e-2: {near[1e-2]}): classification/f1 {f1:.3f}, micro_f1 {res['classification']['micro_f1']:.3f}"
+            f" ({secs:.2f}s)")
+        if dtype == "float32":
+            assert f1 >= 99.0, res
+
+    # one step against the CPU's in fp64, on one dropout mask carried to every run
+    root = tempfile.mkdtemp(prefix="chip_smoke_fai_cls_")
+    try:
+        t0 = time.perf_counter()
+        write_folder_set(root, CLS_FT_TRAIN, CLS_FT_VAL, CLS_FT_HW, seed=43)
+        auto = AutoDataset(root, task="classification")
+        train_augs, val_augs = get_default_by_task(Task.CLASSIFICATION, CLS_SIZE)
+        ft_train, ft_val = auto.get_split(train_augs, split="train"), auto.get_split(val_augs, split="val")
+        classes = ft_train.metadata.classes
+        log(f"[{tag}] wrote {CLS_FT_TRAIN} train and {CLS_FT_VAL} val {CLS_FT_HW[1]}x{CLS_FT_HW[0]} JPEGs, one"
+            f" textured shape each, folder per class {classes} ({time.perf_counter() - t0:.1f}s)")
+        np.random.seed(44)
+        images, targets = model.processor.preprocess_entries([ft_train[i] for i in range(2)])
+        feats = model.module.backbone.output_shape()[cfg.features].channels
+        keep = torch.rand(2, feats, 1, 1, generator=torch.Generator().manual_seed(45)) < 1.0 - cfg.dropout_rate
+        initial = {k: v.detach().clone() for k, v in model.module.state_dict().items()}
+
+        def step(m, d) -> tuple:
+            m.module.train()
+            m.module.zero_grad(set_to_none=True)
+            out, _ = m.module(torch.from_numpy(images).to(d), keep=keep.to(d))
+            loss = classification_loss(out.logits, targets.to(d), cfg)["loss_cls"]
+            loss.backward()
+            r = float(loss.detach()), grad_norm(m.module)
+            m.module.eval()
+            m.module.zero_grad(set_to_none=True)
+            m.module.load_state_dict(initial)
+            return r
+
+        with cpu_fp64(cpu.module):
+            ref_loss, ref_norm = step(cpu, torch.device("cpu"))
+        for name, m, (lgate, ngate) in (("fp32", model, (TRAIN_LOSS_RTOL, TRAIN_GRAD_NORM_RTOL)),
+                                        ("bf16", model16, (TRAIN_BF16_TOL, TRAIN_BF16_GRAD_NORM_RTOL))):
+            loss, norm = step(m, dev)
+            lrel, nrel = abs(loss - ref_loss) / abs(ref_loss), abs(norm - ref_norm) / ref_norm
+            log(f"[{tag}] one step at B=2 {tuple(images.shape[1:3])} on mapped train records, dropout mask carried"
+                f" ({int(keep.sum())} of {keep.numel()} kept): card {name} vs CPU fp64: loss {loss:.6f} vs {ref_loss:.6f}"
+                f" rel {lrel:.3e} (tol {lgate:.0e}); grad_norm {norm:.6f} vs {ref_norm:.6f} rel {nrel:.3e} (tol {ngate:.0e})")
+            assert lrel <= lgate and nrel <= ngate, (name, loss, ref_loss, norm, ref_norm)
+        del cpu, model16
+
+        # the loader alone, then FocoosModel.train from disk in fp32 and bf16
+        ips, ms, first = loader_alone(ft_train, model.processor, CLS_FT_BATCH, workers)
+        log(f"[{tag}] {smi}: train loader alone, classification_train_augs at {CLS_SIZE}, B={CLS_FT_BATCH}, {workers}"
+            f" workers: {ips:.1f} images/s ({ms:.1f} ms a batch; the first, workers starting, {first:.2f}s)")
+        model = ModelManager.get(CLS_CARD, device=dev, classes=classes, seed=0)
+        perturb(model.module, seed=46)
+        condition_for_training(model.module)
+        initial = {k: v.detach().clone() for k, v in model.module.state_dict().items()}
+        out_dir = tempfile.mkdtemp(prefix="ft_", dir=root)
+
+        def args(iters: int, eval_period: int = CLS_FT_EVAL_PERIOD) -> TrainerArgs:
+            return TrainerArgs(run_name="fai_cls", output_dir=out_dir, batch_size=CLS_FT_BATCH, max_iters=iters,
+                               workers=workers, eval_period=eval_period, checkpointer_period=iters, log_period=iters,
+                               ema_enabled=True, seed=0, workers_timeout=300, samples=0)
+
+        for dtype in ("float32", "bfloat16"):
+            m = model if dtype == "float32" else ModelManager.get(CLS_CARD, device=dev, classes=classes, dtype=dtype,
+                                                                   init_weights=False)
+            m.module.load_state_dict(initial)
+            torch.cuda.reset_peak_memory_stats()
+            res = m.train(args(CLS_FT_STEPS), ft_train, ft_val)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            with open(os.path.join(res["run_dir"], "metrics.json")) as f:
+                row = [json.loads(line) for line in f][-1]
+            f1 = res["metrics"]["classification"]
+            log(f"[{tag}] {smi}, {dtype}: FocoosModel.train {res['iterations']} steps at B={CLS_FT_BATCH} from disk,"
+                f" {workers} workers, validation every {CLS_FT_EVAL_PERIOD}: step p50 {row['time'] * 1e3:.2f} ms ="
+                f" {CLS_FT_BATCH / row['time']:.1f} images/s, data_time p50 {row['data_time'] * 1e3:.2f} ms; peak"
+                f" memory allocated {peak:.2f} GiB; final val classification/f1 {f1['f1']:.3f}, micro_f1"
+                f" {f1['micro_f1']:.3f}; loss_cls {row['loss_cls']:.4f}")
+            assert res["iterations"] == CLS_FT_STEPS and np.isfinite(row["loss_cls"]), row
+            m.module.load_state_dict(initial)
+            trainer = profiled_trainer(m, args(CLS_FT_PROFILED + 2, eval_period=0), ft_train, first=1,
+                                       n=CLS_FT_PROFILED)
+            trainer.train()
+            prof, wall = trainer.profile
+            busy, by_name = device_busy(prof)
+            log(f"[{tag}] {dtype}: {CLS_FT_PROFILED} profiled steps: wall {wall / CLS_FT_PROFILED / 1e3:.2f} ms a step,"
+                f" device busy {busy / CLS_FT_PROFILED / 1e3:.2f} ms, idle share {1 - busy / wall:.3f}; cuDNN"
+                f" convolutions {kernel_shares(by_name, busy)['conv']:.1%} of busy")
+            for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
+                log(f"[{tag}]   {v / CLS_FT_PROFILED / 1e3:9.3f} ms {v / busy:6.1%}  {k[:110]}")
+            if dtype == "bfloat16":
+                del m
+        final = model.eval(TrainerArgs(run_name="eval", batch_size=8), ft_val)
+        log(f"[{tag}] FocoosModel.eval ({CLS_FT_VAL} val images from disk, batch 8): {final['classification']}")
+        assert 0.0 <= final["classification"]["f1"] <= 100.0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    log(f"[fai_cls] launches over the phase: {counts} (STDC: no kernel of the port on this path); phase wall time"
+        f" {time.perf_counter() - phase_t0:.1f}s")
+    assert not any(counts.values()), counts
+    return counts
+
+
+def rtmo_step_on(module, cfg, images: np.ndarray, targets, dev, carried=None) -> dict:
+    """One train-mode forward + criterion + backward of an rtmo ``module`` on
+    ``dev`` (on ``carried``'s assignment where given) → losses, global grad
+    norm, the assignment used and DCC's running statistics after it, on the
+    CPU. DCC's running buffers are held in fp64 for the step (the module
+    still takes its batch statistics in fp32): stored in fp32, ~0.9 of them
+    the initial values, their rounding would put a floor of ~4e-5 under
+    the recovered batch variance's error (2^-24 x running / (0.1 x batch)
+    variance, at rtmo-s's smallest batch variances)."""
+    from focoos_tpu_torch.models.rtmo.loss import rtmo_criterion
+
+    bn = module.head["dcc"].pose_to_kpts[1]
+    held = {n: getattr(bn, n) for n in ("running_mean", "running_var")}
+    for n, t in held.items():
+        setattr(bn, n, t.double())
+    module.train()
+    module.zero_grad(set_to_none=True)
+    _, aux = module(torch.from_numpy(images).to(dev))
+    losses, used = rtmo_criterion(module.head["dcc"], aux, targets.to(dev), cfg,
+                                  carried=None if carried is None else carried.to(dev))
+    losses["total"].backward()
+    out = dict(losses={k: float(v.detach()) for k, v in losses.items()}, norm=grad_norm(module), used=used.to("cpu"),
+               dcc=(bn.running_mean.detach().cpu(), bn.running_var.detach().cpu()))
+    for n, t in held.items():
+        t.copy_(getattr(bn, n))
+        setattr(bn, n, t)
+    module.eval()
+    module.zero_grad(set_to_none=True)
+    return out
+
+
+def rtmo_criterion_alone(model, images: np.ndarray, targets) -> tuple:
+    """The criterion (SimOTA included) and its backward alone on the card at a
+    step's shapes, a train-mode forward's raw outputs taken as leaves → (ms
+    a call on the host clock around synchronized calls, [B, A, N], one
+    profiled call's device busy ms and its largest kernels)."""
+    import dataclasses
+
+    from focoos_tpu_torch.models.rtmo.loss import rtmo_criterion
+
+    dev, module = model.device, model.module
+    state = {k: v.detach().clone() for k, v in module.state_dict().items()}
+    module.train()
+    with torch.no_grad():
+        _, aux = module(torch.from_numpy(images).to(dev))
+    leaves = {f: getattr(aux, f).detach().requires_grad_() for f in ("cls_scores", "bbox_preds", "kpt_offsets",
+                                                                      "kpt_vis", "pose_feats")}
+    aux = dataclasses.replace(aux, **leaves)
+    t = targets.to(dev)
+
+    def call():
+        losses, _ = rtmo_criterion(module.head["dcc"], aux, t, model.config)
+        losses["total"].backward()
+
+    call()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    module.eval()
+    module.zero_grad(set_to_none=True)
+    module.load_state_dict(state)
+    busy, by_name = device_busy(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return float(np.median(ts)) * 1e3, (*aux.cls_scores.shape[:2], t.labels.shape[1]), busy / 1e3, top
+
+
+def phase_rtmo_train(dev, smi: str) -> dict:
+    """rtmo-s-coco fine-tuned at 640², full width: one B=2 step on mapped
+    train records, the card's SimOTA against the CPU's, then the card's step
+    on the CPU's assignment against the CPU's step in fp64 (fp32 and bf16,
+    DCC's running statistics too); FocoosModel.train from a seeded
+    COCO-keypoints set on disk (the train loader alone, fp32 and bf16 with
+    keypoint validation, profiled steps, the criterion alone) and
+    FocoosModel.eval, every kernel's launches counted from 0 before each
+    run: nms_keep once per validation forward, no other kernel; nms_keep
+    held against its plain version on a validation batch's candidates.
+    Returns every kernel's launches summed over the counted runs."""
+    import copy
+    import os
+    import shutil
+    import tempfile
+
+    from focoos_tpu_torch import ModelManager
+    from focoos_tpu_torch.data.auto_dataset import AutoDataset
+    from focoos_tpu_torch.data.default_aug import get_default_by_task, keypoints_train_augs
+    from focoos_tpu_torch.ops.nms import nms_keep, nms_keep_reference, pre_topk
+    from focoos_tpu_torch.ports import Task, TrainerArgs
+
+    phase_t0 = time.perf_counter()
+    tag = f"rtmo_train {KP_CARD}"
+    total = dict.fromkeys(kernel_counts(), 0)
+    workers = min(SEG_WORKERS, os.cpu_count())
+    root = tempfile.mkdtemp(prefix="chip_smoke_rtmo_train_")
+    try:
+        t0 = time.perf_counter()
+        kp_root = write_keypoint_set(os.path.join(root, "people"), KP_FT_TRAIN, KP_FT_VAL, KP_FT_HW, seed=50)
+        auto = AutoDataset(kp_root, task="keypoint")
+        augs = copy.deepcopy(keypoints_train_augs)
+        kp_train = auto.get_split(augs, split="train")
+        kp_val = auto.get_split(get_default_by_task(Task.KEYPOINT, min(KP_FT_HW))[1], split="val")
+        v0 = kp_val[0]
+        assert v0.image.shape[:2] == (v0.height, v0.width) == KP_FT_HW
+        log(f"[rtmo_train] wrote {KP_FT_TRAIN} train and {KP_FT_VAL} val {KP_FT_HW[1]}x{KP_FT_HW[0]} JPEGs with 1-3"
+            f" textured people of 17 keypoints, about a fifth unlabelled ({time.perf_counter() - t0:.1f}s); train:"
+            f" keypoints_train_augs (640, crop); validation at {min(KP_FT_HW)} (records kept at their size)")
+
+        model = ModelManager.get(KP_CARD, device=dev, seed=0)
+        perturb_rtmo(model.module, seed=51, size=KP_SIZE)
+        condition_for_training(model.module)
+        cfg = model.config
+        model16 = ModelManager.get(KP_CARD, device=dev, dtype="bfloat16", init_weights=False)
+        cpu = ModelManager.get(KP_CARD, device="cpu", init_weights=False)
+        initial = {k: v.detach().clone() for k, v in model.module.state_dict().items()}
+        for m in (model16, cpu):
+            m.module.load_state_dict(initial)
+        dcc_bn = model.module.head["dcc"].pose_to_kpts[1]
+        dcc0 = tuple(initial[f"head.dcc.pose_to_kpts.1.running_{s}"].cpu() for s in ("mean", "var"))
+        log(f"[{tag}] CSPDarknet-{cfg.backbone_config.size}, widen {cfg.widen_factor} (SimOTA centres on the visible"
+            f" keypoints' mean), {sum(p.numel() for p in model.module.parameters()) / 1e6:.2f}M params; weights"
+            f" perturbed (perturb_rtmo) and conditioned (condition_for_training)")
+
+        # one step at B=2: the card's SimOTA against the CPU's, then the step on the CPU's assignment
+        np.random.seed(52)
+        pair = [kp_train[i] for i in range(2)]
+        images, targets = model.processor.train(True).preprocess_entries(pair, max_instances=100)
+        model.processor.train(False)
+        t0 = time.perf_counter()
+        with cpu_fp64(cpu.module):
+            ref = rtmo_step_on(cpu.module, cfg, images, targets, torch.device("cpu"))
+        cpu_s = time.perf_counter() - t0
+        cpu.module.load_state_dict(initial)
+        # the CPU's own fp32 step on its assignment: how far fp32 alone takes DCC's statistics from fp64
+        cpu32 = dcc_stat_errs(rtmo_step_on(cpu.module, cfg, images, targets, torch.device("cpu"), carried=ref["used"])
+                              ["dcc"], ref["dcc"], dcc0, dcc_bn.momentum)
+        cpu.module.load_state_dict(initial)
+        own = rtmo_step_on(model.module, cfg, images, targets, dev)
+        model.module.load_state_dict(initial)
+        r, o = ref["used"], own["used"]
+        n_pos, n_own = int(r.pos_mask.sum()), int(o.pos_mask.sum())
+        same_set = bool(torch.equal(o.pos_mask, r.pos_mask))
+        same_gt = same_set and bool(torch.equal(o.gt_idx[r.pos_mask], r.gt_idx[r.pos_mask]))
+        log(f"[{tag}] one step at B=2 {tuple(images.shape[1:3])}, {int(targets.valid.sum())} people, SimOTA over"
+            f" [2, {r.pos_mask.shape[1]} priors, {targets.valid.shape[1]} gt]: the CPU's fp64 step ({cpu_s:.1f}s) has"
+            f" {n_pos} positives, the card's own SimOTA {n_own}; the same positive set {same_set}, the same gt index"
+            f" {same_gt}")
+        assert n_pos > 0 and n_own == n_pos and same_set and same_gt, "the card's SimOTA differs from the CPU's"
+        for name, m, gate, ngate in (("fp32", model, TRAIN_LOSS_RTOL, TRAIN_GRAD_NORM_RTOL),
+                                     ("bf16", model16, TRAIN_BF16_TOL, TRAIN_BF16_GRAD_NORM_RTOL)):
+            got = rtmo_step_on(m.module, cfg, images, targets, dev, carried=r)
+            m.module.load_state_dict(initial)
+            keys = [k for k in ref["losses"] if k.startswith("loss_") or k == "total"]
+            if name == "fp32":
+                errs = {k: abs(got["losses"][k] - ref["losses"][k]) / max(abs(ref["losses"][k]), 1e-12) for k in keys}
+            else:  # bf16: each loss within TRAIN_BF16_TOL of the total
+                errs = {k: abs(got["losses"][k] - ref["losses"][k]) / abs(ref["losses"]["total"]) for k in keys}
+            worst = max(errs, key=errs.get)
+            nrel = abs(got["norm"] - ref["norm"]) / ref["norm"]
+            dcc = dcc_stat_errs(got["dcc"], ref["dcc"], dcc0, dcc_bn.momentum)
+            log(f"[{tag}] card {name} vs CPU fp64 on the CPU's assignment: "
+                + ", ".join(f"{k} {got['losses'][k]:.6f}/{ref['losses'][k]:.6f}" for k in keys)
+                + f"; max {'rel err' if name == 'fp32' else 'err / total'} {errs[worst]:.3e} ({worst}, tol {gate:.0e});"
+                f" grad_norm {got['norm']:.6f} vs {ref['norm']:.6f} rel {nrel:.3e} (tol {ngate:.0e})")
+            for what, e in ((f"card {name}", dcc),) + ((("the CPU's own fp32", cpu32),) if name == "fp32" else ()):
+                log(f"[{tag}] DCC's statistics, {what} vs CPU fp64: running mean {e['running'][0]:.3e} of the running"
+                    f" std, running variance {e['running'][1]:.3e} rel; the step's batch statistics: mean"
+                    f" {e['batch'][0]:.3e} of the batch std, variance {e['batch'][1]:.3e} rel (that feature's |mean|"
+                    f" {e['offset']:.1f} std)" + (f"; gates: running ≤ {KP_DCC_TOL:.0e}, batch no farther than the"
+                                                  " CPU's own fp32" if what == "card fp32" else ""))
+            assert errs[worst] <= gate, f"{name} {worst}: card {got['losses'][worst]} vs CPU {ref['losses'][worst]}"
+            assert nrel <= ngate, f"{name} grad_norm: card {got['norm']} vs CPU {ref['norm']}"
+            assert got["losses"]["num_pos"] == ref["losses"]["num_pos"]
+            if name == "fp32":  # the batch statistics, undiluted, lie beyond fp32's reach of 1e-5 (the CPU's own)
+                assert max(dcc["running"]) <= KP_DCC_TOL, f"DCC's running statistics: {dcc['running']}"
+                assert all(c <= k for c, k in zip(dcc["batch"], cpu32["batch"])), f"DCC's batch statistics: {dcc}"
+        del cpu, model16
+
+        # the loader alone and the criterion alone at the run's batch
+        ips, ms, first = loader_alone(kp_train, model.processor, KP_FT_BATCH, workers)
+        log(f"[{tag}] {smi}: train loader alone, keypoints_train_augs, B={KP_FT_BATCH}, {workers} workers:"
+            f" {ips:.1f} images/s ({ms:.1f} ms a batch; the first, workers starting, {first:.2f}s)")
+        np.random.seed(53)
+        batch, tg = model.processor.train(True).preprocess_entries([kp_train[i] for i in range(KP_FT_BATCH)],
+                                                                   max_instances=100)
+        model.processor.train(False)
+        crit_ms, shape, crit_busy, top = rtmo_criterion_alone(model, batch, tg)
+        log(f"[{tag}] {smi}: the criterion (SimOTA over {list(shape)}, {int(tg.valid.sum())} people) and its backward"
+            f" alone: {crit_ms:.2f} ms on the host clock; a profiled call keeps the card busy {crit_busy:.2f} ms,"
+            " largest kernels " + ", ".join(f"{k[:60]} {v / 1e3:.2f} ms" for k, v in top))
+
+        out_dir = tempfile.mkdtemp(prefix="ft_", dir=root)
+
+        def args(iters: int, eval_period: int = KP_FT_EVAL_PERIOD) -> TrainerArgs:
+            return TrainerArgs(run_name="rtmo_train", output_dir=out_dir, batch_size=KP_FT_BATCH, max_iters=iters,
+                               workers=workers, eval_period=eval_period, checkpointer_period=iters, log_period=iters,
+                               ema_enabled=True, seed=0, workers_timeout=300, samples=0)
+
+        val_forwards = -(-KP_FT_VAL // (KP_FT_BATCH // 2))  # evaluate_dataset's batches at the trainer's B/2
+        n_evals = KP_FT_STEPS // KP_FT_EVAL_PERIOD + 1  # the validations and the final metrics
+        for dtype in ("float32", "bfloat16"):
+            m = model if dtype == "float32" else ModelManager.get(KP_CARD, device=dev, dtype=dtype, init_weights=False)
+            m.module.load_state_dict(initial)
+            torch.cuda.reset_peak_memory_stats()
+            res, counts = counted(lambda: m.train(args(KP_FT_STEPS), kp_train, kp_val), total)
+            n = counts["nms_keep"]
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            with open(os.path.join(res["run_dir"], "metrics.json")) as f:
+                row = [json.loads(line) for line in f][-1]
+            kp = res["metrics"]["keypoints"]
+            log(f"[{tag}] {smi}, {dtype}: FocoosModel.train {res['iterations']} steps at B={KP_FT_BATCH} {KP_SIZE} from"
+                f" disk, {workers} workers, validation every {KP_FT_EVAL_PERIOD}: step p50 {row['time'] * 1e3:.2f} ms ="
+                f" {KP_FT_BATCH / row['time']:.1f} images/s, data_time p50 {row['data_time'] * 1e3:.2f} ms; peak"
+                f" memory allocated {peak:.2f} GiB; final val keypoints {ap_line(kp)}; losses "
+                + ", ".join(f"{k} {row[k]:.4f}" for k in sorted(row) if k.startswith("loss_"))
+                + f", num_pos {row.get('num_pos', float('nan')):.1f}; launches {counts} (nms_keep: {n_evals} evaluations x"
+                f" {val_forwards} forwards)")
+            assert res["iterations"] == KP_FT_STEPS and n == n_evals * val_forwards, (res["iterations"], n)
+            assert not any(v for k, v in counts.items() if k != "nms_keep"), counts
+            assert all(np.isfinite(v) for k, v in row.items() if "loss" in k), row
+            assert 0.0 <= kp["AP"] <= 100.0, kp
+            m.module.load_state_dict(initial)
+            trainer = profiled_trainer(m, args(KP_FT_PROFILED + 2, eval_period=0), kp_train, first=1, n=KP_FT_PROFILED)
+            trainer.train()
+            prof, wall = trainer.profile
+            busy, by_name = device_busy(prof)
+            sh = kernel_shares(by_name, busy)
+            log(f"[{tag}] {dtype}: {KP_FT_PROFILED} profiled steps: wall {wall / KP_FT_PROFILED / 1e3:.2f} ms a step,"
+                f" device busy {busy / KP_FT_PROFILED / 1e3:.2f} ms, idle share {1 - busy / wall:.3f}; cuDNN"
+                f" convolutions {sh['conv']:.1%} of busy, layout transposes {sh['transpose']:.1%}")
+            for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+                log(f"[{tag}]   {v / KP_FT_PROFILED / 1e3:9.3f} ms {v / busy:6.1%}  {k[:110]}")
+            if dtype == "bfloat16":
+                del m
+        final, counts = counted(lambda: model.eval(TrainerArgs(run_name="eval", batch_size=8), kp_val), total)
+        n = counts["nms_keep"]
+        log(f"[{tag}] FocoosModel.eval ({KP_FT_VAL} val images from disk, batch 8): keypoints"
+            f" {ap_line(final['keypoints'])}; launches {counts}")
+        assert n == -(-KP_FT_VAL // 8) and all(np.isfinite(v) for v in final["keypoints"].values())
+        assert not any(v for k, v in counts.items() if k != "nms_keep"), counts
+
+        # the NMS kernel against its plain version on a validation batch's candidates (outside the counts)
+        vb, _ = model.processor.preprocess([kp_val[i] for i in range(8)])
+        with torch.inference_mode():
+            boxes, scores, _ = model.module.candidates(model.module.raw_outputs(torch.from_numpy(vb).to(dev)))
+            top_boxes, top_scores, _ = pre_topk(boxes, scores, cfg.nms_pre_topk, cfg.score_thr)
+            keep = nms_keep(top_boxes, top_scores, cfg.nms_thr)
+            plain = nms_keep_reference(top_boxes, top_scores, cfg.nms_thr)
+        differ, kept, valid = int((keep != plain).sum()), int(keep.sum()), int((top_scores > 0).sum())
+        log(f"[{tag}] nms_keep on a validation batch's candidates [{top_boxes.shape[0]}, {top_boxes.shape[1]}]"
+            f" (thr {cfg.nms_thr}): {differ} keep-mask entries differ from the plain version; {kept} kept of {valid}"
+            " valid")
+        assert differ == 0, f"nms_keep on the validation candidates: {differ} entries differ"
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[rtmo_train] launches over the phase's counted runs: {total}; phase wall time"
+        f" {time.perf_counter() - phase_t0:.1f}s")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -2902,6 +3595,8 @@ def main() -> int:
     finetune_m = phase_finetune_m(dev, smi)
     fai_mf = phase_mf(dev, smi)
     segm_train = phase_segm_train(dev, smi)
+    fai_cls = phase_fai_cls(dev, smi)
+    rtmo_train = phase_rtmo_train(dev, smi)
 
     # library_ms: no single PyTorch call computes any of these functions (MSDA needs a
     # grid_sample per level and a weighted sum; the stem three convs, BN, ReLU and a
@@ -2936,6 +3631,8 @@ def main() -> int:
         k["launches_finetune_m"] = finetune_m.get(k["name"], 0)
         k["launches_fai_mf"] = fai_mf.get(k["name"], 0)
         k["launches_segm_train"] = segm_train.get(k["name"], 0)
+        k["launches_fai_cls"] = fai_cls[k["name"]]
+        k["launches_rtmo_train"] = rtmo_train[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

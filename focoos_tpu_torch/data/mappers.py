@@ -3,10 +3,9 @@
 
 A mapper reads the image, runs the augmentation pipeline, converts the
 annotations into numpy ``Instances`` and drops empty training records
-(returning None makes MapDataset retry another record). The detection,
-instance-segmentation (COCO polygons or RLE into ``BitMasks``), keypoint and
-semantic mappers are ported; the classification mapper lands with fai_cls
-(ROADMAP Queue 1 item 7).
+(returning None makes MapDataset retry another record): detection,
+instance segmentation (COCO polygons or RLE into ``BitMasks``), keypoints,
+semantic segmentation and classification.
 """
 
 from __future__ import annotations
@@ -188,6 +187,29 @@ class SemanticDatasetMapper(DatasetMapper):
         )
 
 
+class ClassificationDatasetMapper(DatasetMapper):
+    """(reference: mappers/classification_dataset_mapper.py:26) A
+    folder-per-class record carries its ``label`` (an int); a COCO record
+    carries none, and its multi-label is its annotations' ``category_id``s
+    (already contiguous; reference :79-83, as coco_2017_cls uses)."""
+
+    def __call__(self, record: dict) -> Optional[DatasetEntry]:
+        if record.get("label") is None and record.get("annotations"):
+            record = dict(record, label=[a.get("category_id") for a in record["annotations"]])
+        image = _read_image(record["file_name"])
+        h0, w0 = image.shape[:2]
+        aug_input = AugInput(image)
+        self.augmentations(aug_input)
+        return DatasetEntry(
+            image=aug_input.image,
+            height=h0,
+            width=w0,
+            label=record.get("label"),
+            file_name=record["file_name"],
+            image_id=record.get("image_id"),
+        )
+
+
 def get_mapper_by_task(task: Task, augmentations: List[Augmentation], is_train: bool = True) -> DatasetMapper:
     if task == Task.DETECTION:
         return DetectionDatasetMapper(augmentations, is_train)
@@ -198,5 +220,5 @@ def get_mapper_by_task(task: Task, augmentations: List[Augmentation], is_train: 
     if task == Task.SEMSEG:
         return SemanticDatasetMapper(augmentations, is_train)
     if task == Task.CLASSIFICATION:
-        raise NotImplementedError(f"the {Task(task).value} mapper is not ported yet (ROADMAP Queue 1 item 7)")
+        return ClassificationDatasetMapper(augmentations, is_train)
     raise ValueError(f"No mapper for task {task}")

@@ -3,8 +3,8 @@ focoos_tpu/models/focoos_model.py; reference: focoos/models/focoos_model.py).
 
 Owns ``(nn.Module on a device, ModelInfo, Processor)`` and exposes the
 reference's verbs. The forward runs eagerly under ``torch.inference_mode()``;
-``train`` runs the port's trainer (fai_detr, fai_mf, bisenetformer) and ``eval`` its evaluation
-loop (every ported family). Export is ported in a later slice (ROADMAP Queue 1 item 6). The model
+``train`` runs the port's trainer and ``eval`` its evaluation loop (every
+family: fai_detr, fai_mf, bisenetformer, fai_cls, rtmo). Export is ported in a later slice (ROADMAP Queue 1 item 6). The model
 computes in its ``compute_dtype`` (fp32 or bf16) with fp32 parameters, as the
 JAX package's FocoosModel (focoos_model.py:48,53).
 """

@@ -13,8 +13,10 @@ suppressed slots at score 0. ``jax.vmap(decode_one)`` becomes batched tensor
 code, so the NMS kernel (``ops/nms.py::nms_keep``) launches once per forward
 for the whole batch. Parameter names are the reference's torch names, which
 ``focoos_tpu.utils.torch_convert.rtmo_rules`` maps. Images enter NHWC; conv
-activations are NCHW. The module computes the eval forward; training (SimOTA,
-the MLE loss, DCC's masked train statistics) is not ported yet.
+activations are NCHW. In training the forward stops at the raw per-anchor
+outputs: the criterion (``loss.py``) assigns positives with SimOTA and runs
+DCC once a step on the gathered positives, whose pose-to-keypoint BatchNorm
+takes its statistics over the valid slots only (``MaskedBatchNorm1d``).
 
 In a bf16 model (``compute_dtype``, ``nn/layers/common.py``) the dtypes are
 flax's: the image is normalized in fp32, then cast; convolutions, dense
@@ -45,6 +47,7 @@ from focoos_tpu_torch.nn.layers.common import (
     Conv2d,
     LayerNorm,
     Linear,
+    MaskedBatchNorm1d,
     MultiHeadAttention,
     init_like_flax_,
 )
@@ -319,8 +322,10 @@ class GAUEncoder(nn.Module):
 
 
 class DCC(nn.Module):
-    """Dynamic coordinate classifier (reference :383-668), eval: the
-    pose-to-keypoint BatchNorm1d uses its running statistics."""
+    """Dynamic coordinate classifier (reference :383-668). In eval the
+    pose-to-keypoint BatchNorm uses its running statistics; in training
+    (the criterion's call) its statistics are taken over the rows ``mask``
+    marks valid."""
 
     def __init__(self, cfg: RTMOConfig, in_channels: int):
         super().__init__()
@@ -332,16 +337,18 @@ class DCC(nn.Module):
         self.register_buffer("spe_dim", torch.from_numpy(spe_dim_t(cfg.spe_channels, 300.0)), persistent=False)
         self.x_fc = Linear(cfg.spe_channels, f)
         self.y_fc = Linear(cfg.spe_channels, f)
-        # learnable per-keypoint sigma (train only; carried so checkpoints load)
+        # learnable per-keypoint sigma (the MLE loss's target width)
         self.sigma_fc = nn.Sequential(Linear(in_channels, k), nn.Sigmoid(), Scale((), 0.1))
-        # the BatchNorm1d computes in fp32 and returns the dense layer's dtype (JAX _MaskedBatchNorm)
-        self.pose_to_kpts = nn.Sequential(Linear(in_channels, f * k), nn.BatchNorm1d(f * k, eps=1e-5))
+        # the BatchNorm computes in fp32 and returns the dense layer's dtype (JAX _MaskedBatchNorm)
+        self.pose_to_kpts = nn.Sequential(Linear(in_channels, f * k), MaskedBatchNorm1d(f * k, eps=1e-5))
         self.pos_enc = nn.Parameter(torch.randn(k, cfg.gau_s))
         self.gau = GAUEncoder(s=cfg.gau_s, token_dims=f, expansion_factor=cfg.gau_expansion_factor)
 
-    def forward(self, pose_feats: torch.Tensor, bbox_cs: torch.Tensor, grids: torch.Tensor):
+    def forward(self, pose_feats: torch.Tensor, bbox_cs: torch.Tensor, grids: torch.Tensor,
+                mask: Optional[torch.Tensor] = None):
         """pose_feats [..., C_pose]; bbox_cs [..., 4] (cx, cy, sw, sh);
-        grids [..., 2] → (keypoints [..., K, 2] abs, (x_probs, y_probs), sigmas)."""
+        grids [..., 2]; ``mask`` [...] the rows whose train statistics count
+        → (keypoints [..., K, 2] abs, (x_probs, y_probs), sigmas [..., K])."""
         k, f = self.cfg.num_keypoints, self.cfg.feat_channels_dcc
         center, scale = bbox_cs[..., :2], bbox_cs[..., 2:]
         # bins encoded relative to the grid point ...
@@ -355,7 +362,7 @@ class DCC(nn.Module):
 
         lin, bn = self.pose_to_kpts
         kf = lin(pose_feats)
-        kf = bn(kf.reshape(-1, kf.shape[-1]).float()).to(kf.dtype).reshape(*kf.shape[:-1], k, f)
+        kf = bn(kf, mask=mask).reshape(*kf.shape[:-1], k, f)
         kf = self.gau(kf, pos_enc=self.pos_enc)
 
         x_hms = torch.einsum("...kf,...bf->...kb", kf, x_bins_enc).float().clamp(-5e4, 5e4)
@@ -369,6 +376,23 @@ class DCC(nn.Module):
         x = (px * x_bins_abs[..., None, :]).sum(-1)
         y = (py * y_bins_abs[..., None, :]).sum(-1)
         return torch.stack([x, y], dim=-1), (px, py), sigmas
+
+    def target_heatmaps(self, kpt_targets: torch.Tensor, bbox_cs: torch.Tensor, sigmas: torch.Tensor,
+                        areas: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Laplacian target heatmaps over the ABSOLUTE bins (reference
+        :587-623; JAX ``DCC.target_heatmaps``): kpt_targets [..., K, 2],
+        bbox_cs [..., 4], sigmas [..., K], areas [...] → (hm_x [..., K, NX],
+        hm_y [..., K, NY]), with ``a = clip(sqrt(area), 1)`` and ``s = clip(sigma, 1e-3)``."""
+        center, scale = bbox_cs[..., :2], bbox_cs[..., 2:]
+        x_bins = self.x_bins_base * scale[..., 0:1] + center[..., 0:1]  # [..., NX]
+        y_bins = self.y_bins_base * scale[..., 1:2] + center[..., 1:2]
+        dist_x = (kpt_targets[..., 0:1] - x_bins[..., None, :]).abs()  # [..., K, NX]
+        dist_y = (kpt_targets[..., 1:2] - y_bins[..., None, :]).abs()
+        a = torch.sqrt(areas.clamp(min=0.0)).clamp(min=1.0)[..., None, None]
+        s = sigmas.clamp(min=1e-3)[..., None]
+        dist_x = dist_x / a / s
+        dist_y = dist_y / a / s
+        return torch.exp(-dist_x / 2) / s, torch.exp(-dist_y / 2) / s
 
 
 # ---------------------------------------------------------------------------
@@ -412,9 +436,12 @@ def _prior_tensors(featmap_sizes: Tuple[Tuple[int, int], ...], strides: Tuple[in
 class RTMO(ComputeDtype, nn.Module):
     """RTMO top-level module (reference: rtmo/modelling.py:1506-1666).
 
-    ``forward(images NHWC uint8 or float) -> (RTMOModelOutput, RTMOAuxOutputs)``;
-    normalization happens on the device, in fp32, before the cast to the
-    compute dtype (JAX :473-476).
+    ``forward(images NHWC uint8 or float) -> (RTMOModelOutput, RTMOAuxOutputs)``
+    in eval, ``(None, RTMOAuxOutputs)`` in training; normalization happens on
+    the device, in fp32, before the cast to the compute dtype (JAX :473-476).
+    The training forward runs no DCC: the criterion runs it once a step on
+    the gathered positives, so DCC's running statistics move once a step (JAX
+    binds DCC on dummy slots here only to create its variables, in eval mode).
     """
 
     def __init__(self, config: RTMOConfig, backbone: BaseBackbone):
@@ -463,10 +490,10 @@ class RTMO(ComputeDtype, nn.Module):
         return boxes, scores_all.max(-1).values, scores_all.argmax(-1)
 
     def forward(self, images: torch.Tensor):
-        if self.training:
-            raise NotImplementedError("rtmo training is not ported yet (ROADMAP Queue 1 item 7)")
         cfg = self.config
         aux = self.raw_outputs(images)
+        if self.training:
+            return None, aux
         boxes, scores, labels = self.candidates(aux)
         # one batched NMS launch for every image
         idx, valid, out_scores = topk_nms(

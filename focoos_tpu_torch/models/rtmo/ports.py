@@ -38,3 +38,29 @@ class RTMOAuxOutputs:
     pose_feats: torch.Tensor  # [B, A, C_pose]
     priors: torch.Tensor  # [A, 2]
     strides: torch.Tensor  # [A]
+
+
+@dataclass
+class KeypointTargets:
+    """Padded, batched training targets: ``labels`` [B, N] int64, ``boxes``
+    [B, N, 4] xyxy abs, ``keypoints`` [B, N, K, 2] abs, ``keypoints_visible``
+    [B, N, K] fp32 (1 where the annotation's visibility > 0), ``areas`` [B, N]
+    (the boxes' w·h), ``valid`` [B, N] bool (padding rows False)."""
+
+    labels: torch.Tensor
+    boxes: torch.Tensor
+    keypoints: torch.Tensor
+    keypoints_visible: torch.Tensor
+    areas: torch.Tensor
+    valid: torch.Tensor
+
+    def _fields(self):
+        return (self.labels, self.boxes, self.keypoints, self.keypoints_visible, self.areas, self.valid)
+
+    def to(self, device, non_blocking: bool = False) -> "KeypointTargets":
+        return KeypointTargets(*(t.to(device, non_blocking=non_blocking) for t in self._fields()))
+
+    def pin_memory(self) -> "KeypointTargets":
+        """Page-locked copies, which the DataLoader's pin thread asks for (it
+        pins only the types it knows), so the copy to the card is asynchronous."""
+        return KeypointTargets(*(t.pin_memory() for t in self._fields()))

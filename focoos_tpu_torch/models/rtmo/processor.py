@@ -4,7 +4,8 @@ focoos/models/rtmo/processor.py).
 The model decodes to static [B, D] tensors on the device; the processor
 copies them to the host once, scales boxes and keypoints back to each
 original image frame and builds the detections, or, for evaluation, the
-``Instances`` the keypoint evaluator scores.
+``Instances`` the keypoint evaluator scores. In training it batches mapped
+entries and pads their keypoint targets to ``max_instances``.
 """
 
 from __future__ import annotations
@@ -12,10 +13,11 @@ from __future__ import annotations
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 from focoos_tpu_torch.ports import DatasetEntry, FocoosDet, FocoosDetections
 from focoos_tpu_torch.models.rtmo.config import RTMOConfig
-from focoos_tpu_torch.models.rtmo.ports import RTMOModelOutput
+from focoos_tpu_torch.models.rtmo.ports import KeypointTargets, RTMOModelOutput
 from focoos_tpu_torch.processor.base_processor import Processor
 from focoos_tpu_torch.structures import Boxes, ImageList, Instances
 
@@ -26,13 +28,14 @@ class RTMOProcessor(Processor):
         self.threshold = config.score_thr
 
     def preprocess(self, inputs):
-        """Images or DatasetEntries → (NHWC batch, None). With no target size
-        the batch is padded, never resized, up to a multiple of 32, so the
-        Focus space-to-depth and the stride-8/16/32 levels split evenly."""
-        if self.training:
-            raise NotImplementedError("rtmo training preprocess is not ported yet (ROADMAP Queue 1 item 7)")
+        """Images or DatasetEntries → (NHWC batch, None; ``KeypointTargets``
+        for entries in training). With no target size the batch is padded,
+        never resized, up to a multiple of 32, so the Focus space-to-depth and
+        the stride-8/16/32 levels split evenly."""
         if isinstance(inputs, (list, tuple)) and len(inputs) > 0 and isinstance(inputs[0], DatasetEntry):
             return self.preprocess_entries(inputs)
+        if self.training:
+            raise ValueError("training preprocess expects a list of DatasetEntry")
         batch = self.get_batch(inputs, self._target_size())
         if self._target_size() is None:
             _, h, w, _ = batch.shape
@@ -41,11 +44,35 @@ class RTMOProcessor(Processor):
                 batch = np.pad(batch, ((0, 0), (0, ph), (0, pw), (0, 0)))
         return batch, None
 
-    def preprocess_entries(self, entries: List[DatasetEntry]):
-        """Entries' images (no resize), padded together to a multiple of 32 → (uint8 NHWC batch, None)."""
-        if self.training:
-            raise NotImplementedError("rtmo training targets are not ported yet (ROADMAP Queue 1 item 7)")
-        return ImageList.from_tensors([e.image for e in entries], size_divisibility=32).tensor.astype(np.uint8, copy=False), None
+    def preprocess_entries(self, entries: List[DatasetEntry], max_instances: int = 50):
+        """Entries' images (no resize), padded together to a multiple of 32 →
+        (uint8 NHWC batch, None), and in training the targets padded to
+        ``max_instances`` (JAX processor.py:46-86): visible where the
+        annotation's visibility is > 0, areas the boxes' w·h."""
+        batch = ImageList.from_tensors([e.image for e in entries], size_divisibility=32).tensor.astype(np.uint8, copy=False)
+        if not self.training:
+            return batch, None
+        b, k = len(entries), self.config.num_keypoints
+        labels = np.zeros((b, max_instances), np.int64)
+        boxes = np.zeros((b, max_instances, 4), np.float32)
+        kpts = np.zeros((b, max_instances, k, 2), np.float32)
+        vis = np.zeros((b, max_instances, k), np.float32)
+        areas = np.zeros((b, max_instances), np.float32)
+        valid = np.zeros((b, max_instances), bool)
+        for i, e in enumerate(entries):
+            inst = e.instances
+            if inst is None or len(inst) == 0:
+                continue
+            n = min(len(inst), max_instances)
+            boxes[i, :n] = inst.boxes.tensor[:n]
+            labels[i, :n] = inst.classes[:n]
+            if inst.has("keypoints"):
+                kp = inst.keypoints.tensor[:n]
+                kpts[i, :n] = kp[..., :2]
+                vis[i, :n] = kp[..., 2] > 0
+            areas[i, :n] = (boxes[i, :n, 2] - boxes[i, :n, 0]) * (boxes[i, :n, 3] - boxes[i, :n, 1])
+            valid[i, :n] = True
+        return batch, KeypointTargets(*(torch.from_numpy(a) for a in (labels, boxes, kpts, vis, areas, valid)))
 
     def _scaled_arrays(self, output: RTMOModelOutput, input_hw, image_sizes):
         """``input_hw=None`` means the batch was padded, not resized: the

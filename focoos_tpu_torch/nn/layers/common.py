@@ -145,6 +145,41 @@ class BatchNorm(ComputeDtype, nn.BatchNorm2d):
         return y.to(self.compute_dtype)
 
 
+class MaskedBatchNorm1d(nn.BatchNorm1d):
+    """BatchNorm over the last axis whose train statistics can be restricted
+    to valid rows (JAX rtmo ``_MaskedBatchNorm``, modelling.py:295-335):
+    rtmo's criterion runs DCC on a fixed number of gathered positives, and the
+    padding slots must stay out of the statistics, which the reference never
+    sees (it runs DCC on exactly the positives). In training the mean and the
+    *biased* variance are taken over the rows where ``mask`` is true (every
+    row without a mask), each divided by max(Σmask, 1), and the running
+    statistics move flax's way (``momentum`` 0.1 is flax's 0.9); in eval,
+    and when ``frozen`` (the trainer's ``freeze_bn``, as JAX's
+    ``bn_use_running``), the running statistics normalize. Statistics and
+    normalization are fp32; the output takes the input's dtype. The
+    state_dict keys are BatchNorm1d's."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
+        super().__init__(num_features, eps=eps, momentum=momentum)
+        self.frozen = False
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        xf = x.float().reshape(-1, x.shape[-1])
+        if self.training and not self.frozen:
+            w = xf.new_ones(xf.shape[0]) if mask is None else mask.to(torch.float32).reshape(-1)
+            n = w.sum().clamp(min=1.0)
+            mean = (xf * w[:, None]).sum(0) / n
+            var = ((xf - mean).square() * w[:, None]).sum(0) / n
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var + m * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight.float() + self.bias.float()
+        return y.to(x.dtype).reshape(x.shape)
+
+
 def get_norm(norm: Optional[str], channels: int) -> Optional[nn.Module]:
     """Norm-layer factory for the norms the slice uses (reference: focoos/nn/layers/norm.py:209)."""
     if norm is None or norm == "":

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from focoos_tpu_torch.trainer.evaluation.evaluators import (
+    ClassificationEvaluator,
     DatasetEvaluator,
     DatasetEvaluators,
     DetectionEvaluator,
@@ -45,6 +46,7 @@ from focoos_tpu_torch.utils.logger import get_logger
 logger = get_logger(__name__)
 
 __all__ = [
+    "ClassificationEvaluator",
     "DatasetEvaluator",
     "DatasetEvaluators",
     "DetectionEvaluator",

@@ -5,10 +5,11 @@ trimmed to the tasks the port serves; reference: focoos/trainer/evaluation/).
 and bbox AP (``InstanceSegmentationEvaluator``, the mask IoU on the device
 where the decode left its packed masks there) and OKS keypoint AP
 (``KeypointEvaluator``) on the numpy core of ``coco_eval.py``; the
-confusion-matrix mIoU of ``SemSegEvaluator``. One process evaluates the
-whole dataset, so the JAX package's multi-host gather seam is left out. The
-classification evaluator lands with fai_cls and the panoptic one with
-fai_mf's panoptic decode (ROADMAP Queue 1 item 7).
+confusion-matrix mIoU of ``SemSegEvaluator``; the multi-label F1 of
+``ClassificationEvaluator``. One process evaluates the whole dataset; the
+classification evaluator keeps the JAX package's ``state_for_gather`` /
+``load_gathered_states`` seam. The panoptic evaluator lands with fai_mf's
+panoptic decode (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -248,6 +249,59 @@ class SemSegEvaluator(DatasetEvaluator):
         return {"sem_seg": res}
 
 
+class ClassificationEvaluator(DatasetEvaluator):
+    """Multi-label F1/precision/recall (reference: classification_evaluation.py:16):
+    per-class TP/FP/FN at ``threshold`` over sigmoid probabilities; ``f1``,
+    ``precision`` and ``recall`` are means over the classes with support, in
+    percent, beside ``micro_f1``."""
+
+    def __init__(self, num_classes: int, threshold: float = 0.5, class_names: Optional[List[str]] = None):
+        self.num_classes = num_classes
+        self.threshold = threshold
+        self.class_names = class_names
+        self.reset()
+
+    def reset(self):
+        self._tp = np.zeros(self.num_classes)
+        self._fp = np.zeros(self.num_classes)
+        self._fn = np.zeros(self.num_classes)
+
+    def process(self, inputs, outputs):
+        for entry, out in zip(inputs, outputs):
+            pred = np.asarray(out["logits"]) > self.threshold  # already sigmoided
+            gt = np.zeros(self.num_classes, bool)
+            if entry.label is not None:
+                gt[np.asarray(entry.label).reshape(-1)] = True
+            self._tp += pred & gt
+            self._fp += pred & ~gt
+            self._fn += ~pred & gt
+
+    def state_for_gather(self):
+        return (self._tp, self._fp, self._fn)
+
+    def load_gathered_states(self, states):
+        self._tp = np.sum([s[0] for s in states], axis=0)
+        self._fp = np.sum([s[1] for s in states], axis=0)
+        self._fn = np.sum([s[2] for s in states], axis=0)
+
+    def evaluate(self):
+        prec = self._tp / np.maximum(self._tp + self._fp, 1e-9)
+        rec = self._tp / np.maximum(self._tp + self._fn, 1e-9)
+        f1 = 2 * prec * rec / np.maximum(prec + rec, 1e-9)
+        support = (self._tp + self._fn) > 0
+        micro_p = self._tp.sum() / max((self._tp + self._fp).sum(), 1e-9)
+        micro_r = self._tp.sum() / max((self._tp + self._fn).sum(), 1e-9)
+        micro_f1 = 2 * micro_p * micro_r / max(micro_p + micro_r, 1e-9)
+        return {
+            "classification": {
+                "f1": float(f1[support].mean()) * 100 if support.any() else 0.0,
+                "precision": float(prec[support].mean()) * 100 if support.any() else 0.0,
+                "recall": float(rec[support].mean()) * 100 if support.any() else 0.0,
+                "micro_f1": float(micro_f1) * 100,
+            }
+        }
+
+
 def get_evaluator(task: Task, num_classes: int, class_names: Optional[List[str]] = None) -> DatasetEvaluator:
     """Task → evaluator dispatch (reference: get_eval.py:5)."""
     if task == Task.DETECTION:
@@ -259,5 +313,5 @@ def get_evaluator(task: Task, num_classes: int, class_names: Optional[List[str]]
     if task == Task.SEMSEG:
         return SemSegEvaluator(num_classes, class_names=class_names)
     if task == Task.CLASSIFICATION:
-        raise NotImplementedError(f"the {Task(task).value} evaluator is not ported yet (ROADMAP Queue 1 item 7)")
+        return ClassificationEvaluator(num_classes, class_names=class_names)
     raise ValueError(f"No evaluator for task {task}")

@@ -88,8 +88,10 @@ def ema_decay_schedule(decay: float, warmup: int) -> Callable[[int], float]:
 # spares them (ROADMAP Queue 3): fai_detr's input projections
 # (``input_proj_<i>_bn``), STDC's ``avd_bn``, ``skip_dw_bn`` and ``skip_pw_bn``
 # (nn/backbone/stdc.py's ``avd_layer`` and ``skip`` Sequentials), fai_mf's FPN
-# norms (``adapter_<i>_norm``, ``layer_<i>_norm``) and bisenetformer's ARM ``bn_atten``
-_UNFROZEN_BN = re.compile(r"input_proj|\.(avd_layer\.1|skip\.[13])$|^pixel_decoder\.(adapter|layer)_\d\.norm$|\.bn_atten$")
+# norms (``adapter_<i>_norm``, ``layer_<i>_norm``), bisenetformer's ARM ``bn_atten``, and rtmo's head
+# branches' and neck projector's (``conv_cls_<i>_<j>_bn``, ``conv_pose_<i>_<j>_bn``, ``projector_<i>_bn``)
+_UNFROZEN_BN = re.compile(r"\.input_proj\.\d+\.(1|norm)$|\.(avd_layer\.1|skip\.[13])$|^pixel_decoder\.(adapter|layer)_\d\.norm$|\.bn_atten$"
+                          r"|^head\.head_module\.conv_(cls|pose)\.\d+\.\d+\.bn$|^neck\.projector\.convs\.\d+\.bn$")
 
 
 def param_hyperparams(
@@ -106,7 +108,8 @@ def param_hyperparams(
     """{parameter name: (lr multiplier, weight decay)}, the reference's policy
     (solver/build.py:81-101) by substrings of the torch name: the multipliers
     stack (``pixel_decoder.backbone.*`` takes the backbone's and the pixel
-    decoder's), ``head`` outside the classifiers takes the head's; norms by
+    decoder's), ``head`` outside the classifiers takes the head's (fai_cls's
+    ``cls_head.classifier.*`` too, as JAX's ``cls_head/fc*``); norms by
     module type take ``wd_norm``; a parameter under ``freeze_prefixes`` takes
     0 and 0 (it keeps its gradient, as JAX's masks do, and never moves), and
     so, with ``freeze_bn``, does a BatchNorm's scale and bias, except those
@@ -127,7 +130,10 @@ def param_hyperparams(
         if any(name.startswith(f) for f in freeze_prefixes) or name in bn_params:
             out[name] = (0.0, 0.0)
             continue
-        head = "head" in name and "classifier" not in name
+        # JAX's "head" test spares paths with "classifier" in them; fai_cls's convs are JAX's cls_head/fc*, so
+        # the head multiplier applies to them there, where the reference's cls_head.classifier.* names (and
+        # the reference torch SDK's policy) spare them: the port follows JAX (ROADMAP Queue 3)
+        head = "head" in name and ("classifier" not in name or name.startswith("cls_head."))
         mult = 1.0
         if "backbone" in name:
             mult *= backbone_multiplier

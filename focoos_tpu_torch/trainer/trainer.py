@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from focoos_tpu_torch.data.loaders import build_train_loader
-from focoos_tpu_torch.nn.layers.common import BatchNorm, clear_cast_caches
+from focoos_tpu_torch.nn.layers.common import BatchNorm, MaskedBatchNorm1d, clear_cast_caches
 from focoos_tpu_torch.ports import ArtifactName, ModelStatus, Task, TrainerArgs
 from focoos_tpu_torch.trainer import hooks as hooks_mod
 from focoos_tpu_torch.trainer.checkpointer import Checkpointer, PeriodicCheckpointerMixin
@@ -196,11 +196,7 @@ class FocoosTrainer:
         missing = _unsupported(args)
         if missing:
             raise NotImplementedError(f"not ported yet (ROADMAP Queue 1): {', '.join(missing)}")
-        family = model.model_info.model_family.value
-        try:
-            self.loss_module = importlib.import_module(f"focoos_tpu_torch.models.{family}.loss")
-        except ModuleNotFoundError as e:
-            raise NotImplementedError(f"training {family} is not ported yet (ROADMAP Queue 1 item 7)") from e
+        self.loss_module = importlib.import_module(f"focoos_tpu_torch.models.{model.model_info.model_family.value}.loss")
         self.model = model
         self.args = args
         self.train_dataset = train_dataset
@@ -224,7 +220,8 @@ class FocoosTrainer:
         model.processor.train(True)
         # freeze_bn: every BatchNorm takes its running statistics in training
         # too (JAX's FREEZE_ALL_BN), and the solver leaves its parameters alone
-        frozen = [m for m in module.modules() if isinstance(m, BatchNorm) and not m.frozen] if args.freeze_bn else []
+        frozen = [m for m in module.modules() if isinstance(m, (BatchNorm, MaskedBatchNorm1d)) and not m.frozen
+                  ] if args.freeze_bn else []
         for m in frozen:
             m.frozen = True
         solver = Solver(module, args, freeze_prefixes=_freeze_prefixes(model))

@@ -1,8 +1,8 @@
 """Carry weights between the JAX package and the port (``to_jax_variables``
-is the way back, for fai_detr).
+is the way back).
 
 ``from_jax_variables`` is the inverse of the ``fai_detr``/``fai_mf``/``bisenetformer``/
-``resnet``/``stdc``/``rtmo``/``csp_darknet`` rules in ``focoos_tpu/utils/torch_convert.py`` (which imports
+``fai_cls``/``resnet``/``stdc``/``rtmo``/``csp_darknet`` rules in ``focoos_tpu/utils/torch_convert.py`` (which imports
 jax, so the port cannot use it): it maps the flat ``params/…``/``batch_stats/…`` arrays of a
 ``model_final.npz`` (``focoos_tpu/utils/checkpoint.py:40-50``) onto a port
 ``state_dict`` with the reference's torch names:
@@ -155,6 +155,16 @@ def _rtmo_rules() -> List[Rule]:
     ]
 
 
+def _fai_cls_rules(two_layers: bool = False) -> List[Rule]:
+    """torch_convert.fai_cls_rules, inverted: the head's ``fc1`` is the
+    reference's ``classifier.2`` in a one-layer head, ``classifier.1`` in a
+    two-layer one, whose ``fc2`` is ``classifier.4``."""
+    head = {"fc1": "1" if two_layers else "2", "fc2": "4"}
+    return _resnet_rules("backbone/", "backbone.") + _stdc_rules("backbone/", "backbone.") + [
+        (r"cls_head/(fc[12])", lambda m: f"cls_head.classifier.{head[m[1]]}"),
+    ]
+
+
 FAMILY_RULES: Dict[str, Callable[[], List[Rule]]] = {
     "fai_detr": _fai_detr_rules,
     "fai_mf": _fai_mf_rules,
@@ -199,9 +209,17 @@ def _module_path(path: str, rules: List[Rule]) -> str:
     raise KeyError(f"no rule maps the JAX module path '{path}'")
 
 
+def _family_rules(family: str, keys) -> List[Rule]:
+    """The family's JAX → torch rules. fai_cls's depend on its head's depth:
+    two layers where ``keys`` (JAX paths or torch names) hold the second."""
+    if family == "fai_cls":
+        return _fai_cls_rules(any(re.search(r"cls_head(/fc2/|\.classifier\.4\.)", k) for k in keys))
+    return FAMILY_RULES[family]()
+
+
 def from_jax_variables(flat: Dict[str, np.ndarray], family: str) -> Dict[str, torch.Tensor]:
     """Flat ``{"params/…": array, "batch_stats/…": array}`` → port state_dict."""
-    rules = FAMILY_RULES[family]()
+    rules = _family_rules(family, flat)
     params = FAMILY_PARAMS.get(family, {})
     sd: Dict[str, torch.Tensor] = {}
     qkv: Dict[str, Dict[str, np.ndarray]] = {}
@@ -234,17 +252,16 @@ def from_jax_variables(flat: Dict[str, np.ndarray], family: str) -> Dict[str, to
     return sd
 
 
-def _inverse_backbone_rules() -> List[Rule]:
-    """ResNet and STDC under ``pixel_decoder.backbone``, as fai_mf and bisenetformer hold them."""
+def _inverse_backbone_rules(tp: str = r"pixel_decoder\.backbone\.") -> List[Rule]:
+    """ResNet and STDC under ``tp``: ``pixel_decoder.backbone``, as fai_mf and
+    bisenetformer hold them, or ``backbone``, as fai_cls does."""
     return [
-        (r"pixel_decoder\.backbone\.conv1\.(conv1_\d)", lambda m: f"backbone/{m[1]}"),
-        (r"pixel_decoder\.backbone\.res_layers\.(\d+)\.blocks\.(\d+)",
-         lambda m: f"backbone/res{int(m[1]) + 2}_block{m[2]}"),
-        (r"pixel_decoder\.backbone\.features\.(\d+)\.conv_list\.(\d+)",
-         lambda m: f"backbone/features_{m[1]}/conv_list_{m[2]}"),
-        *((rf"pixel_decoder\.backbone\.features\.(\d+)\.{re.escape(t)}", lambda m, j=j: f"backbone/features_{m[1]}/{j}")
+        (rf"{tp}conv1\.(conv1_\d)", lambda m: f"backbone/{m[1]}"),
+        (rf"{tp}res_layers\.(\d+)\.blocks\.(\d+)", lambda m: f"backbone/res{int(m[1]) + 2}_block{m[2]}"),
+        (rf"{tp}features\.(\d+)\.conv_list\.(\d+)", lambda m: f"backbone/features_{m[1]}/conv_list_{m[2]}"),
+        *((rf"{tp}features\.(\d+)\.{re.escape(t)}", lambda m, j=j: f"backbone/features_{m[1]}/{j}")
           for j, t in _STDC_PARTS.items()),
-        (r"pixel_decoder\.backbone\.features\.(\d+)", lambda m: f"backbone/features_{m[1]}"),
+        (rf"{tp}features\.(\d+)", lambda m: f"backbone/features_{m[1]}"),
     ]
 
 
@@ -288,6 +305,28 @@ INVERSE_RULES: Dict[str, Callable[[], List[Rule]]] = {
         (r"pixel_decoder\.cp\.(\w+)", lambda m: f"pixel_decoder/cp_{m[1]}"),
         (r"pixel_decoder\.(ffm|conv_out)", lambda m: f"pixel_decoder/{m[1]}"),
     ] + _INVERSE_MASKED_DECODER,
+    "fai_cls": lambda: _inverse_backbone_rules(r"backbone\.") + [
+        (r"cls_head\.classifier\.([124])", lambda m: "cls_head/fc2" if m[1] == "4" else "cls_head/fc1"),
+    ],
+    "rtmo": lambda: [
+        (r"backbone\.stage(\d)\.0", lambda m: f"backbone/stage{m[1]}_conv"),
+        (r"backbone\.stage4\.1", lambda m: "backbone/stage4_spp"),
+        (r"backbone\.stage(\d)\.[12]", lambda m: f"backbone/stage{m[1]}_csp"),
+        (r"backbone\.stem", lambda m: "backbone/stem"),
+        (r"neck\.encoder\.0\.layers\.(\d+)\.self_attn\.attn", lambda m: f"neck/encoder_0_layers_{m[1]}/self_attn"),
+        (r"neck\.encoder\.0\.layers\.(\d+)\.ffn\.layers\.0\.0", lambda m: f"neck/encoder_0_layers_{m[1]}/ffn_linear1"),
+        (r"neck\.encoder\.0\.layers\.(\d+)\.ffn\.layers\.1", lambda m: f"neck/encoder_0_layers_{m[1]}/ffn_linear2"),
+        (r"neck\.encoder\.0\.layers\.(\d+)\.norms\.(\d)",
+         lambda m: f"neck/encoder_0_layers_{m[1]}/norm{int(m[2]) + 1}"),
+        (r"neck\.projector\.convs\.(\d+)\.(conv|bn)", lambda m: f"neck/projector_{m[1]}_{m[2]}"),
+        (r"neck\.(\w+)\.(\d+)", lambda m: f"neck/{m[1]}_{m[2]}"),
+        (r"head\.head_module\.(conv_cls|conv_pose)\.(\d+)\.(\d+)\.(conv|bn)",
+         lambda m: f"head_module/{m[1]}_{m[2]}_{m[3]}_{m[4]}"),
+        (r"head\.head_module\.(\w+)\.(\d+)", lambda m: f"head_module/{m[1]}_{m[2]}"),
+        (r"head\.dcc\.pose_to_kpts\.([01])", lambda m: f"dcc/pose_to_kpts_{'fc' if m[1] == '0' else 'bn'}"),
+        (r"head\.dcc\.sigma_fc\.0", lambda m: "dcc/sigma_fc"),
+        (r"head\.dcc\.(\w+)", lambda m: f"dcc/{m[1]}"),
+    ],
 }
 
 
@@ -296,7 +335,7 @@ _MASKED_DECODER_LAYER_NORMS = re.compile(r"head\.predictor\.transformer_\w+_laye
 _LAYER_NORMS = {"fai_mf": _MASKED_DECODER_LAYER_NORMS, "bisenetformer": _MASKED_DECODER_LAYER_NORMS}
 
 
-def _jax_module_path(name: str, rules: List[Rule], family: str, batch_norm: bool) -> str:
+def _jax_module_path(name: str, rules: List[Rule], forward: List[Rule], batch_norm: bool) -> str:
     for pat, fn in rules:
         m = re.fullmatch(pat, name) or re.match(pat + r"\.", name)
         if m:
@@ -308,7 +347,7 @@ def _jax_module_path(name: str, rules: List[Rule], family: str, batch_norm: bool
     if batch_norm and path.endswith("/norm"):
         path += "/bn"  # a ConvNorm's norm (a BatchNorm in the port) sits under norm/bn in JAX
     # each inverse must land where the forward rules map back from
-    back = _module_path(path, FAMILY_RULES[family]())
+    back = _module_path(path, forward)
     if back != name:
         raise KeyError(f"torch module '{name}' → JAX '{path}' → torch '{back}'")
     return path
@@ -323,6 +362,7 @@ def to_jax_variables(state: Dict[str, np.ndarray], family: str) -> Dict[str, np.
     if family not in INVERSE_RULES:
         raise NotImplementedError(f"to_jax_variables covers {sorted(INVERSE_RULES)}, not {family}")
     rules = INVERSE_RULES[family]()
+    forward = _family_rules(family, state)
     bare = {t: j for j, t in FAMILY_PARAMS.get(family, {}).items()}
     layer_norm = _LAYER_NORMS.get(family)
     flat: Dict[str, np.ndarray] = {}
@@ -334,7 +374,7 @@ def to_jax_variables(state: Dict[str, np.ndarray], family: str) -> Dict[str, np.
         if key in bare:
             flat[f"params/{bare[key]}"] = arr
             continue
-        path = _jax_module_path(module, rules, family, not (layer_norm and layer_norm.fullmatch(module)))
+        path = _jax_module_path(module, rules, forward, not (layer_norm and layer_norm.fullmatch(module)))
         if leaf in ("in_proj_weight", "in_proj_bias"):
             for name, part in zip("qkv", np.split(arr, 3)):
                 flat[f"params/{path}/{name}_proj/" + ("kernel" if leaf == "in_proj_weight" else "bias")] = (

@@ -909,3 +909,122 @@ def test_fai_mf_stem_runs_in_eval_and_not_in_train(cuda):
     model.module.eval()
     assert stem.launches == before + 1 and torch.isfinite(total)
     assert all(p.grad is not None for p in model.module.pixel_decoder.backbone.conv1.parameters())
+
+
+def test_fai_cls_forward_and_step_on_the_card_match_the_cpu(cuda):
+    """fai-cls-n at 96² (3 classes): the eval forward's logits to 1e-4 x
+    max|ref| (fp32 both sides, TF32 off); one train step on one dropout mask
+    carried from the CPU: the loss to 1e-5 rel, every gradient to 1e-3 x its
+    max |ref| (train-mode BatchNorms sum in another order), and no kernel of
+    the port launched (STDC has no ResNet-D stem)."""
+    from focoos_tpu_torch import ModelManager
+    from focoos_tpu_torch.models.fai_cls.loss import classification_loss
+    from focoos_tpu_torch.models.fai_cls.ports import ClassificationTargets
+
+    gpu = ModelManager.get("fai-cls-n-coco", device=cuda, num_classes=3, image_size=96, seed=3)
+    cpu = ModelManager.get("fai-cls-n-coco", device="cpu", num_classes=3, image_size=96, init_weights=False)
+    cpu.module.load_state_dict(gpu.module.state_dict())
+    x = torch.from_numpy(np.random.default_rng(5).integers(0, 256, (2, 96, 96, 3), dtype=np.uint8))
+    with torch.inference_mode():
+        ref = cpu.module(x)[0].logits
+        got = gpu.module(x.to(cuda))[0].logits.cpu()
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+    feats = gpu.module.backbone.output_shape()[gpu.config.features].channels
+    keep = torch.rand(2, feats, 1, 1, generator=torch.Generator().manual_seed(0)) < 0.8
+    targets = ClassificationTargets(torch.tensor([[1.0, 0.0, 1.0], [0.0, 1.0, 0.0]]))
+    before = (fused_resnet_stem.launches, msda_forward.launches, nms_keep.launches)
+    runs = []
+    for m, dev in ((cpu, "cpu"), (gpu, cuda)):
+        m.module.train()
+        loss = classification_loss(m.module(x.to(dev), keep=keep.to(dev))[0].logits, targets.to(dev), m.config)["loss_cls"]
+        loss.backward()
+        runs.append((float(loss.detach()), {n: p.grad.cpu() for n, p in m.module.named_parameters() if p.grad is not None}))
+        m.module.eval()
+    assert (fused_resnet_stem.launches, msda_forward.launches, nms_keep.launches) == before
+    assert abs(runs[1][0] - runs[0][0]) <= 1e-5 * abs(runs[0][0])
+    assert sorted(runs[1][1]) == sorted(runs[0][1])
+    for n, r in runs[0][1].items():
+        torch.testing.assert_close(runs[1][1][n], r, rtol=0, atol=1e-3 * float(r.abs().max()) + 1e-9, msg=n)
+
+
+def test_fai_cls_bf16_forward_keeps_fp32_logits(cuda):
+    """A bf16 fai-cls-m forward: fp32 logits, within 5e-2 of the fp32 model's
+    sigmoid probabilities."""
+    from focoos_tpu_torch import ModelManager
+
+    m32 = ModelManager.get("fai-cls-m-coco", device=cuda, seed=4)
+    m16 = ModelManager.get("fai-cls-m-coco", device=cuda, dtype="bfloat16", init_weights=False)
+    m16.module.load_state_dict(m32.module.state_dict())
+    x = torch.from_numpy(np.random.default_rng(6).integers(0, 256, (2, 224, 224, 3), dtype=np.uint8)).to(cuda)
+    with torch.inference_mode():
+        l32, l16 = m32.module(x)[0].logits, m16.module(x)[0].logits
+    assert l16.dtype == l32.dtype == torch.float32 and l16.shape == (2, 80)
+    assert float((torch.sigmoid(l16) - torch.sigmoid(l32)).abs().max()) <= 5e-2
+
+
+def test_rtmo_simota_and_criterion_on_the_card_match_the_cpu(cuda):
+    """rtmo-s's SimOTA over [2, 2000 priors (its 640² grid at strides 16 and
+    32), 10 people] on the card gives the CPU's assignment; on the CPU's assignment the criterion's
+    losses are within 1e-5 rel and the gradients of the raw outputs within
+    1e-4 x their max; DCC's batch statistics, recovered from its running
+    mean and variance, agree: the mean within 1e-5 of its batch std, the
+    variance within 1e-5 rel."""
+    from focoos_tpu_torch import ModelManager
+    from focoos_tpu_torch.models.rtmo.loss import rtmo_criterion
+    from focoos_tpu_torch.models.rtmo.ports import KeypointTargets, RTMOAuxOutputs
+
+    gpu = ModelManager.get("rtmo-s-coco", device=cuda, seed=5)
+    dcc = gpu.module.head["dcc"]
+    with torch.no_grad():  # at init DCC's bin logits reach ~4e3: a one-hot softmax (tests/test_torch_rtmo.py)
+        dcc.gau.o.weight.mul_(0.05)
+        dcc.x_fc.weight.mul_(0.01)
+        dcc.y_fc.weight.mul_(0.01)
+    cpu = ModelManager.get("rtmo-s-coco", device="cpu", init_weights=False)
+    cpu.module.load_state_dict(gpu.module.state_dict())
+    with torch.no_grad():
+        grid = cpu.module.raw_outputs(torch.zeros(1, 640, 640, 3))
+    priors, strides = grid.priors, grid.strides
+    g = torch.Generator().manual_seed(7)
+    a, k, n = priors.shape[0], 17, 10
+    raw = dict(cls_scores=torch.randn(2, a, 1, generator=g), bbox_preds=torch.randn(2, a, 4, generator=g) * 0.3 + 1.5,
+               kpt_offsets=torch.randn(2, a, 2 * k, generator=g), kpt_vis=torch.randn(2, a, k, generator=g),
+               pose_feats=torch.randn(2, a, gpu.module.head["head_module"].pose_feat_channels, generator=g))
+    xy = torch.rand(2, n, 2, generator=g) * 480
+    wh = torch.rand(2, n, 2, generator=g) * 120 + 40
+    kpts = xy[:, :, None] + torch.rand(2, n, k, 2, generator=g) * wh[:, :, None]
+    vis = (torch.rand(2, n, k, generator=g) > 0.3).float()
+    valid = torch.arange(n)[None] < torch.tensor([[6], [10]])
+    targets = KeypointTargets(torch.zeros(2, n, dtype=torch.long), torch.cat([xy, xy + wh], -1), kpts, vis,
+                              wh.prod(-1), valid)
+    initial = {k_: v.clone() for k_, v in cpu.module.head["dcc"].pose_to_kpts[1].state_dict().items()}
+    runs = {}
+    for name, m, dev in (("cpu", cpu, "cpu"), ("card", gpu, cuda)):
+        dcc = m.module.head["dcc"].train()
+        if name == "card":  # the card's own SimOTA first, then the step on the CPU's assignment
+            aux = RTMOAuxOutputs(**{f: t.to(dev) for f, t in raw.items()}, priors=priors.to(dev), strides=strides.to(dev))
+            own = rtmo_criterion(dcc, aux, targets.to(dev), m.config)[1].to("cpu")
+            ref = runs["cpu"][1]
+            assert int(own.pos_mask.sum()) == int(ref.pos_mask.sum()) > 0
+            assert torch.equal(own.pos_mask, ref.pos_mask)
+            assert torch.equal(own.gt_idx[ref.pos_mask], ref.gt_idx[ref.pos_mask])
+            dcc.pose_to_kpts[1].load_state_dict(initial)
+        leaves = {f: t.clone().to(dev).requires_grad_() for f, t in raw.items()}
+        aux = RTMOAuxOutputs(**leaves, priors=priors.to(dev), strides=strides.to(dev))
+        carried = runs["cpu"][1].to(dev) if name == "card" else None
+        losses, used = rtmo_criterion(dcc, aux, targets.to(dev), m.config, carried=carried)
+        losses["total"].backward()
+        runs[name] = ({k_: float(v.detach()) for k_, v in losses.items()}, used.to("cpu"),
+                      {f: t.grad.cpu() for f, t in leaves.items()},
+                      {s_: getattr(dcc.pose_to_kpts[1], f"running_{s_}").double().cpu() for s_ in ("mean", "var")})
+        dcc.eval()
+    for k_, v in runs["cpu"][0].items():
+        assert abs(runs["card"][0][k_] - v) <= 1e-5 * abs(v) + 1e-9, (k_, runs["card"][0][k_], v)
+    for f, r in runs["cpu"][2].items():
+        err = float((runs["card"][2][f] - r).abs().max() / r.abs().max())
+        assert err <= 1e-4, (f, err)
+    mom = gpu.module.head["dcc"].pose_to_kpts[1].momentum
+    batch = {s_: [(r[3][s_] - (1 - mom) * initial[f"running_{s_}"].double()) / mom for r in (runs["card"], runs["cpu"])]
+             for s_ in ("mean", "var")}
+    (gm, rm), (gv, rv) = batch["mean"], batch["var"]
+    assert float(((gm - rm).abs() / rv.sqrt()).max()) <= 1e-5
+    assert float(((gv - rv).abs() / rv).max()) <= 1e-5
