@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (focoos_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py        # from the repository root, on a machine with an H100
+    python3 chip_smoke.py                  # from the repository root, on a machine with an H100
+    python3 chip_smoke.py --only-export    # the build and the export phase (14) alone; no result line
 
 Phases, each printing its own lines; any failure raises and the exit code is
 non-zero:
@@ -105,7 +106,22 @@ non-zero:
    gradient norm, DCC's running statistics; bf16 too); the train loader and
    the criterion alone; FocoosModel.train at B=16 with keypoint validation
    at 480 (fp32 and bf16, profiled steps) and FocoosModel.eval, the NMS
-   kernel counted from 0 before each run: one launch a validation forward.
+   kernel counted from 0 before each run: one launch a validation forward;
+14. export — serving from exported directories (``focoos_tpu_torch/infer``):
+   fai-detr-l-coco at 640² through ``FocoosModel.export`` and ``InferModel``
+   in ``CUDA_FP32`` and ``CUDA_BF16`` (outputs against FocoosModel.forward
+   of the same dtype, infer() against FocoosModel.infer), as a
+   ``torch.export`` program at b1 with a 512² bucket (a fresh load against
+   the eager forward, the bucket taken exactly, a batch of 3 padded and
+   chunked; a bf16 program and its weight casts) and as ``CUDA_INT8``
+   (``Quantizer`` with 8 seeded JPEGs for calibration; the card's int8
+   forward against the CPU's on the CPU's query selection for three seeded
+   images, the bf16 pair beside it; no stem launch); rtmo-l-coco's program
+   with NMS inside; one bf16 request of fai-cls-m, bisenetformer-l,
+   fai-mf-l-coco-ins and rtmo-s equal to FocoosModel.infer(); then b1 p50
+   and b16 images/s of each runtime against FocoosModel's, in turns, with
+   FocoosModel also run with its wrappers calling the kernels without their
+   custom ops; the ops' host cost a call; end-to-end breakdowns.
 
 Each model path runs again in bf16 compute (``ModelManager.get(...,
 dtype="bfloat16")``, fp32 parameters), right after its fp32 run and with its
@@ -123,8 +139,8 @@ at the training batch B=8), each with its bound and share.
 The last three lines are the kernels' JSON record (``launches`` from the
 serving and training main paths, ``launches_lifecycle``,
 ``launches_finetune_m``, ``launches_fai_mf``, ``launches_segm_train``,
-``launches_fai_cls`` and ``launches_rtmo_train`` summed over those phases'
-counted runs), the card's
+``launches_fai_cls``, ``launches_rtmo_train`` and ``launches_export``
+summed over those phases' counted runs), the card's
 name and power limit as
 nvidia-smi reports them, and the result JSON.
 """
@@ -3552,6 +3568,400 @@ def phase_rtmo_train(dev, smi: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# export: the serving artifacts (focoos_tpu_torch/infer)
+
+EXPORT_TOL = {"fp32": 1e-6, "bf16": 1e-6, "pt2": 1e-5}  # x max|ref|, runtime against FocoosModel.forward
+# the card's int8 forward against the CPU's int8 forward of the same directory,
+# both in bf16, on the CPU's query selection: abs on sigmoid scores and
+# normalized boxes. An activation a hair from an int8 rounding edge lands one
+# step apart between cuDNN/cuBLAS and the CPU and carries on through the later
+# layers; the card's bf16 forward against the CPU's bf16 forward is reported beside.
+# Read on an H100 80GB HBM3 at 700 W over the phase's three seeded images: boxes
+# 1.856e-2 to 3.047e-2, scores 7.310e-3 to 8.505e-3 (bf16 pair: boxes to 1.687e-2)
+INT8_TOL = 5e-2
+EXPORT_CALIB_IMAGES = 8
+EXPORT_SIZE, EXPORT_BUCKET, EXPORT_BATCH = 640, 512, 16  # fai-detr-l's card size, its bucket, the b16 batch
+EXPORT_FAMILIES = (("fai-cls-m-coco", 224), ("bisenetformer-l-ade", 640), ("fai-mf-l-coco-ins", 1024), ("rtmo-s-coco", 640))
+
+
+def output_errs(got: list, ref, names: list) -> dict:
+    """{name: (max_abs_err, max|ref|, bit-equal)} of a runtime's outputs against a ModelOutput."""
+    out = {}
+    for name, g in zip(names, got):
+        r = getattr(ref, name)
+        assert g.shape == r.shape and g.dtype == r.dtype, f"{name}: {tuple(g.shape)} {g.dtype} vs {tuple(r.shape)} {r.dtype}"
+        out[name] = (float((g.float() - r.float()).abs().max()), float(r.float().abs().max()), bool(torch.equal(g, r)))
+    return out
+
+
+def same_detections(a, b, what: str) -> None:
+    """Two FocoosDetections equal: boxes, classes, masks and keypoints, scores 1e-6."""
+    assert len(a.detections) == len(b.detections), f"{what}: {len(a.detections)} vs {len(b.detections)} detections"
+    for x, y in zip(a.detections, b.detections):
+        assert (x.bbox, x.cls_id, x.mask, x.keypoints) == (y.bbox, y.cls_id, y.mask, y.keypoints), f"{what}: {x} vs {y}"
+        assert abs(x.conf - y.conf) <= 1e-6, f"{what}: score {x.conf} vs {y.conf}"
+
+
+def weight_casts(program) -> int:
+    """Dtype conversions in an exported graph whose input is a parameter or buffer."""
+    sig = program.graph_signature
+    weights = set(sig.inputs_to_parameters) | set(sig.inputs_to_buffers)
+    casts = ("_to_copy", "to.dtype", "_to_dtype")
+    return sum(1 for n in program.graph.nodes if n.op == "call_function" and any(c in str(n.target) for c in casts)
+               and n.args and getattr(n.args[0], "name", None) in weights)
+
+
+def e2e_breakdown(run, img: np.ndarray, n: int = 10) -> dict:
+    """p50 ms of ``run([img])`` end to end and of its preprocess, inference and postprocess."""
+    run([img])
+    parts = {"total": [], "preprocess": [], "inference": [], "postprocess": []}
+    for _ in range(n):
+        t = time.perf_counter()
+        lat = run([img])[0].latency
+        parts["total"].append(time.perf_counter() - t)
+        for k in ("preprocess", "inference", "postprocess"):
+            parts[k].append(getattr(lat, k))
+    return {k: float(np.median(v)) * 1e3 for k, v in parts.items()}
+
+
+@contextlib.contextmanager
+def direct_launches():
+    """The three forward wrappers call their ops' CUDA implementations
+    directly, without the ``torch.library`` dispatch between: how they
+    launched before the kernels became custom ops (the control for what the
+    ops cost the eager path)."""
+    from focoos_tpu_torch.ops import msda, nms, stem
+
+    saved = msda.msda_forward_op, stem.fused_resnet_stem_op, nms.nms_keep_op
+    msda.msda_forward_op, stem.fused_resnet_stem_op, nms.nms_keep_op = (
+        msda._msda_forward_cuda, stem._fused_resnet_stem_cuda, nms._nms_keep_cuda)
+    try:
+        yield
+    finally:
+        msda.msda_forward_op, stem.fused_resnet_stem_op, nms.nms_keep_op = saved
+
+
+def without_ops(fn):
+    def run(x):
+        with direct_launches():
+            return fn(x)
+    return run
+
+
+def op_dispatch_costs(dev, model, model16, x1: np.ndarray) -> dict:
+    """What the custom ops add to an eager forward, on the host: each op's
+    host time a call against its CUDA implementation called directly, at the
+    main path's b1 shapes (min of 3 rounds in turns, 300 calls each), and
+    ``torch.compiler.is_exporting()`` (the check that the cast cache and the
+    constant caches gained), its calls in one b1 forward of each dtype and its
+    host time a call."""
+    from focoos_tpu_torch.ops import msda, nms, stem
+
+    g = torch.Generator().manual_seed(21)
+    v, loc, aw, _ = msda_case(g, 1, 300, 8, 32, MSDA_SHAPES, dev)
+    flat = [n for hw in MSDA_SHAPES for n in hw]
+    params = []
+    for cin, cout in ((3, 32), (32, 32), (32, 64)):
+        params += [(torch.randn(3, 3, cin, cout, generator=g) * 0.1).to(dev), torch.ones(cout, device=dev),
+                   torch.zeros(cout, device=dev)]
+    xs = torch.rand(1, 640, 640, 3, generator=g).to(dev) * 255
+    boxes, scores = (t.to(dev) for t in clustered_boxes(g, 1, 300))
+    calls = {
+        "msda_forward": (lambda: msda.msda_forward_op(v, flat, loc, aw),
+                         lambda: msda._msda_forward_cuda(v, flat, loc, aw)),
+        "fused_resnet_stem": (lambda: stem.fused_resnet_stem_op(xs, *params),
+                              lambda: stem._fused_resnet_stem_cuda(xs, *params)),
+        "nms_keep": (lambda: nms.nms_keep_op(boxes, scores, 0.65), lambda: nms._nms_keep_cuda(boxes, scores, 0.65)),
+    }
+    out = {}
+    for name, (op, direct) in calls.items():
+        assert torch.equal(op(), direct()), f"{name}: the op and its CUDA implementation disagree"
+        ts = {"op": [], "direct": []}
+        for _ in range(3):
+            ts["op"].append(host_ms(op, calls=300))
+            ts["direct"].append(host_ms(direct, calls=300))
+        out[name] = {k: min(t) * 1e3 for k, t in ts.items()}  # µs a call
+    real, n = torch.compiler.is_exporting, {"n": 0}
+
+    def counting():
+        n["n"] += 1
+        return real()
+
+    torch.compiler.is_exporting = counting
+    try:
+        for tag, m in (("fp32", model), ("bf16", model16)):
+            n["n"] = 0
+            m.forward(x1)
+            out[f"is_exporting_calls_{tag}"] = n["n"]
+    finally:
+        torch.compiler.is_exporting = real
+    t0 = time.perf_counter()
+    for _ in range(100_000):
+        real()
+    out["is_exporting_us"] = (time.perf_counter() - t0) * 10  # µs a call
+    # b1 forwards with and without the ops, one call each, in 40 pairs whose
+    # order alternates: the paired differences cancel the host's drift
+    for tag, m in (("fp32", model), ("bf16", model16)):
+        runs, diffs, times = (m.forward, without_ops(m.forward)), [], []
+        for i in range(40):
+            t = {}
+            for j in ((0, 1) if i % 2 == 0 else (1, 0)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runs[j](x1)
+                torch.cuda.synchronize()
+                t[j] = (time.perf_counter() - t0) * 1e3
+            diffs.append(t[0] - t[1])
+            times.append(t[0])
+        out[f"paired_{tag}"] = (float(np.median(diffs)), *np.percentile(diffs, [25, 75]), float(np.median(times)))
+    return out
+
+
+def phase_export(dev, smi: str) -> dict:
+    """Export, serve and quantize (``focoos_tpu_torch/infer``) on the card:
+    fai-detr-l-coco at 640² served from exported directories in fp32 and
+    bf16 (runtime against FocoosModel.forward and infer()), as a
+    ``torch.export`` program with a 512² bucket and as an int8 store with
+    calibrated scales (card against the CPU); rtmo-l's program with NMS
+    inside; one bf16 request for every other family; then b1/b16 times of
+    each runtime against FocoosModel's, in turns, and the end-to-end
+    breakdown. Every kernel launch of a counted run goes into the returned
+    counts."""
+    import os
+    import tempfile
+
+    import cv2
+
+    from focoos_tpu_torch import ModelManager
+    from focoos_tpu_torch.infer.infer_model import InferModel
+    from focoos_tpu_torch.infer.quantizer import Quantizer
+    from focoos_tpu_torch.ports import ArtifactName, RuntimeType
+
+    t_phase = time.perf_counter()
+    total = {"msda_forward": 0, "msda_backward": 0, "fused_resnet_stem": 0, "nms_keep": 0}
+    root = tempfile.mkdtemp(prefix="focoos_export_")
+    rng = np.random.default_rng(13)
+    size, bucket = EXPORT_SIZE, EXPORT_BUCKET
+    batch2 = rng.integers(0, 256, (2, size, size, 3), dtype=np.uint8)
+    batch16 = rng.integers(0, 256, (EXPORT_BATCH, size, size, 3), dtype=np.uint8)
+    request = rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+
+    # 1. fai-detr-l-coco 640², CUDA_FP32 and CUDA_BF16, against FocoosModel of the same dtype
+    model = ModelManager.get("fai-detr-l-coco", device=dev, seed=0)
+    perturb(model.module, seed=1)
+    model16 = ModelManager.get("fai-detr-l-coco", device=dev, dtype="bfloat16")
+    model16.module.load_state_dict(model.module.state_dict())
+    n_dec = model.config.transformer_predictor_dec_layers
+    names = model.processor.get_output_names()
+    served = {}
+    for tag, rt, m in (("fp32", RuntimeType.CUDA_FP32, model), ("bf16", RuntimeType.CUDA_BF16, model16)):
+        t0 = time.perf_counter()
+        im = served[tag] = m.export(rt, out_dir=os.path.join(root, tag))
+        (raw, counts) = counted(lambda: im.runtime(batch2), total)
+        ref = m.forward(batch2)
+        errs = output_errs(raw, ref, names)
+        for name, (err, mx, _) in errs.items():
+            assert err <= EXPORT_TOL[tag] * mx, f"[export] {tag} {name}: {err} > {EXPORT_TOL[tag]} x {mx}"
+        assert counts["msda_forward"] == n_dec and counts["fused_resnet_stem"] == 1, f"{tag} runtime launches {counts}"
+        same_detections(im.infer(request, threshold=0.0), m.infer(request, threshold=0.0), f"{tag} infer")
+        log(f"[export] fai-detr-l {rt}: exported + served in {time.perf_counter() - t0:.1f}s; B=2 against"
+            f" FocoosModel.forward: " + ", ".join(f"{k} max_abs_err {e:.3e} (bit-equal {eq})" for k, (e, _, eq)
+                                                  in errs.items())
+            + f" (tol {EXPORT_TOL[tag]:.0e} x max); launches a forward msda_forward {counts['msda_forward']},"
+            f" fused_resnet_stem {counts['fused_resnet_stem']}; infer() detections equal FocoosModel.infer()")
+
+    # 2. the torch.export program at 640², b1, with a 512² bucket, and a bf16 program
+    pt2_dir = os.path.join(root, "pt2")
+    t0 = time.perf_counter()
+    model.export(RuntimeType.TORCH_EXPORT, out_dir=pt2_dir, size_buckets=[bucket])
+    export_s = time.perf_counter() - t0
+    mb = sum(os.path.getsize(os.path.join(pt2_dir, f)) for f in os.listdir(pt2_dir) if f.endswith(".pt2")) / 1e6
+    t0 = time.perf_counter()
+    served["pt2"] = pt2 = InferModel(pt2_dir, RuntimeType.TORCH_EXPORT)
+    rt = pt2.runtime
+    load_s = time.perf_counter() - t0
+    assert rt.sizes == [(bucket, bucket), (size, size)], rt.sizes
+    x1 = batch2[:1]
+    raw, counts = counted(lambda: rt(x1), total)
+    errs = output_errs(raw, model.forward(x1), names)
+    for name, (err, mx, _) in errs.items():
+        assert err <= EXPORT_TOL["pt2"] * mx, f"[export] pt2 {name}: {err} > {EXPORT_TOL['pt2']} x {mx}"
+    assert counts["msda_forward"] == n_dec and counts["fused_resnet_stem"] == 1, f"program launches {counts}"
+    x512 = rng.integers(0, 256, (1, bucket, bucket, 3), dtype=np.uint8)
+    assert rt.pick(bucket, bucket) == ((bucket, bucket), False)
+    out512, c512 = counted(lambda: rt(x512), total)
+    e512 = output_errs(out512, model.forward(x512), names)
+    assert all(e <= EXPORT_TOL["pt2"] * mx for e, mx, _ in e512.values()), f"{bucket}² bucket: {e512}"
+    b3 = batch16[:3]
+    out3, c3 = counted(lambda: rt(b3), total)
+    first = rt(b3[:1])
+    assert [o.shape[0] for o in out3] == [3, 3] and all(torch.equal(a[:1], b) for a, b in zip(out3, first))
+    assert c3["msda_forward"] == 3 * n_dec and c3["fused_resnet_stem"] == 3, f"3 chunked calls launched {c3}"
+    t0 = time.perf_counter()
+    model16.export(RuntimeType.TORCH_EXPORT, out_dir=os.path.join(root, "pt2_bf16"))
+    export16_s = time.perf_counter() - t0
+    pt2_16 = InferModel(os.path.join(root, "pt2_bf16"), RuntimeType.TORCH_EXPORT)
+    import torch.export as texport
+
+    casts16 = weight_casts(texport.load(os.path.join(root, "pt2_bf16", ArtifactName.EXPORTED_PROGRAM.value)))
+    casts32 = weight_casts(texport.load(os.path.join(pt2_dir, ArtifactName.EXPORTED_PROGRAM.value)))
+    e16 = output_errs(pt2_16.runtime(x1), model16.forward(x1), names)
+    log(f"[export] fai-detr-l TORCH_EXPORT: {size}² b1 + {bucket}² bucket exported in {export_s:.1f}s, {mb:.1f} MB of .pt2,"
+        f" loaded in {load_s:.1f}s; against eager fp32 B=1: "
+        + ", ".join(f"{k} {e:.3e} (bit-equal {eq})" for k, (e, _, eq) in errs.items())
+        + f" (tol {EXPORT_TOL['pt2']:.0e} x max); launches a call msda_forward {counts['msda_forward']},"
+        f" fused_resnet_stem {counts['fused_resnet_stem']}; a {bucket}² request took its bucket exactly"
+        f" (err {max(e for e, _, _ in e512.values()):.3e}); B=3 padded and chunked to b1, first image equal;"
+        f" bf16 program exported in {export16_s:.1f}s, {casts16} weight casts in its graph (fp32 program"
+        f" {casts32}), against eager bf16: " + ", ".join(f"{k} {e:.3e} (bit-equal {eq})" for k, (e, _, eq) in e16.items()))
+
+    # 3. rtmo-l-coco's program: NMS inside, one launch a call
+    rmodel = ModelManager.get("rtmo-l-coco", device=dev, seed=0)
+    perturb_rtmo(rmodel.module, seed=5, size=size)
+    rdir = os.path.join(root, "rtmo_pt2")
+    t0 = time.perf_counter()
+    rserved = rmodel.export(RuntimeType.TORCH_EXPORT, out_dir=rdir)
+    rexport_s = time.perf_counter() - t0
+    rnames = rmodel.processor.get_output_names()
+    rraw, rc = counted(lambda: rserved.runtime(x1), total)
+    rref = rmodel.forward(x1)
+    rerrs = output_errs(rraw, rref, rnames)
+    for name, (err, mx, eq) in rerrs.items():
+        assert eq or err <= EXPORT_TOL["pt2"] * max(mx, 1.0), f"[export] rtmo {name}: {err}"
+    assert rc["nms_keep"] == 1, f"rtmo program launches {rc}"
+    assert int((rraw[0] > 0).sum()) > 0, "rtmo program kept no detection"
+    try:
+        rserved.runtime(request[None])
+        raise AssertionError("rtmo's program served a 480x640 request without a matching program")
+    except ValueError as e:
+        refused = str(e).split(";")[0]
+    log(f"[export] rtmo-l TORCH_EXPORT at {size}² in {rexport_s:.1f}s: nms_keep {rc['nms_keep']} launch a call;"
+        f" against eager: " + ", ".join(f"{k} {e:.3e} (bit-equal {eq})" for k, (e, _, eq) in rerrs.items())
+        + f"; a 480x640 request raised: {refused}")
+    del rserved, rmodel
+
+    # 4. fai-detr-l CUDA_INT8: calibrated on 8 seeded JPEGs, card against the CPU
+    int8_dir = os.path.join(root, "int8")
+    calib = os.path.join(root, "calib")
+    os.makedirs(calib)
+    for i in range(EXPORT_CALIB_IMAGES):
+        img, _ = draw_shapes(rng, 480, 640)
+        cv2.imwrite(os.path.join(calib, f"img_{i:02d}.jpg"), img[:, :, ::-1])
+    t0 = time.perf_counter()
+    (_, qc) = counted(lambda: Quantizer(model).quantize(int8_dir, calibration_images_dir=calib), total)
+    model.export(RuntimeType.CUDA_INT8, out_dir=int8_dir)
+    quant_s = time.perf_counter() - t0
+    served["int8"] = int8 = InferModel(int8_dir, RuntimeType.CUDA_INT8, device=dev)
+    n_conv = sum(1 for m in int8.runtime.module.modules() if type(m).__name__ == "ConvNorm" and m.int8)
+    n_lin = sum(1 for m in int8.runtime.module.modules() if type(m).__name__ == "Int8Linear" and m.int8)
+    sizes = {f: os.path.getsize(os.path.join(int8_dir, f)) / 1e6 for f in (ArtifactName.WEIGHTS.value,
+                                                                            ArtifactName.WEIGHTS_INT8.value)}
+    raw8, c8 = counted(lambda: int8.runtime(x1), total)
+    assert c8["msda_forward"] == n_dec and c8["fused_resnet_stem"] == 0, f"int8 launches {c8}"
+    assert int8.runtime.num_static_scales == int8.runtime.num_int8_layers == n_conv + n_lin > 0
+    t0 = time.perf_counter()
+    cpu8 = InferModel(int8_dir, RuntimeType.CUDA_INT8, device="cpu")
+    cpu16 = ModelManager.get(int8_dir, device="cpu", dtype="bfloat16")
+    # three seeded images: the phase's uniform-noise image, another, and one of drawn shapes
+    g8 = np.random.default_rng(14)
+    shapes, _ = draw_shapes(g8, size, size)
+    int8_images = {"noise": x1, "noise 2": g8.integers(0, 256, (1, size, size, 3), dtype=np.uint8),
+                   "shapes": shapes[None].astype(np.uint8)}
+    e8s, e16s = {}, {}
+    for label, xi in int8_images.items():
+        xc = torch.from_numpy(xi)
+        with torch.inference_mode():
+            idx8, _ = selection(cpu8.runtime.module, xc)
+            with carried_selection(cpu8.runtime.module.predictor, idx8):
+                ref8, _ = cpu8.runtime.module(xc)
+            idx16, _ = selection(cpu16.module, xc)
+            with carried_selection(cpu16.module.predictor, idx16):
+                ref16, _ = cpu16.module(xc)
+        e8s[label] = compare_to_cpu({"int8": int8.runtime.module}, (ref8.boxes.float(), ref8.logits.float(), idx8),
+                                    xi)["int8"]
+        e16s[label] = compare_to_cpu({"bf16": model16.module}, (ref16.boxes.float(), ref16.logits.float(), idx16),
+                                     xi)["bf16"]
+    cpu_s = time.perf_counter() - t0
+    pairs = lambda errs: "; ".join(f"{k}: boxes {b:.3e}, scores {c:.3e}" for k, (b, c) in errs.items())  # noqa: E731
+    log(f"[export] fai-detr-l CUDA_INT8: quantized, calibrated on {EXPORT_CALIB_IMAGES} JPEGs and exported in"
+        f" {quant_s:.1f}s; weights {sizes[ArtifactName.WEIGHTS.value]:.1f} MB fp32 model_final.npz,"
+        f" {sizes[ArtifactName.WEIGHTS_INT8.value]:.1f} MB model_int8.npz; {n_conv} int8 ConvNorms +"
+        f" {n_lin} Int8Linears, all with calibrated scales; launches a forward msda_forward {c8['msda_forward']},"
+        f" fused_resnet_stem {c8['fused_resnet_stem']}; card int8 against the CPU's int8 (B=1, the CPU's"
+        f" selection, {len(int8_images)} images, {cpu_s:.1f}s on the CPU; tol {INT8_TOL:.0e}): {pairs(e8s)};"
+        f" card bf16 against the CPU's bf16 beside it: {pairs(e16s)}")
+    assert max(max(e) for e in e8s.values()) <= INT8_TOL, f"card int8 and CPU int8 disagree: {e8s}"
+    del cpu8, cpu16
+
+    # 5. every other family: export(CUDA_BF16) → InferModel.infer equals FocoosModel.infer in bf16
+    for card, card_size in EXPORT_FAMILIES:
+        t0 = time.perf_counter()
+        m = ModelManager.get(card, device=dev, dtype="bfloat16", seed=0)
+        if card.startswith("rtmo"):
+            perturb_rtmo(m.module, seed=6)
+        im = m.export(RuntimeType.CUDA_BF16, out_dir=os.path.join(root, card))
+        got, want = im.infer(request, threshold=0.0), m.infer(request, threshold=0.0)
+        same_detections(got, want, card)
+        log(f"[export] {card} {card_size}² CUDA_BF16: infer() of a 480x640 request equals FocoosModel.infer():"
+            f" {len(got.detections)} detections ({time.perf_counter() - t0:.1f}s)")
+        del m, im
+
+    # 6. times, in turns in one process: each runtime against FocoosModel's forward
+    with direct_launches():
+        direct_out = model.forward(x1)
+    assert torch.equal(direct_out.boxes, model.forward(x1).boxes), "the direct launches changed the forward"
+    runners = {
+        "FocoosModel fp32": model.forward, "FocoosModel fp32 no ops": without_ops(model.forward),
+        "InferModel fp32": served["fp32"].runtime,
+        "FocoosModel bf16": model16.forward, "FocoosModel bf16 no ops": without_ops(model16.forward),
+        "InferModel bf16": served["bf16"].runtime,
+        "InferModel int8": served["int8"].runtime, "InferModel .pt2 fp32": served["pt2"].runtime,
+    }
+    rounds = {k: {"b1": [], "b16": []} for k in runners}
+    for _ in range(3):
+        for k, run in runners.items():
+            for b, x in (("b1", x1), ("b16", batch16)):
+                run(x)
+                torch.cuda.synchronize()
+                ts = []
+                for _ in range(5 if b == "b1" else 2):
+                    t = time.perf_counter()
+                    run(x)
+                    torch.cuda.synchronize()
+                    ts.append(time.perf_counter() - t)
+                rounds[k][b].append(float(np.median(ts)))
+    nb = EXPORT_BATCH
+    log(f"[export] {smi}, TF32 off: per call incl. the H2D copy of the uint8 batch, median of 3 rounds in turns"
+        f" (.pt2 serves b{nb} as {nb} calls of its b1 program):")
+    for k, r in rounds.items():
+        log(f"[export]   {k:22s} b1 p50 {np.median(r['b1']) * 1e3:8.2f} ms (rounds {min(r['b1']) * 1e3:.2f}-"
+            f"{max(r['b1']) * 1e3:.2f}); b{nb} {nb / np.median(r['b16']):7.1f} images/s")
+    costs = op_dispatch_costs(dev, model, model16, x1)
+    log(f"[export]   the ops' dispatch on the host, µs a call at b1 (op / its CUDA implementation called directly):"
+        + "".join(f" {k} {costs[k]['op']:.1f} / {costs[k]['direct']:.1f};"
+                  for k in ("msda_forward", "fused_resnet_stem", "nms_keep"))
+        + f" a fai-detr-l forward calls msda 6x and the stem once, rtmo's NMS once; torch.compiler.is_exporting()"
+        f" {costs['is_exporting_us']:.3f} µs a call, {costs['is_exporting_calls_fp32']} calls a b1 fp32 forward,"
+        f" {costs['is_exporting_calls_bf16']} a bf16 one. \"no ops\": FocoosModel with the wrappers calling the CUDA"
+        f" implementations directly, as before the ops")
+    log("[export]   FocoosModel b1 forward with the ops minus without, 40 pairs in alternating order: "
+        + "; ".join(f"{tag} median {d:+.3f} ms (quartiles {q1:+.3f} to {q3:+.3f}) of a {t:.2f} ms p50"
+                    for tag, (d, q1, q3, t) in ((k, costs[f"paired_{k}"]) for k in ("fp32", "bf16"))))
+    for k in ("fp32", "bf16", "int8", "pt2"):
+        bd = e2e_breakdown(served[k], request)
+        log(f"[export]   InferModel {k} end to end, one 480x640 request, p50 of 10: {bd['total']:.2f} ms ="
+            f" preprocess {bd['preprocess']:.2f} + inference {bd['inference']:.2f} + postprocess"
+            f" {bd['postprocess']:.2f} ms")
+    log(f"[export] InferModel.benchmark() int8: {served['int8'].benchmark(iterations=10)};"
+        f" end2end_benchmark() bf16: {served['bf16'].end2end_benchmark(iterations=5)}")
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[export] phase done in {time.perf_counter() - t_phase:.1f}s; launches of its counted runs {total}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -3578,6 +3988,9 @@ def main() -> int:
         log(f"[build] {name}.cu: nvcc {cuda_build.build_seconds[name]:.2f}s; ptxas: {' / '.join(regs)}")
     log(f"[build] {len(names)} kernels ready in {time.perf_counter() - t0:.2f}s (one nvcc each, in parallel)")
 
+    if sys.argv[1:] == ["--only-export"]:  # the serving layer alone: no kernels line and no result line
+        phase_export(dev, smi)
+        return 0
     msda = phase_msda(dev)
     msda_bwd = phase_msda_backward(dev)
     stem = phase_stem(dev)
@@ -3597,6 +4010,7 @@ def main() -> int:
     segm_train = phase_segm_train(dev, smi)
     fai_cls = phase_fai_cls(dev, smi)
     rtmo_train = phase_rtmo_train(dev, smi)
+    export = phase_export(dev, smi)
 
     # library_ms: no single PyTorch call computes any of these functions (MSDA needs a
     # grid_sample per level and a weighted sum; the stem three convs, BN, ReLU and a
@@ -3633,6 +4047,7 @@ def main() -> int:
         k["launches_segm_train"] = segm_train.get(k["name"], 0)
         k["launches_fai_cls"] = fai_cls[k["name"]]
         k["launches_rtmo_train"] = rtmo_train[k["name"]]
+        k["launches_export"] = export[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -17,7 +17,7 @@ import torch
 from focoos_tpu_torch.models.fai_cls.config import ClassificationConfig
 from focoos_tpu_torch.models.fai_cls.ports import ClassificationDecode, ClassificationModelOutput, ClassificationTargets
 from focoos_tpu_torch.ports import DatasetEntry, FocoosDet, FocoosDetections
-from focoos_tpu_torch.processor.base_processor import Processor
+from focoos_tpu_torch.processor.base_processor import Processor, as_tensors
 from focoos_tpu_torch.structures import ImageList
 
 
@@ -84,5 +84,10 @@ class ClassificationProcessor(Processor):
             probs = _sigmoid(output.logits.cpu().numpy())
         return [{"logits": p} for p in probs]
 
-    def export_postprocess(self, output, inputs, class_names: List[str] = [], **kw):
-        raise NotImplementedError("fai_cls export is not ported yet (ROADMAP Queue 1 item 6)")
+    def export_postprocess(self, output, inputs, class_names: List[str] = [], **kw) -> List[FocoosDetections]:
+        """(JAX processor.py:77-81)"""
+        (logits,) = as_tensors(output)
+        return self.postprocess(ClassificationModelOutput(logits=logits, loss=None), inputs, class_names, **kw)
+
+    def get_output_names(self) -> List[str]:
+        return ["logits"]

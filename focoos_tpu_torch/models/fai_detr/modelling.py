@@ -23,7 +23,6 @@ value is bf16; anchors, box arithmetic and every output are fp32.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import List, Optional, Sequence, Tuple
 
@@ -41,11 +40,13 @@ from focoos_tpu_torch.nn.layers.common import (
     ComputeDtype,
     Conv2d,
     ConvNorm,
+    Int8Linear,
     LayerNorm,
     Linear,
     MultiHeadAttention,
     TransformerEncoderLayer,
     bilinear_resize,
+    constant_cache,
     get_activation,
     init_like_flax_,
     sine_position_embedding_2d,
@@ -180,8 +181,8 @@ class MSDeformableAttention(nn.Module):
         total = num_heads * num_levels * num_points
         self.sampling_offsets = Linear(embed_dim, total * 2)
         self.attention_weights = Linear(embed_dim, total)
-        self.value_proj = Linear(embed_dim, embed_dim)
-        self.output_proj = Linear(embed_dim, embed_dim)
+        self.value_proj = Int8Linear(embed_dim, embed_dim)
+        self.output_proj = Int8Linear(embed_dim, embed_dim)
         self.reset_sampling_parameters()
 
     @torch.no_grad()
@@ -203,7 +204,13 @@ class MSDeformableAttention(nn.Module):
     ) -> torch.Tensor:
         b, lq = query.shape[:2]
         hh, lv, p = self.num_heads, self.num_levels, self.num_points
-        v = self.value_proj(value).reshape(b, value.shape[1], hh, self.embed_dim // hh)
+        if self.value_proj.int8_active():
+            # JAX projects each level on its own (modelling.py:199-207): the
+            # same product, but a dynamic input scale per level
+            value = torch.cat([self.value_proj(part) for part in value.split([h * w for h, w in spatial_shapes], 1)], 1)
+        else:
+            value = self.value_proj(value)
+        v = value.reshape(b, value.shape[1], hh, self.embed_dim // hh)
         offsets = self.sampling_offsets(query).reshape(b, lq, hh, lv, p, 2)
         attn = self.attention_weights(query).reshape(b, lq, hh, lv * p)
         attn = torch.softmax(attn.float(), dim=-1).to(query.dtype).reshape(b, lq, hh, lv, p)
@@ -224,8 +231,8 @@ class DecoderLayer(nn.Module):
         self.norm1 = LayerNorm(d_model, eps=1e-5)
         self.cross_attn = MSDeformableAttention(d_model, n_head, n_levels, n_points)
         self.norm2 = LayerNorm(d_model, eps=1e-5)
-        self.linear1 = Linear(d_model, dim_feedforward)
-        self.linear2 = Linear(dim_feedforward, d_model)
+        self.linear1 = Int8Linear(d_model, dim_feedforward)
+        self.linear2 = Int8Linear(dim_feedforward, d_model)
         self.norm3 = LayerNorm(d_model, eps=1e-5)
 
     def forward(self, tgt, reference_points, memory, spatial_shapes, query_pos=None):
@@ -254,7 +261,7 @@ def generate_anchors(
     return a.astype(np.float32), valid
 
 
-@functools.lru_cache(maxsize=16)
+@constant_cache
 def _anchor_tensors(spatial_shapes: Tuple[Tuple[int, int], ...], device: torch.device):
     """Per (shapes, device): anchors [1, S, 4] fp32 and validity [1, S, 1]
     bool, made once instead of copied to the device on every forward (as
@@ -286,13 +293,14 @@ class TransformerPredictor(nn.Module):
     ):
         super().__init__()
         self.num_classes, self.num_queries = num_classes, num_queries
-        self.input_proj = nn.ModuleList(ConvNorm(c, hidden_dim, 1, 1) for c in in_channels)
+        # JAX builds these from nn.Conv and a BatchNorm, not a ConvNorm: no int8 path
+        self.input_proj = nn.ModuleList(ConvNorm(c, hidden_dim, 1, 1, qdq=False) for c in in_channels)
         self.decoder = nn.ModuleDict({"layers": nn.ModuleList(
             DecoderLayer(hidden_dim, nhead, dim_feedforward, num_levels, num_decoder_points)
             for _ in range(dec_layers)
         )})
         self.query_pos_head = MLP(4, 2 * hidden_dim, hidden_dim, 2)
-        self.enc_output = nn.Sequential(Linear(hidden_dim, hidden_dim), LayerNorm(hidden_dim, eps=1e-5))
+        self.enc_output = nn.Sequential(Int8Linear(hidden_dim, hidden_dim), LayerNorm(hidden_dim, eps=1e-5))
         self.enc_score_classifier = Linear(hidden_dim, num_classes)
         self.enc_bbox_classifier = MLP(hidden_dim, hidden_dim, 4, 3)
         self.dec_score_classifier = nn.ModuleList(Linear(hidden_dim, num_classes) for _ in range(dec_layers))
@@ -382,6 +390,9 @@ class FAIDetr(ComputeDtype, nn.Module):
         cfg = self.config = config
         self.register_buffer("pixel_mean", torch.tensor(cfg.pixel_mean, dtype=torch.float32), persistent=False)
         self.register_buffer("pixel_std", torch.tensor(cfg.pixel_std, dtype=torch.float32), persistent=False)
+        # x · (1/std), as the JAX package's compiled graph divides by the constant std
+        # (an ulp apart from x / std; the int8 path's rounding edges see it)
+        self.register_buffer("pixel_inv_std", 1.0 / self.pixel_std, persistent=False)
         self.pixel_decoder = HybridEncoder(
             backbone=backbone,
             feat_dim=cfg.pixel_decoder_feat_dim,
@@ -407,7 +418,7 @@ class FAIDetr(ComputeDtype, nn.Module):
 
     def encode(self, images: torch.Tensor) -> List[torch.Tensor]:
         """Normalize NHWC images and run backbone + hybrid encoder → [p5, p4, p3]."""
-        x = ((images.float() - self.pixel_mean) / self.pixel_std).to(self.compute_dtype)
+        x = ((images.float() - self.pixel_mean) * self.pixel_inv_std).to(self.compute_dtype)
         return self.pixel_decoder(x.permute(0, 3, 1, 2))
 
     def forward(self, images: torch.Tensor):

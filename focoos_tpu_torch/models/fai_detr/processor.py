@@ -16,7 +16,7 @@ from focoos_tpu_torch.ports import DatasetEntry, FocoosDet, FocoosDetections
 from focoos_tpu_torch.structures import Boxes, ImageList, Instances
 from focoos_tpu_torch.models.fai_detr.config import DETRConfig
 from focoos_tpu_torch.models.fai_detr.ports import DETRModelOutput, DETRTargets
-from focoos_tpu_torch.processor.base_processor import Processor
+from focoos_tpu_torch.processor.base_processor import Processor, as_tensors
 from focoos_tpu_torch.ops.topk import topk_lowest_index_first
 
 
@@ -95,6 +95,14 @@ class DETRProcessor(Processor):
                 for b_, s, lab in zip(bx, scores[i][keep], labels[i][keep])
             ]))
         return results
+
+    def export_postprocess(self, output, inputs, class_names: List[str] = [], **kw) -> List[FocoosDetections]:
+        """(JAX processor.py:138-141)"""
+        boxes, logits = as_tensors(output)
+        return self.postprocess(DETRModelOutput(boxes=boxes, logits=logits, loss=None), inputs, class_names, **kw)
+
+    def get_output_names(self) -> List[str]:
+        return ["boxes", "logits"]
 
     def eval_postprocess(self, output: DETRModelOutput, batched_inputs: List[DatasetEntry], top_k: Optional[int] = None):
         """→ [{"instances": Instances}] scaled to the original image size

@@ -268,6 +268,9 @@ class FAIMaskFormer(ComputeDtype, nn.Module):
         cfg = self.config = config
         self.register_buffer("pixel_mean", torch.tensor(cfg.pixel_mean, dtype=torch.float32), persistent=False)
         self.register_buffer("pixel_std", torch.tensor(cfg.pixel_std, dtype=torch.float32), persistent=False)
+        # x · (1/std), as the JAX package's compiled graph divides by the constant std
+        # (an ulp apart from x / std; the int8 path's rounding edges see it)
+        self.register_buffer("pixel_inv_std", 1.0 / self.pixel_std, persistent=False)
         self.pixel_decoder = TransformerFPN(
             backbone=backbone,
             feat_dim=cfg.pixel_decoder_feat_dim,
@@ -294,7 +297,7 @@ class FAIMaskFormer(ComputeDtype, nn.Module):
     def forward(self, images: torch.Tensor, allowed=None):
         if self.training and self.config.pixel_decoder_transformer_dropout != 0.0:
             raise ValueError("pixel_decoder_transformer_dropout must be 0.0: the JAX reference applies no dropout")
-        x = ((images.float() - self.pixel_mean) / self.pixel_std).to(self.compute_dtype)
+        x = ((images.float() - self.pixel_mean) * self.pixel_inv_std).to(self.compute_dtype)
         mask_features, ms = self.pixel_decoder(x.permute(0, 3, 1, 2))
         aux = self.predictor(ms, mask_features, allowed=allowed)
         return mask_classification_output(aux, images, self.config.cls_sigmoid, self.compute_dtype, self.training), aux

@@ -33,7 +33,7 @@ from focoos_tpu_torch.models.fai_mf.config import MaskFormerConfig
 from focoos_tpu_torch.models.fai_mf.ports import MaskFormerModelOutput, MaskFormerTargets
 from focoos_tpu_torch.ops.topk import topk_lowest_index_first
 from focoos_tpu_torch.ports import DatasetEntry, FocoosDet, FocoosDetections
-from focoos_tpu_torch.processor.base_processor import Processor
+from focoos_tpu_torch.processor.base_processor import Processor, as_tensors
 from focoos_tpu_torch.structures import BitMasks, Boxes, ImageList, Instances
 from focoos_tpu_torch.utils.vision import mask_to_base64_png
 
@@ -383,3 +383,11 @@ class MaskFormerProcessor(Processor):
                     ))
             results.append(FocoosDetections(detections=dets))
         return results
+
+    def export_postprocess(self, output, inputs, class_names: List[str] = [], **kw) -> List[FocoosDetections]:
+        """(JAX processor.py:450-456)"""
+        masks, logits = as_tensors(output)
+        return self.postprocess(MaskFormerModelOutput(masks=masks, logits=logits, loss=None), inputs, class_names, **kw)
+
+    def get_output_names(self) -> List[str]:
+        return ["masks", "logits"]

@@ -4,7 +4,8 @@ focoos_tpu/models/focoos_model.py; reference: focoos/models/focoos_model.py).
 Owns ``(nn.Module on a device, ModelInfo, Processor)`` and exposes the
 reference's verbs. The forward runs eagerly under ``torch.inference_mode()``;
 ``train`` runs the port's trainer and ``eval`` its evaluation loop (every
-family: fai_detr, fai_mf, bisenetformer, fai_cls, rtmo). Export is ported in a later slice (ROADMAP Queue 1 item 6). The model
+family: fai_detr, fai_mf, bisenetformer, fai_cls, rtmo); ``export`` writes a
+directory that ``infer.InferModel`` serves. The model
 computes in its ``compute_dtype`` (fp32 or bf16) with fp32 parameters, as the
 JAX package's FocoosModel (focoos_model.py:48,53).
 """
@@ -26,11 +27,13 @@ from focoos_tpu_torch.ports import (
     LatencyMetrics,
     ModelConfig,
     ModelInfo,
+    RuntimeType,
     Task,
 )
 from focoos_tpu_torch.utils.logger import get_logger
 from focoos_tpu_torch.processor.processor_manager import ProcessorManager
 from focoos_tpu_torch.utils.checkpoint import load_variables_npz, merge_compatible, save_variables_npz
+from focoos_tpu_torch.utils.latency import cuda_event_latency, end2end_latency
 from focoos_tpu_torch.utils.weights import from_jax_variables, to_jax_variables
 
 logger = get_logger(__name__)
@@ -187,59 +190,18 @@ class FocoosModel:
         """Device forward latency at batch 1, timed with CUDA events
         (reference: focoos_model.py:694). Raises off the card: a CPU time is
         not a device number."""
-        if self.device.type != "cuda":
-            raise RuntimeError("benchmark times the card with CUDA events; this model is on " + str(self.device))
         size = size or self.im_size
         hw = (size, size) if isinstance(size, int) else tuple(size)
         g = torch.Generator().manual_seed(0)
         x = (torch.rand((1, *hw, 3), generator=g) * 255.0).to(self.device)
-        times = []
         with torch.inference_mode():
-            for _ in range(3):  # warm-up: first launches, kernel builds, cuDNN autotune
-                self.module(x)
-            for _ in range(iterations):
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                start.record()
-                self.module(x)
-                end.record()
-                end.synchronize()
-                times.append(start.elapsed_time(end))
-        arr = np.array(times)
-        return LatencyMetrics(
-            fps=int(round(1000.0 / arr.mean())),
-            engine="torch.cuda",
-            min=round(float(arr.min()), 3),
-            max=round(float(arr.max()), 3),
-            mean=round(float(arr.mean()), 3),
-            std=round(float(arr.std()), 3),
-            im_size=hw[0],
-            device=torch.cuda.get_device_name(self.device),
-        )
+            return cuda_event_latency(lambda: self.module(x), iterations, "torch.cuda", hw[0], self.device)
 
     def end2end_benchmark(self, iterations: int = 50, size: Optional[int] = None) -> LatencyMetrics:
         """preprocess + forward + postprocess latency of one size² uint8
         image, on the host clock (``__call__`` synchronizes the card)
         (reference: focoos_model.py:723)."""
-        size = size or self.im_size[0]
-        img = np.random.default_rng(0).integers(0, 255, (size, size, 3), dtype=np.uint8)
-        self([img])  # warm-up: first launches, kernel builds
-        times = []
-        for _ in range(iterations):
-            t0 = time.perf_counter()
-            self([img])
-            times.append((time.perf_counter() - t0) * 1000)
-        arr = np.array(times)
-        cuda = self.device.type == "cuda"
-        return LatencyMetrics(
-            fps=int(round(1000.0 / arr.mean())),
-            engine=f"torch.{self.device.type}.e2e",
-            min=round(float(arr.min()), 3),
-            max=round(float(arr.max()), 3),
-            mean=round(float(arr.mean()), 3),
-            std=round(float(arr.std()), 3),
-            im_size=size,
-            device=torch.cuda.get_device_name(self.device) if cuda else "cpu",
-        )
+        return end2end_latency(self, size or self.im_size[0], iterations, f"torch.{self.device.type}.e2e", self.device)
 
     # ------------------------------------------------------------------
     def train(self, args, train_dataset, val_dataset=None):
@@ -265,5 +227,23 @@ class FocoosModel:
 
         return run_eval(self, args, val_dataset)
 
-    def export(self, *args, **kwargs):
-        raise NotImplementedError("export is not ported yet (ROADMAP Queue 1 item 6)")
+    def export(
+        self,
+        runtime_type: RuntimeType = RuntimeType.CUDA_BF16,
+        out_dir: Optional[str] = None,
+        image_size: Optional[Union[int, Tuple[int, int]]] = None,
+        batch_size: int = 1,
+        size_buckets=None,
+        overwrite: bool = False,
+    ):
+        """Export a servable directory and return an ``InferModel`` over it on
+        this model's device (JAX focoos_model.py:282; reference:
+        focoos_model.py:418-573): the weights (``model_final.npz``) and
+        ``model_info.json`` always, the int8 store for ``CUDA_INT8``, and for
+        ``TORCH_EXPORT`` a ``torch.export`` program at (batch_size, H, W, 3)
+        uint8 plus one per ``size_buckets`` entry. ``overwrite=False`` reuses
+        a complete directory."""
+        from focoos_tpu_torch.infer.export import export_model
+
+        return export_model(self, runtime_type, out_dir, image_size, batch_size,
+                            size_buckets=size_buckets, overwrite=overwrite)

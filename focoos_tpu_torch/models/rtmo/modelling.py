@@ -28,7 +28,6 @@ decodes fp32 heatmaps (JAX :271-272, :374-380, :395-396).
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import List, Optional, Sequence, Tuple
 
@@ -49,6 +48,7 @@ from focoos_tpu_torch.nn.layers.common import (
     Linear,
     MaskedBatchNorm1d,
     MultiHeadAttention,
+    constant_cache,
     init_like_flax_,
 )
 from focoos_tpu_torch.ops.nms import topk_nms
@@ -82,7 +82,7 @@ def spe_2d_grid(h: int, w: int, out_channels: int, temperature: float) -> np.nda
     return np.concatenate([enc_h, enc_w], axis=-1).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=16)
+@constant_cache
 def _spe_2d_tensor(h: int, w: int, out_channels: int, temperature: float, device: torch.device) -> torch.Tensor:
     """[1, H*W, 2*out_channels] on ``device``, made once per shape (as an
     ordinary tensor even when first asked for under inference mode)."""
@@ -420,7 +420,7 @@ def grid_priors(
     return np.concatenate(pts), np.concatenate(sts)
 
 
-@functools.lru_cache(maxsize=16)
+@constant_cache
 def _prior_tensors(featmap_sizes: Tuple[Tuple[int, int], ...], strides: Tuple[int, ...], centralize: bool,
                    device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     with torch.inference_mode(False):

@@ -18,11 +18,14 @@ import torch
 from focoos_tpu_torch.ports import DatasetEntry, FocoosDet, FocoosDetections
 from focoos_tpu_torch.models.rtmo.config import RTMOConfig
 from focoos_tpu_torch.models.rtmo.ports import KeypointTargets, RTMOModelOutput
-from focoos_tpu_torch.processor.base_processor import Processor
+from focoos_tpu_torch.processor.base_processor import Processor, as_tensors
 from focoos_tpu_torch.structures import Boxes, ImageList, Instances
 
 
 class RTMOProcessor(Processor):
+    # boxes and keypoints come out in the input's pixel frame, which the
+    # decode rescales from the configured size: no resize to another bucket
+    resize_dispatch_safe = False
     def __init__(self, config: RTMOConfig, image_size: Optional[Union[int, Tuple[int, int]]] = None):
         super().__init__(config, image_size)
         self.threshold = config.score_thr
@@ -167,5 +170,10 @@ class RTMOProcessor(Processor):
             results.append({"instances": inst})
         return results
 
-    def export_postprocess(self, output, inputs, class_names: List[str] = [], **kw):
-        raise NotImplementedError("rtmo export is not ported yet (ROADMAP Queue 1 item 6)")
+    def export_postprocess(self, output, inputs, class_names: List[str] = [], **kw) -> List[FocoosDetections]:
+        """(JAX processor.py:186-194)"""
+        model_output = RTMOModelOutput(*as_tensors(output), loss=None)
+        return self.postprocess(model_output, inputs, class_names, **kw)
+
+    def get_output_names(self) -> List[str]:
+        return ["scores", "labels", "boxes", "boxes_scores", "keypoints", "keypoints_scores", "keypoints_visible"]

@@ -153,7 +153,9 @@ class ResNet(BaseBackbone):
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         cfg = self.config
-        if not self.training and cfg.variant in ("c", "d") and cfg.act == "relu":
+        # the int8 path runs the three convs as int8 ConvNorms, as the JAX
+        # package's int8 forward does off a TPU (its stem_banded_auto is false there)
+        if not self.training and cfg.variant in ("c", "d") and cfg.act == "relu" and not self.conv1[0].int8:
             x = self._fused_stem(x)
         else:
             x = F.max_pool2d(self.conv1(x), 3, 2, 1)

@@ -5,8 +5,19 @@ rtmo and fai_mf paths use. Convolutions take NCHW tensors (the port's internal l
 tensor permuted to NCHW is a channels-last view and needs no copy); sequence
 layers take ``[B, L, C]``. Parameter names follow the reference's torch
 modules, so ``focoos_tpu.utils.torch_convert`` maps a port ``state_dict`` onto
-the JAX variables. The TPU-only stem convs, the int8 QDQ paths and
-``FREEZE_ALL_BN`` are not ported here.
+the JAX variables. The TPU-only stem convs and ``FREEZE_ALL_BN`` are not
+ported here.
+
+Int8 QDQ (JAX :50-102, :219-230, :504-630): a ``ConvNorm`` and an
+``Int8Linear`` (the JAX package's ``Int8Dense`` sites) compute their product
+in int8 in eval once ``set_int8_mode`` switched them on. Weights take
+per-output-channel symmetric scales, the input one per-tensor scale (the
+calibrated one where the layer has it, else ``max|x| / 127``, both floored at
+1e-12); ``clip(round(x / sx), -127, 127)`` rounds half to even, as
+``jnp.round``; the s8 x s8 → s32 product is ``ops/int8.py``'s; then
+``acc * (sx * sw)`` in that order, plus the bias, in fp32, cast to the
+compute dtype. The mode is a flag on each module, no global; train mode
+always computes in float.
 
 Compute dtype (the JAX package's precision policy, flax's ``dtype=``): the
 parameters stay fp32. A layer that the JAX package builds with
@@ -21,12 +32,15 @@ the CPU and the card run the same dtypes.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from focoos_tpu_torch.ops.int8 import int8_conv2d, int8_matmul
 
 
 class ComputeDtype:
@@ -43,7 +57,7 @@ class ComputeDtype:
         dt = self.compute_dtype
         if t is None or t.dtype == dt:
             return t
-        if torch.is_grad_enabled():
+        if torch.is_grad_enabled() or torch.compiler.is_exporting():  # a traced weight is fake: no data pointer
             return t.to(dt)
         key = (t.data_ptr(), t._version, t.device, dt)
         cache = self.__dict__.setdefault("_cast_cache", {})
@@ -52,6 +66,19 @@ class ComputeDtype:
             with torch.inference_mode(False):  # an ordinary tensor, usable outside inference mode too
                 hit = cache[id(t)] = (key, t.detach().to(dt))
         return hit[1]
+
+
+def constant_cache(fn: Callable) -> Callable:
+    """``functools.lru_cache(16)`` for a function that makes constant tensors
+    (anchors, position grids), bypassed while ``torch.export`` traces: its
+    tensors are fake there, and the program keeps them as constants."""
+    cached = functools.lru_cache(maxsize=16)(fn)
+
+    @functools.wraps(fn)
+    def wrapper(*args):
+        return fn(*args) if torch.compiler.is_exporting() else cached(*args)
+
+    return wrapper
 
 
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
@@ -189,9 +216,76 @@ def get_norm(norm: Optional[str], channels: int) -> Optional[nn.Module]:
     raise ValueError(f"Unsupported norm in the port: {norm}")
 
 
-class ConvNorm(nn.Module):
+# absmax / 127 as the JAX package's compiled graph computes it: XLA turns a
+# division by the constant 127 into a product with its fp32 reciprocal, which
+# lands one ulp off the quotient for ~4% of inputs (and a scale one ulp off
+# moves the inputs that sit on a rounding edge to the next int8 step)
+_INV_127 = 1.0 / 127.0
+
+
+class Int8QDQ:
+    """Mixin of the layers with an int8 QDQ product (``ConvNorm``,
+    ``Int8Linear``): the state ``set_int8_mode`` sets, the weight's int8
+    copy and the input's quantization."""
+
+    int8: bool = False  # switched on by set_int8_mode; read in eval only
+    calibrating: bool = False  # record the input absmax of each forward
+    act_scale: Optional[torch.Tensor] = None  # calibrated static input scale; None: dynamic
+    absmax: Optional[torch.Tensor] = None  # the largest input absmax while calibrating
+
+    def int8_active(self) -> bool:
+        return self.int8 and not self.training
+
+    def quantized_weight(self, w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(int8 weight, fp32 scales [O]) of ``w`` [O, ...]: absmax over all
+        but the output axis / 127, floored at 1e-12, and ``round(w / sw)``;
+        kept while ``w`` is unchanged (same storage, same version)."""
+        key = (w.data_ptr(), w._version, w.device)
+        hit = self.__dict__.get("_int8_weight")
+        if hit is None or hit[0] != key:
+            with torch.no_grad(), torch.inference_mode(False):
+                wf = w.detach().float()
+                sw = torch.clamp_min(wf.abs().amax(dim=tuple(range(1, w.dim()))) * _INV_127, 1e-12)
+                wq = torch.round(wf / sw.reshape(-1, *[1] * (w.dim() - 1))).to(torch.int8)
+            hit = self.__dict__["_int8_weight"] = (key, (wq, sw))
+        return hit[1]
+
+    def quantized_input(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(int8 x, its fp32 scale) with the calibrated scale or the dynamic one."""
+        xf = x.float()
+        if self.act_scale is None:
+            m = xf.abs().amax()
+            if self.calibrating:
+                self.absmax = m if self.absmax is None else torch.maximum(self.absmax, m)
+            sx = m * _INV_127
+        else:
+            sx = self.act_scale
+        sx = torch.clamp_min(sx, 1e-12)
+        return torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8), sx
+
+
+class Int8Linear(Int8QDQ, Linear):
+    """``Linear`` at the JAX package's ``Int8Dense`` sites (JAX common.py:579):
+    float unless ``set_int8_mode`` switched it on, then, in eval, an int8 QDQ
+    product over the last axis."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.int8_active():
+            return super().forward(x)
+        wq, sw = self.quantized_weight(self.weight)
+        xq, sx = self.quantized_input(x)
+        acc = int8_matmul(xq.reshape(-1, xq.shape[-1]), wq).reshape(*x.shape[:-1], wq.shape[0])
+        y = acc.float() * (sx * sw)
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(self.compute_dtype)
+
+
+class ConvNorm(Int8QDQ, nn.Module):
     """Conv2d (no bias) + norm + activation (reference:
-    focoos/nn/layers/conv.py:ConvNormLayer). Padding is ``(k - 1) // 2`` unless given."""
+    focoos/nn/layers/conv.py:ConvNormLayer). Padding is ``(k - 1) // 2`` unless given.
+    ``qdq=False`` marks a conv + norm that the JAX package builds from plain
+    layers (no ``ConvNorm`` there), so that it never takes the int8 path."""
 
     def __init__(
         self,
@@ -202,18 +296,70 @@ class ConvNorm(nn.Module):
         padding: Optional[int] = None,
         norm: Optional[str] = "BN",
         act: Optional[str] = None,
+        qdq: bool = True,
     ):
         super().__init__()
         pad = (kernel_size - 1) // 2 if padding is None else padding
         self.conv = Conv2d(ch_in, ch_out, kernel_size, stride, pad, bias=False)
         self.norm = get_norm(norm, ch_out)
         self.act = get_activation(act)
+        self.qdq = qdq
+
+    def int8_conv(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv as JAX's ``_Int8QDQConv`` (common.py:504): NCHW in and out
+        (NHWC views), the product in int8."""
+        conv = self.conv
+        wq, sw = self.quantized_weight(conv.weight)
+        xq, sx = self.quantized_input(x.permute(0, 2, 3, 1))
+        acc = int8_conv2d(xq, wq, conv.stride[0], conv.padding[0])
+        y = acc.float() * (sx * sw)
+        if conv.bias is not None:
+            y = y + conv.bias.float()
+        return y.to(conv.compute_dtype).permute(0, 3, 1, 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(x)
+        x = self.int8_conv(x) if self.int8_active() else self.conv(x)
         if self.norm is not None:
             x = self.norm(x)
         return self.act(x)
+
+
+def int8_layers(module: nn.Module) -> dict:
+    """{name of the int8 product's module: the layer holding its int8 state}:
+    each QDQ ``ConvNorm`` under the name of its ``conv`` (JAX's
+    ``_Int8QDQConv`` is that conv's module path), each ``Int8Linear`` under
+    its own."""
+    out = {}
+    for name, m in module.named_modules():
+        if isinstance(m, ConvNorm) and m.qdq:
+            out[f"{name}.conv" if name else "conv"] = m
+        elif isinstance(m, Int8Linear):
+            out[name] = m
+    return out
+
+
+def set_int8_mode(
+    module: nn.Module, enabled: bool = True, act_scales: Optional[dict] = None, calibrate: bool = False
+) -> int:
+    """Switch the int8 QDQ products of ``module`` on or off → the number of
+    int8 layers. ``act_scales`` maps ``int8_layers`` names to calibrated
+    static input scales (absmax / 127); a layer without one quantizes its
+    input with the dynamic scale. ``calibrate`` records each layer's input
+    absmax (``calibration_absmax`` reads it), as JAX's
+    ``int8_calibration_mode`` does, with dynamic scales."""
+    layers = int8_layers(module)
+    for name, m in layers.items():
+        m.int8, m.calibrating, m.absmax = enabled, calibrate, None
+        scale = (act_scales or {}).get(name)
+        device = next(m.parameters()).device
+        m.act_scale = None if scale is None or calibrate else torch.tensor(scale, dtype=torch.float32, device=device)
+        m.__dict__.pop("_int8_weight", None)
+    return len(layers)
+
+
+def calibration_absmax(module: nn.Module) -> dict:
+    """{``int8_layers`` name: the largest input absmax since ``set_int8_mode(..., calibrate=True)``}."""
+    return {name: float(m.absmax) for name, m in int8_layers(module).items() if m.absmax is not None}
 
 
 class MLP(nn.Module):

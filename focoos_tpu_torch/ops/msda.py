@@ -9,12 +9,20 @@ gradient goes through ``_MSDAFunction``, which pairs the two kernels. Each
 kernel has a vector path (16-byte loads, and vector atomics backward) and a
 general one for any D and alignment; ``vector_path`` picks, and each
 wrapper counts its launches by path in ``.paths``.
+
+The forward is the custom op ``focoos::msda_forward`` (``torch.library``),
+so that a ``torch.export`` program holds it: its CUDA implementation is the
+launch (checks, ``torch.cuda.current_stream()``, ``cuda_build.check``, the
+launch counters), its CPU implementation the plain version, and its fake
+implementation gives the output's shape and dtype. ``spatial_shapes`` enters
+the op flat, ``[h0, w0, h1, w1, ...]``. The backward stays a plain launch:
+no exported graph holds it.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -153,6 +161,29 @@ def msda_backward(
     return d_value, d_loc, d_aw
 
 
+def _pairs(flat: Sequence[int]) -> List[Tuple[int, int]]:
+    return [(int(flat[i]), int(flat[i + 1])) for i in range(0, len(flat), 2)]
+
+
+@torch.library.custom_op("focoos::msda_forward", mutates_args=(), device_types="cpu")
+def msda_forward_op(
+    value: torch.Tensor, spatial_shapes: List[int], sampling_locations: torch.Tensor, attention_weights: torch.Tensor
+) -> torch.Tensor:
+    """The op on CPU tensors: the plain version."""
+    return ms_deform_attn(value, _pairs(spatial_shapes), sampling_locations, attention_weights).contiguous()
+
+
+@msda_forward_op.register_kernel("cuda")
+def _msda_forward_cuda(value, spatial_shapes, sampling_locations, attention_weights):
+    return _launch_forward(value, _pairs(spatial_shapes), sampling_locations, attention_weights)
+
+
+@msda_forward_op.register_fake
+def _msda_forward_fake(value, spatial_shapes, sampling_locations, attention_weights):
+    b, _, hh, d = value.shape
+    return value.new_empty((b, sampling_locations.shape[1], hh * d))
+
+
 class _MSDAFunction(torch.autograd.Function):
     """The forward kernel with the backward kernel as its gradient. Saves only
     value, loc and aw: the backward recomputes the corner weights."""
@@ -163,7 +194,7 @@ class _MSDAFunction(torch.autograd.Function):
         ctx.save_for_backward(value, loc, aw)
         if not value.is_cuda:  # the plain version, for the CPU tests of this route
             return ms_deform_attn(value, spatial_shapes, loc, aw)
-        return _launch_forward(value, spatial_shapes, loc, aw)
+        return msda_forward_op(value, [v for hw in spatial_shapes for v in hw], loc, aw)
 
     @staticmethod
     @once_differentiable
@@ -182,15 +213,16 @@ def msda_forward(
 ) -> torch.Tensor:
     """Fused MSDA → [B, Lq, Hh * D] in value's dtype, fp32 accumulation.
     Differentiable: on the card through the backward kernel, on the CPU
-    through the plain version's own autograd."""
+    through the plain version's own autograd. Without a gradient it is the
+    op ``focoos::msda_forward`` on either device."""
     spatial_shapes = [(int(h), int(w)) for h, w in spatial_shapes]
-    if not value.is_cuda:
-        return ms_deform_attn(value, spatial_shapes, sampling_locations, attention_weights)
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (value, sampling_locations, attention_weights)
     ):
+        if not value.is_cuda:
+            return ms_deform_attn(value, spatial_shapes, sampling_locations, attention_weights)
         return _MSDAFunction.apply(value, spatial_shapes, sampling_locations, attention_weights)
-    return _launch_forward(value, spatial_shapes, sampling_locations, attention_weights)
+    return msda_forward_op(value, [v for hw in spatial_shapes for v in hw], sampling_locations, attention_weights)
 
 
 msda_forward.launches = 0

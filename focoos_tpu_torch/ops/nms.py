@@ -8,7 +8,9 @@ batch.
 
 ``nms_keep`` is the wrapper: for a tensor on the CPU it runs the plain
 version (``nms_keep_reference``); for a CUDA tensor it launches the kernel or
-raises. There is no fallback.
+raises. There is no fallback. It calls the custom op ``focoos::nms_keep``
+(``torch.library``: the launch on CUDA tensors, the plain version on CPU
+ones, a [B, K] bool fake), so that a ``torch.export`` program holds it.
 """
 
 from __future__ import annotations
@@ -78,11 +80,26 @@ def _check(boxes: torch.Tensor, scores: torch.Tensor) -> None:
         raise ValueError("boxes must be 16-byte aligned: the kernel reads each box as one float4")
 
 
+@torch.library.custom_op("focoos::nms_keep", mutates_args=(), device_types="cpu")
+def nms_keep_op(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """The op on CPU tensors: the plain version."""
+    return nms_keep_reference(boxes, scores, iou_threshold)
+
+
+@nms_keep_op.register_fake
+def _nms_keep_fake(boxes, scores, iou_threshold):
+    return scores.new_empty(scores.shape, dtype=torch.bool)
+
+
 def nms_keep(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float = 0.65) -> torch.Tensor:
     """Greedy NMS keep mask [B, K] bool over score-sorted candidates
-    (contract of ``nms_keep_reference``); one launch for the batch on the card."""
-    if not boxes.is_cuda:
-        return nms_keep_reference(boxes, scores, iou_threshold)
+    (contract of ``nms_keep_reference``); one launch for the batch on the card.
+    The mask carries no gradient."""
+    return nms_keep_op(boxes.detach(), scores.detach(), float(iou_threshold))
+
+
+@nms_keep_op.register_kernel("cuda")
+def _nms_keep_cuda(boxes, scores, iou_threshold):
     _check(boxes, scores)
     b, k = scores.shape
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)

@@ -13,6 +13,11 @@ with ``(s_i, a_i)`` the eval BatchNorm folded per channel
 tensor on the CPU the wrapper runs the plain version below; for a CUDA tensor
 it launches the kernel or raises. Unlike the Pallas wrapper it takes any H and
 W (the kernel masks the edges).
+
+The forward is the custom op ``focoos::fused_resnet_stem`` (``torch.library``),
+so that a ``torch.export`` program holds it: its CUDA implementation is the
+launch, its CPU implementation the plain version, its fake implementation
+the output's shape, [B, ceil(ceil(H/2)/2), ceil(ceil(W/2)/2), 64].
 """
 
 from __future__ import annotations
@@ -78,6 +83,27 @@ def _check(x, params) -> None:
                 raise ValueError(f"{name} must be contiguous")
 
 
+def _out_hw(h, w):
+    return ((h + 1) // 2 + 1) // 2, ((w + 1) // 2 + 1) // 2
+
+
+@torch.library.custom_op("focoos::fused_resnet_stem", mutates_args=(), device_types="cpu")
+def fused_resnet_stem_op(
+    x: torch.Tensor,
+    k1: torch.Tensor, s1: torch.Tensor, a1: torch.Tensor,
+    k2: torch.Tensor, s2: torch.Tensor, a2: torch.Tensor,
+    k3: torch.Tensor, s3: torch.Tensor, a3: torch.Tensor,
+) -> torch.Tensor:
+    """The op on CPU tensors: the plain version."""
+    return resnet_stem_reference(x, k1, s1, a1, k2, s2, a2, k3, s3, a3).contiguous()
+
+
+@fused_resnet_stem_op.register_fake
+def _fused_resnet_stem_fake(x, *params):
+    b, h, w, _ = x.shape
+    return x.new_empty((b, *_out_hw(h, w), _CHANNELS[-1]))
+
+
 def fused_resnet_stem(
     x: torch.Tensor,
     k1: torch.Tensor, s1: torch.Tensor, a1: torch.Tensor,
@@ -88,13 +114,19 @@ def fused_resnet_stem(
     k_i: HWIO [3, 3, Cin, Cout] float32; s_i, a_i: [Cout] float32.
     Returns [B, ceil(H/4), ceil(W/4), 64] in x's dtype."""
     params = (k1, s1, a1, k2, s2, a2, k3, s3, a3)
-    if not x.is_cuda:
-        return resnet_stem_reference(x, *params)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)):
+        if not x.is_cuda:
+            return resnet_stem_reference(x, *params)
         raise NotImplementedError("fused_resnet_stem is inference-only: it has no backward kernel")
+    return fused_resnet_stem_op(x, *params)
+
+
+@fused_resnet_stem_op.register_kernel("cuda")
+def _fused_resnet_stem_cuda(x, k1, s1, a1, k2, s2, a2, k3, s3, a3):
+    params = (k1, s1, a1, k2, s2, a2, k3, s3, a3)
     _check(x, params)
     b, h, w, _ = x.shape
-    h4, w4 = (((h + 1) // 2) + 1) // 2, (((w + 1) // 2) + 1) // 2
+    h4, w4 = _out_hw(h, w)
     out = torch.empty((b, h4, w4, _CHANNELS[-1]), dtype=x.dtype, device=x.device)
     fn = _kernel()
     with torch.cuda.device(x.device):

@@ -68,13 +68,54 @@ class ModelFamily(str, Enum):
     RTMO = "rtmo"
 
 
+class RuntimeType(str, Enum):
+    """Inference engine configurations (JAX ports.py:95; focoos/ports.py:598).
+    Each member and its JAX counterpart:
+
+    - ``CUDA_BF16`` (default): the eager module on the card in bf16 compute
+      (fp32 parameters) — ``XLA_TPU_BF16``;
+    - ``CUDA_FP32``: the eager module on the card in fp32 — ``XLA_TPU_FP32``;
+    - ``CPU``: the eager module in fp32 on the host, only when named — ``XLA_CPU``;
+    - ``CUDA_INT8``: the int8 weight store, dequantized, in a bf16 module whose
+      ``ConvNorm``s and ``Int8Linear``s run int8 QDQ products — ``XLA_TPU_INT8``;
+    - ``TORCH_EXPORT``: a ``torch.export`` program (``model.pt2``, plus
+      ``model_{H}x{W}.pt2`` size buckets) — ``STABLEHLO``.
+
+    ``TF_SAVEDMODEL`` has no counterpart yet (ROADMAP Queue 1 item 6)."""
+
+    CUDA_BF16 = "cuda_bf16"
+    CUDA_FP32 = "cuda_fp32"
+    CPU = "cpu"
+    CUDA_INT8 = "cuda_int8"
+    TORCH_EXPORT = "torch_export"
+
+    def __str__(self) -> str:
+        return self.value
+
+
+class ModelExtension(str, Enum):
+    """Artifact file extensions (JAX ports.py:132; focoos/ports.py:631)."""
+
+    EXPORTED_PROGRAM = "pt2"
+    WEIGHTS = "npz"
+
+
+def bucket_program_name(hw: Tuple[int, int]) -> str:
+    """The file of the ``torch.export`` program of size bucket (H, W), beside ``model.pt2``."""
+    return f"model_{hw[0]}x{hw[1]}.{ModelExtension.EXPORTED_PROGRAM.value}"
+
+
 class ArtifactName(str, Enum):
-    """Well-known file names inside a model run directory (focoos/ports.py:1366)."""
+    """Well-known file names inside a model run directory (focoos/ports.py:1366).
+    ``EXPORTED_PROGRAM`` is the port's program at the export size; each size
+    bucket sits beside it as ``model_{H}x{W}.pt2``."""
 
     WEIGHTS = "model_final.npz"
     WEIGHTS_INT8 = "model_int8.npz"
     STABLEHLO = "model.stablehlo"
     SAVEDMODEL = "saved_model"  # TF SavedModel directory (portable serving)
+    EXPORTED_PROGRAM = "model.pt2"
+    CALIBRATION = "calibration.npz"
     INFO = "model_info.json"
     METRICS = "metrics.json"
     LOGS = "log.txt"

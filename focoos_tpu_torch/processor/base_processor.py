@@ -43,8 +43,21 @@ def resize_bilinear(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     return out[0].permute(1, 2, 0).numpy()
 
 
+def as_tensors(output) -> List[torch.Tensor]:
+    """A runtime's outputs (tensors or numpy arrays, in ``get_output_names``
+    order) → tensors, on the device they are on."""
+    return [torch.as_tensor(o) for o in output]
+
+
 class Processor:
     """Abstract family processor (reference: focoos/processor/base_processor.py:55)."""
+
+    # True when the exported outputs do not depend on the input's resolution
+    # (boxes in [0, 1], masks whose decode reads the array's own shape): only
+    # then may an exported-program runtime squash-resize a request to the
+    # closest size bucket. Pixel-frame outputs (rtmo) set it False (JAX
+    # base_processor.py:45).
+    resize_dispatch_safe: bool = True
 
     def __init__(self, config: ModelConfig, image_size: Optional[Union[int, Tuple[int, int]]] = None):
         self.config = config
@@ -111,4 +124,12 @@ class Processor:
         return output
 
     def eval_postprocess(self, output, batched_inputs: List[DatasetEntry], **kw):
+        raise NotImplementedError
+
+    def export_postprocess(self, output, inputs, class_names: List[str] = [], **kw) -> List[FocoosDetections]:
+        """``postprocess`` of a runtime's outputs, a list in ``get_output_names`` order."""
+        raise NotImplementedError
+
+    def get_output_names(self) -> List[str]:
+        """Names of the exported outputs, in the order a runtime returns them."""
         raise NotImplementedError

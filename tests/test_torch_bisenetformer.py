@@ -262,7 +262,8 @@ def test_semantic_eval_postprocess_matches_jax(host, monkeypatch):
 
 def test_training_targets_are_stride_8_as_jax():
     """The processor's default mask stride is 8, as JAX's: targets at
-    ceil(h/8) x ceil(w/8), equal to the JAX processor's; export refuses."""
+    ceil(h/8) x ceil(w/8), equal to the JAX processor's; its exported outputs
+    are JAX's, in JAX's order (logits, then masks: the reverse of fai_mf's)."""
     from test_torch_mf_train import _instance_entries
 
     jp, pp = _processors()
@@ -273,9 +274,7 @@ def test_training_targets_are_stride_8_as_jax():
     np.testing.assert_array_equal(pt.labels.numpy(), np.asarray(jt.labels))
     np.testing.assert_array_equal(pt.valid.numpy(), np.asarray(jt.valid))
     np.testing.assert_allclose(pt.masks.numpy(), np.asarray(jt.masks), rtol=0, atol=1e-6)
-    for call in (lambda: pp.export_postprocess([], []), pp.get_output_names):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            call()
+    assert pp.get_output_names() == jp.get_output_names() == ["logits", "masks"]
 
 
 # --------------------------------------------------------------------------- training

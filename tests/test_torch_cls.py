@@ -268,8 +268,12 @@ def test_postprocess_and_eval_postprocess_match_jax():
         assert len(got) == len(ref)
         for r, g in zip(ref, got):
             np.testing.assert_allclose(g["logits"], r["logits"], rtol=0, atol=PROB_TOL)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        pp.export_postprocess([logits], None)
+    ref = jp.export_postprocess([logits], None, names, threshold=0.2)
+    got = pp.export_postprocess([logits], None, names, threshold=0.2)
+    assert pp.get_output_names() == jp.get_output_names() == ["logits"]
+    for r, g in zip(ref, got, strict=True):
+        assert [(d.cls_id, d.label) for d in g.detections] == [(d.cls_id, d.label) for d in r.detections]
+        np.testing.assert_allclose([d.conf for d in g.detections], [d.conf for d in r.detections], atol=PROB_TOL)
 
 
 def test_preprocess_entries_matches_jax():

@@ -1028,3 +1028,118 @@ def test_rtmo_simota_and_criterion_on_the_card_match_the_cpu(cuda):
     (gm, rm), (gv, rv) = batch["mean"], batch["var"]
     assert float(((gm - rm).abs() / rv.sqrt()).max()) <= 1e-5
     assert float(((gv - rv).abs() / rv).max()) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# export and int8 serving (focoos_tpu_torch/infer, ops/int8.py)
+
+
+@pytest.mark.parametrize("m,k,n", [(5, 27, 12), (16, 27, 32), (300, 576, 64), (17, 256, 1024)])
+def test_int8_matmul_on_the_card_equals_float64(cuda, m, k, n):
+    """``torch._int_mm`` on zero-padded operands (M ≤ 16, K = 27 and N not a
+    multiple of 8 are padded) against the exact float64 product, bit for bit."""
+    from focoos_tpu_torch.ops.int8 import int8_matmul, int8_matmul_reference
+
+    g = torch.Generator().manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+    got = int8_matmul(a.to(cuda), b.to(cuda))
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.cpu(), int8_matmul_reference(a, b))
+    assert torch.equal(got, int8_matmul_reference(a.to(cuda), b.to(cuda)))
+
+
+@pytest.mark.parametrize("k,stride,cin", [(3, 2, 3), (3, 1, 16), (1, 2, 16), (1, 1, 24)])
+def test_int8_conv_norm_on_the_card_matches_the_cpu(cuda, k, stride, cin):
+    """An int8 ConvNorm: the card's im2col + ``_int_mm`` sums equal the CPU's
+    float64 ones; the output (the same sums times the same scales, then
+    cuDNN-free BatchNorm) agrees to 1e-6 x max."""
+    from focoos_tpu_torch.nn.layers.common import ConvNorm, set_int8_mode
+    from focoos_tpu_torch.ops.int8 import int8_conv2d, int8_conv2d_reference
+
+    g = torch.Generator().manual_seed(k * 10 + cin)
+    xq = torch.randint(-127, 128, (2, 29, 31, cin), generator=g, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (40, cin, k, k), generator=g, dtype=torch.int8)
+    pad = (k - 1) // 2
+    acc = int8_conv2d(xq.to(cuda), wq.to(cuda), stride, pad)
+    assert torch.equal(acc.cpu(), int8_conv2d_reference(xq, wq, stride, pad))
+    cpu = ConvNorm(cin, 40, k, stride, act="relu").eval()
+    torch.nn.init.normal_(cpu.conv.weight, 0.0, 0.2, generator=g)
+    card = ConvNorm(cin, 40, k, stride, act="relu").to(cuda).eval()
+    card.load_state_dict(cpu.state_dict())
+    for m in (cpu, card):
+        set_int8_mode(m, True)
+    x = torch.randn(2, cin, 29, 31, generator=g)
+    with torch.no_grad():
+        ref, out = cpu(x), card(x.to(cuda)).cpu()
+    assert float((out - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+
+
+def _op_cases(device):
+    from focoos_tpu_torch.ops.msda import msda_forward_op
+    from focoos_tpu_torch.ops.nms import nms_keep_op
+    from focoos_tpu_torch.ops.stem import fused_resnet_stem_op
+
+    g = torch.Generator().manual_seed(0)
+    v = torch.rand(2, 26, 2, 8, generator=g)
+    msda = (v, [4, 5, 2, 3], torch.rand(2, 7, 2, 2, 4, 2, generator=g), torch.rand(2, 7, 2, 2, 4, generator=g))
+    _, params = _stem_params("cpu")
+    stem = (torch.randn(2, 13, 11, 3, generator=g), *params)
+    boxes = torch.rand(2, 9, 4, generator=g)
+    boxes[..., 2:] += boxes[..., :2]
+    nms = (boxes, torch.sort(torch.rand(2, 9, generator=g), descending=True).values, 0.5)
+    move = lambda args: tuple(a.to(device) if isinstance(a, torch.Tensor) else a for a in args)  # noqa: E731
+    return {"msda_forward": (msda_forward_op, move(msda)), "fused_resnet_stem": (fused_resnet_stem_op, move(stem)),
+            "nms_keep": (nms_keep_op, move(nms))}
+
+
+@pytest.mark.parametrize("op", ["msda_forward", "fused_resnet_stem", "nms_keep"])
+def test_custom_op_passes_opcheck_on_the_card(cuda, op):
+    fn, args = _op_cases(cuda)[op]
+    result = torch.library.opcheck(fn, args)
+    assert set(result.values()) == {"SUCCESS"}, result
+
+
+def test_tiny_fai_detr_program_on_the_card_equals_eager(cuda, tmp_path):
+    """A tiny fai-detr-l exported on the card: the loaded ``.pt2`` runs the
+    MSDA and stem kernels as custom ops, and its outputs equal the eager
+    module's (the same kernels and cuBLAS calls, traced)."""
+    from focoos_tpu_torch import ModelManager
+    from focoos_tpu_torch.ops.msda import msda_forward
+    from focoos_tpu_torch.ops.stem import fused_resnet_stem
+    from focoos_tpu_torch.ports import RuntimeType
+
+    model = ModelManager.get("fai-detr-l-coco", device=cuda, image_size=96, num_queries=20,
+                             transformer_predictor_dec_layers=2,
+                             backbone_config={"model_type": "resnet", "depth": 18, "variant": "d", "freeze_norm": False})
+    served = model.export(RuntimeType.TORCH_EXPORT, out_dir=str(tmp_path))
+    x = torch.randint(0, 256, (1, 96, 96, 3), generator=torch.Generator().manual_seed(1), dtype=torch.uint8)
+    msda_forward.launches = fused_resnet_stem.launches = 0
+    got = served.runtime(x.numpy())
+    torch.cuda.synchronize()
+    assert (msda_forward.launches, fused_resnet_stem.launches) == (2, 1)
+    with torch.inference_mode():
+        out, _ = model.module(x.to(cuda))
+    for name, g in zip(["boxes", "logits"], got):
+        ref = getattr(out, name)
+        assert float((g - ref).abs().max()) <= 1e-6 * float(ref.abs().max()), name
+
+
+def test_quantizer_benchmark_comparison_on_the_card(cuda, tmp_path):
+    """``Quantizer.benchmark_comparison``: the card's forward latency with the
+    float weights, then with the int8 store's dequantized ones, and the float
+    weights back in the model afterwards."""
+    from focoos_tpu_torch import ModelManager
+    from focoos_tpu_torch.infer.quantizer import Quantizer
+
+    model = ModelManager.get("fai-detr-l-coco", device=cuda, image_size=96, num_queries=20,
+                             transformer_predictor_dec_layers=2,
+                             backbone_config={"model_type": "resnet", "depth": 18, "variant": "d", "freeze_norm": False})
+    before = {k: v.clone() for k, v in model.module.state_dict().items()}
+    quantizer = Quantizer(model)
+    times = quantizer.benchmark_comparison(quantizer.quantize(str(tmp_path)), iterations=3)
+    assert set(times) == {"fp", "int8"}
+    for lat in times.values():
+        assert lat.device == torch.cuda.get_device_name(cuda) and lat.im_size == 96 and 0 < lat.min <= lat.max
+    after = model.module.state_dict()
+    assert all(torch.equal(before[k], after[k]) for k in before)

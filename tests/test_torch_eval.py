@@ -418,3 +418,80 @@ def test_trainer_validates_during_training(tmp_path):
     assert {"model_best", "model_final", "last_checkpoint"} <= set(os.listdir(ckpt))
     assert not any("_cast_cache" in m.__dict__ for m in model.module.modules())
     assert evaluate_dataset(model, _train_entries(3, 1), batch_size=1) == res["metrics"]  # the final weights
+
+
+# --------------------------------------------------------------------------- a resized record's two frames
+def _write_640x480_record(root: str, keypoints: bool) -> str:
+    """One 640x480 (width x height, COCO's most common size) Roboflow-COCO val
+    record: two boxes, or two people with 17 keypoints."""
+    import cv2
+
+    d = os.path.join(root, "valid")
+    os.makedirs(d)
+    cv2.imwrite(os.path.join(d, "img.jpg"), np.full((480, 640, 3), 90, np.uint8))
+    rng = np.random.default_rng(0)
+    anns = []
+    for i, (x, y, w, h) in enumerate([(60, 50, 200, 300), (380, 120, 180, 240)]):
+        ann = dict(id=i + 1, image_id=0, category_id=1 if keypoints else i + 1, bbox=[x, y, w, h], area=w * h, iscrowd=0)
+        if keypoints:
+            ann["keypoints"] = [v for _ in range(17) for v in (int(rng.integers(x, x + w)), int(rng.integers(y, y + h)), 2)]
+            ann["num_keypoints"] = 17
+        anns.append(ann)
+    cats = ([dict(id=0, name="people", supercategory="none"), dict(id=1, name="person", supercategory="people",
+                                                                    keypoints=[f"kp{j}" for j in range(17)])]
+            if keypoints else [dict(id=0, name="shapes", supercategory="none")]
+            + [dict(id=c, name=f"c{c}", supercategory="shapes") for c in (1, 2)])
+    with open(os.path.join(d, "_annotations.coco.json"), "w") as f:
+        json.dump(dict(images=[dict(id=0, file_name="img.jpg", height=480, width=640)], annotations=anns,
+                       categories=cats), f)
+    return root
+
+
+@pytest.mark.parametrize("task", ["detection", "keypoint"])
+def test_resized_record_is_scored_across_two_frames(task, tmp_path):
+    """ROADMAP Queue 3, pinned: the preset's val augmentation at 640 resizes a
+    640x480 record (detection: squashed to 640x640; keypoints: 853x640), the
+    evaluators take the mapped entry's ground truth in that frame, and
+    ``eval_postprocess`` scales predictions to the record's original frame
+    (JAX evaluators.py:72-95, port evaluators.py:57). A model that predicts
+    the ground truth exactly therefore scores the AP pinned here in both
+    packages, not 100; the same predictions in the mapped frame score 100."""
+    from focoos_tpu.data.auto_dataset import AutoDataset as JaxAutoDataset
+    from focoos_tpu.data.default_aug import get_default_by_task as jax_get_default_by_task
+    from focoos_tpu.ports import DatasetSplitType as JaxSplit
+    from focoos_tpu.ports import Task as JaxTask
+    from focoos_tpu_torch.data.auto_dataset import AutoDataset
+    from focoos_tpu_torch.data.default_aug import get_default_by_task
+    from focoos_tpu_torch.ports import DatasetSplitType
+    from focoos_tpu_torch.ports import Task as PortTask
+
+    root = _write_640x480_record(str(tmp_path), task == "keypoint")
+    pinned = {"detection": (("bbox", 30.0),), "keypoint": (("keypoints", 0.0),)}[task]
+    mapped_hw = {"detection": (640, 640), "keypoint": (640, 853)}[task]
+    results = {}
+    for pkg in ("jax", "port"):
+        jax_package = pkg == "jax"
+        if jax_package:
+            augs = jax_get_default_by_task(JaxTask(task), 640)[1]
+            entry = JaxAutoDataset(root, task=task).get_split(augs, split=JaxSplit.VAL)[0]
+            ev = JaxKeypointEvaluator(["person"]) if task == "keypoint" else JaxDetectionEvaluator(["c1", "c2"], 2)
+        else:
+            augs = get_default_by_task(PortTask(task), 640)[1]
+            entry = AutoDataset(root, task=task).get_split(augs, split=DatasetSplitType.VAL)[0]
+            ev = KeypointEvaluator(["person"]) if task == "keypoint" else DetectionEvaluator(["c1", "c2"], 2)
+        # the two frames: the mapped image and its ground truth, against the record's size
+        assert entry.image.shape[:2] == mapped_hw and (entry.height, entry.width) == (480, 640)
+        gt = entry.instances
+        sy, sx = mapped_hw[0] / 480, mapped_hw[1] / 640
+        np.testing.assert_allclose(gt.boxes.tensor[0], [60 * sx, 50 * sy, 260 * sx, 350 * sy], rtol=1e-5)
+        kpts = np.asarray(gt.keypoints.tensor) if task == "keypoint" else None
+        original = np.asarray(gt.boxes.tensor) / np.array([sx, sy, sx, sy], np.float32)
+        for frame, boxes, scale in (("original", original, (sx, sy)), ("mapped", np.asarray(gt.boxes.tensor), (1, 1))):
+            det = [boxes, np.array([0.9, 0.8]), np.asarray(gt.classes)]
+            if kpts is not None:
+                det.append(np.concatenate([kpts[..., :2] / np.array(scale), np.ones_like(kpts[..., :1])], -1))
+            results[(pkg, frame)] = _run(ev, [entry], _outputs_of(jax_package, [det], (480, 640), task == "keypoint"))
+    for metric, ap in pinned:
+        for pkg in ("jax", "port"):
+            assert results[(pkg, "original")][metric]["AP"] == pytest.approx(ap, abs=1e-9), (pkg, results[(pkg, "original")])
+            assert results[(pkg, "mapped")][metric]["AP"] == pytest.approx(100.0)
