@@ -76,7 +76,10 @@ non-zero:
    the fine-tuned model's captured locations; b1 and b16 serving in fp32
    and bf16. Every counted run starts its MSDA counts at 0;
 10. fai_mf — fai-mf-l-coco-ins at 1024² and fai-mf-l-ade at 640², served
-   and evaluated in fp32 and bf16 (``phase_mf``);
+   and evaluated in fp32 and bf16 (``phase_mf``); on the instance card's B=1
+   forwards of a seeded image (the mask logits sharpened) ``panoptic_inference``
+   on the card and on the CPU, the card's fp32 map scored by
+   ``PanopticEvaluator`` against the CPU's (PQ ≥ 99; bf16 reported);
 11. segm_train — mask-classification training at full width: one
    fai-mf-l-ade step (B=2 640²) on the card against the CPU's step in fp64
    on its attention masks, points and assignment, fp32 and bf16; then
@@ -84,7 +87,7 @@ non-zero:
    640x480 JPEGs written to disk (the train loader alone; validation at the
    preset's 1024 raising the resized-record ValueError of ROADMAP Queue 3;
    FocoosModel.train at B=8 with validation at 480 in fp32 and bf16; a
-   64-step loop without validation timed whole, its last steps profiled;
+   24-step loop without validation timed whole, its last steps profiled;
    the criterion alone; FocoosModel.eval); then bisenetformer-l-ade at 640² (infer(), card vs
    CPU forwards, b1/b16, evaluation against the CPU's own predictions, one
    step against the CPU, FocoosModel.train at B=16 from a semantic set on
@@ -107,6 +110,23 @@ non-zero:
    the criterion alone; FocoosModel.train at B=16 with keypoint validation
    at 480 (fp32 and bf16, profiled steps) and FocoosModel.eval, the NMS
    kernel counted from 0 before each run: one launch a validation forward;
+   user_data — a user's own dataset through the port's data and training
+   API, fai-detr-l-coco at full width (``phase_user_data``): a seeded
+   Supervisely folder (32 + 8 JPEGs of 640x480) converted to the
+   Roboflow-COCO layout by ``data/converters.py`` (one image and its mask
+   resized too), the train split mapped through a user augmentation list
+   (brightness, contrast, saturation, lighting, min-IoU crop, extent,
+   resize-scale, fixed-size crop), then K=2 against K=1 (4 steps each from
+   the same weights: each call's metrics against the mean of its two K=1
+   steps, each inner step's LR and, under SGD, the parameters' distance
+   against how far the steps moved them; two planted faults, a repeated
+   batch and a skipped update, must fail that gate; AdamW's first call),
+   FocoosModel.train at B=8 with ``steps_per_call=2`` for 12 steps
+   (checkpoints every 5 named by JAX's rule, ``ProfilerHook`` over calls
+   3–4 with its trace parsed by ``utils/profiling.py``, the TensorBoard
+   writer where tensorboardX imports, validation at 480), a resume from
+   model_0000005, ``retry_if_oom`` on the card and ``device_op_ms`` of a b8
+   forward; every kernel counted from 0 before each run;
 14. export — serving from exported directories (``focoos_tpu_torch/infer``):
    fai-detr-l-coco at 640² through ``FocoosModel.export`` and ``InferModel``
    in ``CUDA_FP32`` and ``CUDA_BF16`` (outputs against FocoosModel.forward
@@ -139,8 +159,8 @@ at the training batch B=8), each with its bound and share.
 The last three lines are the kernels' JSON record (``launches`` from the
 serving and training main paths, ``launches_lifecycle``,
 ``launches_finetune_m``, ``launches_fai_mf``, ``launches_segm_train``,
-``launches_fai_cls``, ``launches_rtmo_train`` and ``launches_export``
-summed over those phases' counted runs), the card's
+``launches_fai_cls``, ``launches_rtmo_train``, ``launches_user_data`` and
+``launches_export`` summed over those phases' counted runs), the card's
 name and power limit as
 nvidia-smi reports them, and the result JSON.
 """
@@ -988,20 +1008,13 @@ def compare_train_step(gpu_model, cpu_model, cfg, ds) -> dict:
 def device_busy(prof) -> tuple:
     """(union of the CUDA kernel intervals in µs, {kernel name: summed µs}).
     Ranges that the code annotates on the card's timeline (the optimizer's
-    step) are not kernels and are left out."""
+    step) are not kernels and are left out. The union is the port's
+    ``utils/profiling.busy_us``, which also reads its Chrome traces."""
+    from focoos_tpu_torch.utils.profiling import busy_us
+
     kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)]
-    iv = sorted((e.time_range.start, e.time_range.end) for e in kern)
-    busy, cur_s, cur_e = 0.0, None, None
-    for a, b in iv:
-        if cur_e is None or a > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = a, b
-        else:
-            cur_e = max(cur_e, b)
-    if cur_e is not None:
-        busy += cur_e - cur_s
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in kern)
     by_name = {}
     for e in kern:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.end - e.time_range.start
@@ -2172,6 +2185,113 @@ def mf_metric(res: dict, semantic: bool) -> tuple:
     return ("sem_seg/mIoU", res["sem_seg"]["mIoU"]) if semantic else ("segm/AP", res["segm"]["AP"])
 
 
+PAN_PQ_GATE = 99.0  # fp32 PQ of the card's panoptic map scored against the CPU's own map
+PAN_MIN_SEGMENTS = 5
+PAN_MIN_AREA = 1e-3  # the smallest segment the threshold search accepts, as a share of the image
+PAN_SEED = 31  # the panoptic check's image
+PAN_DROP_OVERLAP = 0.5  # a fixed overlap threshold the card's map is also compared at: the overlap rule drops queries
+
+
+def check_panoptic(tag: str, model, model16, cpu, size: int, dev) -> None:
+    """``panoptic_inference`` on the outputs (class and mask probabilities)
+    of one seeded ``size``² image (``PAN_SEED``), the CPU's on the CPU and
+    the card's on the card, half the
+    classes things and half stuff; the CPU's map is the ground truth that
+    ``PanopticEvaluator`` scores the card's fp32 map (gated) and bf16 map
+    (reported) against. Random weights give every query nearly the same
+    mask (their masks correlate 0.95 at full width, MF_MASK_STD) and similar
+    scores, so the best-scored query takes most pixels: the forwards run on
+    weights whose mask logits have ``MF_EVAL_MASK_STD`` (``condition_mf``:
+    sharper masks), and the weights are put back after. On the phase's own
+    B=1 image no thresholds leave enough segments that large (at most 10
+    with std 4, some of a few pixels, on an H100); on this one they do.
+    The thresholds are searched on the card's own outputs: the highest
+    overlap threshold, then the fewest kept queries, that leave
+    ``PAN_MIN_SEGMENTS`` segments, none smaller than
+    ``PAN_MIN_AREA`` of the image (a segment of a few pixels may come and go
+    with an fp32 rounding); the object threshold lies in the middle of a gap
+    of the scores wider than twice the fp32 gate, so both devices keep the
+    same queries. The searched overlap threshold is low (0.01 on an H100),
+    so the card's fp32 map is compared again, under the same gate, at
+    ``PAN_DROP_OVERLAP``, where the overlap rule drops queries."""
+    from focoos_tpu_torch.trainer.evaluation import PanopticEvaluator
+
+    initial = {k: v.detach().clone() for k, v in model.module.state_dict().items()}
+    batch = np.random.default_rng(PAN_SEED).integers(0, 256, (1, size, size, 3), dtype=np.uint8)
+    choice = None
+    t0 = time.perf_counter()
+    try:
+        condition_mf(model, dev, MF_EVAL_MASK_STD)
+        own = mf_run(model.module, batch)
+        probs, masks = own[0][0].to(dev), own[1][0].to(dev).float()
+        n_cls = probs.shape[-1]
+        things = set(range(n_cls // 2))
+        scores = probs.amax(-1).sort(descending=True).values.tolist()
+        for overlap in (0.8, 0.5, 0.3, 0.1, 0.05, 0.02, 0.01, 0.0):
+            for n in range(PAN_MIN_SEGMENTS, len(scores) - 1):
+                if scores[n - 1] - scores[n] <= 2 * MF_TOL["float32"]:
+                    continue
+                thr = (scores[n - 1] + scores[n]) / 2
+                _, segs = model.processor.panoptic_inference(probs, masks, things, thr, overlap)
+                if len(segs) >= PAN_MIN_SEGMENTS and min(sg["area"] for sg in segs) >= PAN_MIN_AREA * masks[0].numel():
+                    choice = (thr, overlap, n)
+                    break
+            if choice:
+                break
+        search_s = time.perf_counter() - t0
+        assert choice, "no thresholds leave enough panoptic segments"
+        for m in (cpu, model16):
+            m.module.load_state_dict(model.module.state_dict())
+        cpu_run = mf_run(cpu.module, batch)
+        card_run, bf16_run = (mf_run(m.module, batch, cpu_run[2]) for m in (model, model16))
+    finally:
+        for m in (model, model16, cpu):
+            m.module.load_state_dict(initial)
+    thr, overlap, n = choice
+    t0 = time.perf_counter()
+    ref, ref_segs = model.processor.panoptic_inference(cpu_run[0][0], cpu_run[1][0].float(), things, thr, overlap)
+    cpu_s = time.perf_counter() - t0
+    out = {}
+    for name, run in (("fp32", card_run), ("bf16", bf16_run)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pan, segs = model.processor.panoptic_inference(run[0][0].to(dev), run[1][0].to(dev).float(), things, thr,
+                                                       overlap)
+        secs = time.perf_counter() - t0
+        ev = PanopticEvaluator(n_cls, thing_ids=sorted(things))
+        ev.process([{"pan_seg": ref}], [{"panoptic_seg": (pan, segs)}])
+        out[name] = (ev.evaluate()["panoptic_seg"], int((pan != ref).sum()), len(segs), secs)
+    # the overlap rule's drop branch: both maps again at a fixed, higher overlap threshold
+    drop_ref, drop_ref_segs = model.processor.panoptic_inference(cpu_run[0][0], cpu_run[1][0].float(), things, thr,
+                                                                 PAN_DROP_OVERLAP)
+    drop_pan, drop_segs = model.processor.panoptic_inference(card_run[0][0].to(dev), card_run[1][0].to(dev).float(),
+                                                             things, thr, PAN_DROP_OVERLAP)
+    ev = PanopticEvaluator(n_cls, thing_ids=sorted(things))
+    ev.process([{"pan_seg": drop_ref}], [{"panoptic_seg": (drop_pan, drop_segs)}])
+    drop_pq = ev.evaluate()["panoptic_seg"]
+    n_th = sum(sg["isthing"] for sg in ref_segs)
+    kept = cpu_run[0][0].argmax(-1)[cpu_run[0][0].amax(-1) > thr].tolist()
+    stuff = [c for c in kept if c not in things]
+    repeats = sum(1 for c in set(stuff) if stuff.count(c) > 1)
+    log(f"[{tag}] panoptic_inference on a seeded {size}² image's outputs (mask logits std {MF_EVAL_MASK_STD}), classes"
+        f" 0-{n_cls // 2 - 1} things and the rest stuff: object_threshold {thr:.6f} (the top {n} queries kept),"
+        f" overlap_threshold {overlap}"
+        f" (searched on the card's outputs, {search_s:.2f}s with the forwards); the CPU's map {len(ref_segs)} segments"
+        f" ({n_th} things, {len(ref_segs) - n_th} stuff, areas {sorted(sg['area'] for sg in ref_segs)}; of the"
+        f" kept queries {len(stuff)} of stuff classes, {repeats} stuff classes held by more than one (merged where"
+        f" they win); {cpu_s:.2f}s); against it "
+        + "; ".join(f"the card's {k} map PQ {r['PQ']:.3f} (SQ {r['SQ']:.3f}, RQ {r['RQ']:.3f}), {d} of {ref.size}"
+                    f" pixels differ, {m} segments ({s_ * 1e3:.1f} ms)" for k, (r, d, m, s_) in out.items())
+        + f"; fp32 gate PQ ≥ {PAN_PQ_GATE}")
+    log(f"[{tag}] panoptic_inference at overlap_threshold {PAN_DROP_OVERLAP} (the same object threshold): the CPU's"
+        f" map {len(drop_ref_segs)} segments (areas {sorted(sg['area'] for sg in drop_ref_segs)}), void pixels"
+        f" {int((drop_ref == 0).sum())} against {int((ref == 0).sum())} at {overlap} (the queries the overlap rule"
+        f" dropped); the card's fp32 map PQ {drop_pq['PQ']:.3f} (SQ {drop_pq['SQ']:.3f}, RQ {drop_pq['RQ']:.3f}),"
+        f" {int((drop_pan != drop_ref).sum())} pixels differ, {len(drop_segs)} segments; gate PQ ≥ {PAN_PQ_GATE}")
+    assert len(ref_segs) >= PAN_MIN_SEGMENTS and out["fp32"][0]["PQ"] >= PAN_PQ_GATE, out["fp32"]
+    assert drop_ref_segs and drop_pq["PQ"] >= PAN_PQ_GATE, drop_pq
+
+
 def phase_mf(dev, smi: str) -> dict:
     """fai-mf-l-coco-ins (ResNet-101-D, 6 pre-norm res5 layers, 9 masked
     decoder layers) at 1024² and fai-mf-l-ade (ResNet-101-D, 6 masked layers,
@@ -2249,6 +2369,8 @@ def phase_mf(dev, smi: str) -> dict:
             f" fp32 within {MF_TOL['float32']:.0e}, bf16 within {MF_TOL['bfloat16']:.0e}; attention-mask bits that"
             f" flip without carrying: {flip_share(own[2], cpu_run[2]):.3e} of"
             f" {sum(a.numel() for a in own[2])}; card bf16's own masks {flip_share(mf_run(model16.module, batch)[2], cpu_run[2]):.3e}")
+        if not semantic:
+            check_panoptic(tag, model, model16, cpu, size, dev)
         del own, card_run, runs16
 
         for dtype, m in (("float32", model), ("bfloat16", model16)):
@@ -2371,10 +2493,10 @@ SEG_STEP_CARD = "fai-mf-l-ade"  # the card-vs-CPU step: 640², B=2 mapped semant
 SEG_FT_CARD, SEG_FT_SIZE = "fai-mf-l-coco-ins", 1024  # the fine-tune from disk, the card's own resolution
 SEG_FT_HW = (480, 640)  # the instance set's originals (height, width): COCO's most common size
 SEG_FT_TRAIN, SEG_FT_VAL = 32, 8
-SEG_FT_BATCH, SEG_FT_STEPS, SEG_FT_EVAL_PERIOD = 8, 20, 10
-# the sustained run: steps 1 .. SEG_FT_SUSTAINED - SEG_FT_PROFILED - 1 timed as one loop, well past the
+SEG_FT_BATCH, SEG_FT_STEPS, SEG_FT_EVAL_PERIOD = 8, 10, 5
+# the sustained run: steps 1 .. SEG_FT_SUSTAINED - SEG_FT_PROFILED - 1 timed as one loop, past the
 # 8 workers x 2 batches the DataLoader prefetches; then SEG_FT_PROFILED steps under the profiler
-SEG_FT_SUSTAINED, SEG_FT_PROFILED = 64, 3
+SEG_FT_SUSTAINED, SEG_FT_PROFILED = 24, 3
 BISENET_CARD, BISENET_SIZE, BISENET_BATCH = "bisenetformer-l-ade", 640, 16
 SEG_WORKERS = 8
 
@@ -3569,6 +3691,420 @@ def phase_rtmo_train(dev, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# user_data: a user's own dataset, converted, augmented and fine-tuned (multi-step calls)
+UD_CARD = "fai-detr-l-coco"
+UD_HW = (480, 640)  # the Supervisely set's JPEGs (height, width): COCO's most common size
+UD_TRAIN, UD_VAL = 32, 8
+UD_BATCH, UD_K, UD_STEPS = 8, 2, 12
+UD_CKPT_PERIOD = 5  # not a multiple of K: a period boundary falls inside a call
+UD_PROFILED = (4, 4)  # ProfilerHook over iterations 4-7: calls 3 and 4
+UD_GATE_STEPS = 4  # K=2 against K=1: 4 steps each from the same weights and loader order
+UD_SGD_LR = 1e-2  # the SGD gate runs' learning rate (SGD's usual): one update moves the losses and the parameters
+UD_PARAM_SHARE = 0.02  # SGD, K=2 against K=1: max |Δparam| within this share of the 4 steps' max |θ4 − θ0|
+UD_ADAMW_LOSS_RTOL = 1e-4  # AdamW, K=2 against K=1, first call: two K=1 runs' first calls differ by up to 1.9e-5
+UD_VAL_SIZE = 480  # the exact path: the 640x480 records stay unresized (ROADMAP Queue 3)
+
+
+def write_supervisely_set(root: str, n_train: int, n_val: int, hw: tuple, seed: int) -> str:
+    """A seeded Supervisely detection folder, ``<split>/img/*.jpg`` and
+    ``<split>/ann/<image>.json``: ``draw_shapes`` images of ``hw``, each
+    square a rectangle object and each circle and triangle a polygon."""
+    import os
+
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("valid", n_val)):
+        img_dir, ann_dir = os.path.join(root, split, "img"), os.path.join(root, split, "ann")
+        os.makedirs(img_dir)
+        os.makedirs(ann_dir)
+        for i in range(n):
+            img, shapes = draw_shapes(rng, *hw)
+            objects = []
+            for cls, poly in shapes:
+                pts = poly.round().astype(int)
+                if SHAPE_CLASSES[cls] == "square":
+                    geom = ("rectangle", [pts.min(0).tolist(), pts.max(0).tolist()])
+                else:
+                    geom = ("polygon", pts.tolist())
+                objects.append({"classTitle": SHAPE_CLASSES[cls], "geometryType": geom[0],
+                                "points": {"exterior": geom[1], "interior": []}})
+            fn = f"img_{i:04d}.jpg"
+            cv2.imwrite(os.path.join(img_dir, fn), img[:, :, ::-1])
+            with open(os.path.join(ann_dir, fn + ".json"), "w") as f:
+                json.dump({"size": {"height": hw[0], "width": hw[1]}, "objects": objects}, f)
+    return root
+
+
+def user_augmentations() -> list:
+    """A user's own augmentation list, built of the augmentations no preset uses."""
+    from focoos_tpu_torch.data import transforms as T
+
+    return [T.RandomBrightness(0.8, 1.2), T.RandomContrast(0.8, 1.2), T.RandomSaturation(0.8, 1.2),
+            T.RandomLighting(0.1), T.MinIoURandomCrop(prob=0.5), T.RandomExtent((0.8, 1.2), (0.2, 0.2)),
+            T.ResizeScale(0.5, 1.5, 640, 640), T.FixedSizeCrop((640, 640))]
+
+
+def history(trainer, keys) -> dict:
+    """{iteration: {key: value}} of a trained FocoosTrainer's storage."""
+    out = {}
+    for key in keys:
+        for v, it in trainer.loop.storage.history(key).values():
+            out.setdefault(int(it), {})[key] = v
+    return out
+
+
+def phase_user_data(dev, smi: str) -> dict:
+    """A user's own detection data through the port's data and training API
+    on fai-detr-l-coco at full width (``perturb``, ``condition_for_training``):
+    a Supervisely folder converted by ``data/converters.py`` into the
+    Roboflow-COCO layout (and one image and its mask resized), a train split
+    mapped through a user augmentation list, FocoosModel.train with
+    ``steps_per_call=2`` (checkpoints, a resume, ``ProfilerHook``, the
+    TensorBoard writer where tensorboardX imports, validation at 480), the
+    K=2 calls held against K=1 steps, ``retry_if_oom`` on the card and
+    ``device_op_ms``. Every kernel's launches counted from 0 before each
+    counted run. Returns them summed over those runs."""
+    import importlib.util
+    import os
+    import shutil
+    import tempfile
+
+    import cv2
+
+    from focoos_tpu_torch import ModelManager
+    from focoos_tpu_torch.data.auto_dataset import AutoDataset
+    from focoos_tpu_torch.data.converters import (
+        get_output_shape,
+        resize_shortest_length,
+        supervisely_to_coco,
+        supervisely_to_semseg_masks,
+    )
+    from focoos_tpu_torch.data.datasets import DictDataset, MapDataset
+    from focoos_tpu_torch.data.default_aug import DatasetAugmentations
+    from focoos_tpu_torch.data.mappers import get_mapper_by_task
+    from focoos_tpu_torch.ports import Task, TrainerArgs
+    from focoos_tpu_torch.trainer.checkpointer import Checkpointer
+    from focoos_tpu_torch.trainer.hooks import ProfilerHook
+    from focoos_tpu_torch.trainer.solver import Solver
+    from focoos_tpu_torch.trainer.trainer import FocoosTrainer
+    from focoos_tpu_torch.utils.memory import retry_if_oom
+    from focoos_tpu_torch.utils.profiling import device_events, device_op_ms, parse_trace, parse_trace_busy_us
+
+    phase_t0 = time.perf_counter()
+    tag = "user_data"
+    total = dict.fromkeys(kernel_counts(), 0)
+    workers = min(SEG_WORKERS, os.cpu_count())
+    root = tempfile.mkdtemp(prefix="chip_smoke_user_data_")
+    try:
+        # 1. convert: Supervisely → Roboflow-COCO, and one image and its mask resized
+        t0 = time.perf_counter()
+        sv = write_supervisely_set(os.path.join(root, "supervisely"), UD_TRAIN, UD_VAL, UD_HW, seed=60)
+        coco_root = os.path.join(root, "coco")
+        n_objects = 0
+        for split in ("train", "valid"):
+            img_dir, ann_dir, out = (os.path.join(sv, split, "img"), os.path.join(sv, split, "ann"),
+                                     os.path.join(coco_root, split))
+            os.makedirs(out)
+            supervisely_to_coco(ann_dir, img_dir, os.path.join(out, "_annotations.coco.json"), class_list=SHAPE_CLASSES)
+            for fn in os.listdir(img_dir):
+                shutil.copy(os.path.join(img_dir, fn), out)
+            with open(os.path.join(out, "_annotations.coco.json")) as f:
+                coco = json.load(f)
+            for fn in os.listdir(ann_dir):
+                with open(os.path.join(ann_dir, fn)) as f:
+                    n_objects += len(json.load(f)["objects"])
+            assert len(coco["images"]) == len(os.listdir(img_dir)) and [c["name"] for c in coco["categories"]] == \
+                SHAPE_CLASSES, coco["categories"]
+        masks_dir = supervisely_to_semseg_masks(os.path.join(sv, "valid", "ann"), os.path.join(root, "masks"),
+                                                SHAPE_CLASSES)
+        want = get_output_shape(*UD_HW, 320, 640)
+        small_img = resize_shortest_length(os.path.join(sv, "valid", "img", "img_0000.jpg"), os.path.join(root, "s"),
+                                           320, 640)
+        small_mask = resize_shortest_length(os.path.join(masks_dir, "img_0000_mask.png"), os.path.join(root, "s"),
+                                            320, 640, is_mask=True)
+        img_s, mask_s = cv2.imread(small_img), cv2.imread(small_mask, cv2.IMREAD_UNCHANGED)
+        assert img_s.shape[:2] == mask_s.shape == want, (img_s.shape, mask_s.shape, want)
+        assert set(np.unique(mask_s).tolist()) <= {0, 1, 2, 255} and len(np.unique(mask_s)) > 1
+        base = DictDataset.from_roboflow_coco(os.path.join(coco_root, "train"), Task.DETECTION)
+        n_anns = sum(len(r["annotations"]) for r in base)
+        classes = base.metadata.classes
+        train_ds = MapDataset(base, get_mapper_by_task(Task.DETECTION, user_augmentations(), is_train=True))
+        val_ds = AutoDataset(coco_root, task="detection").get_split(DatasetAugmentations(resolution=UD_VAL_SIZE),
+                                                                     split="val")
+        v0 = val_ds[0]
+        assert v0.image.shape[:2] == (v0.height, v0.width) == UD_HW
+        np.random.seed(61)
+        shapes = sorted({train_ds[i].image.shape for i in range(8)})
+        assert shapes == [(640, 640, 3)], shapes
+        log(f"[{tag}] wrote a Supervisely folder of {UD_TRAIN} train and {UD_VAL} val {UD_HW[1]}x{UD_HW[0]} JPEGs,"
+            f" {n_objects} objects (squares as rectangles, circles and triangles as polygons);"
+            f" supervisely_to_coco → the Roboflow-COCO layout: classes {classes}, {n_anns} train annotations;"
+            f" supervisely_to_semseg_masks, then resize_shortest_length of one image and its mask to {want}"
+            f" (get_output_shape) ({time.perf_counter() - t0:.1f}s). Train: a user augmentation list"
+            f" ({', '.join(type(a).__name__ for a in user_augmentations())}), mapped records {shapes};"
+            f" validation at {UD_VAL_SIZE} (records kept at their size)")
+
+        model = ModelManager.get(UD_CARD, device=dev, classes=classes, seed=0)
+        perturb(model.module, seed=62)
+        condition_for_training(model.module)
+        n_dec = model.config.transformer_predictor_dec_layers
+        initial = {k: v.detach().clone() for k, v in model.module.state_dict().items()}
+        out_dir = os.path.join(root, "runs")
+
+        def args(iters: int, k: int, **kw) -> TrainerArgs:
+            kw = {"checkpointer_period": 10**6, "log_period": iters, **kw}  # one checkpoint: model_final
+            return TrainerArgs(run_name="user_data", output_dir=out_dir, batch_size=UD_BATCH, max_iters=iters,
+                               steps_per_call=k, workers=workers, ema_enabled=True, seed=0, workers_timeout=300,
+                               eval_period=0, samples=0, **kw)
+
+        # 2. K=2 against K=1: the same weights and loader order, each inner step's LR recorded, 4 steps a run.
+        # SGD: losses, grad_norm and LR as the K=1 steps', and the parameters within UD_PARAM_SHARE of how far
+        # the steps moved them; two planted faults, a call whose second inner step repeats the first batch and
+        # one whose second inner step skips its update, must fail that gate. AdamW, the default optimizer, is
+        # held on its first call's metrics: Adam moves a parameter whose gradient is noise (the MSDA backward's
+        # atomics) by ±lr either way, and the gap grows over the steps: two K=1 runs' second calls differ by
+        # up to 1.2e-2 in loss (one run in ten on an H100), their first calls by up to 1.9e-5
+        import focoos_tpu_torch.trainer.trainer as trainer_mod
+
+        lrs, fault = [], [None]
+        real_step, real_multi = Solver.step, trainer_mod.build_multi_train_step
+
+        def recording_step(self, step):
+            lrs.append((step, self.schedule(step)))
+            if fault[0] == "skip" and step % 2:  # the call's second inner step: its gradients, then no update
+                self.optimizer.step = lambda: None
+                try:
+                    return real_step(self, step)
+                finally:
+                    del self.optimizer.step
+            return real_step(self, step)
+
+        def faulty_multi(step_fn, steps_per_call):
+            multi = real_multi(step_fn, steps_per_call)
+            if fault[0] != "repeat":
+                return multi
+            return lambda state, batches: multi(state, [batches[0]] * len(batches))
+
+        sgd = {"optimizer": "SGD", "learning_rate": UD_SGD_LR, "optimizer_extra": {"momentum": 0.9}}
+        repeat, skip = "SGD K=2, the second inner step on the first batch", "SGD K=2, the second inner update skipped"
+        plan = (("SGD K=2", 2, sgd, None), ("SGD K=1", 1, sgd, None), ("SGD K=1 again", 1, sgd, None),
+                (repeat, 2, sgd, "repeat"), (skip, 2, sgd, "skip"),
+                ("AdamW K=2", 2, {}, None), ("AdamW K=1", 1, {}, None), ("AdamW K=1 again", 1, {}, None))
+        runs = {}
+        Solver.step, trainer_mod.build_multi_train_step = recording_step, faulty_multi
+        try:
+            for name, k, opt, planted in plan:
+                fault[0] = planted
+                model.module.load_state_dict(initial)
+                lrs.clear()
+                trainer = FocoosTrainer(model, args(UD_GATE_STEPS, k, **opt), train_ds)
+                res, counts = counted(trainer.train, total)
+                assert res["iterations"] == UD_GATE_STEPS and trainer.loop.state.step == UD_GATE_STEPS, res
+                assert counts["msda_forward"] == counts["msda_backward"] == n_dec * UD_GATE_STEPS, counts
+                keys = [k_ for k_ in trainer.loop.storage.histories() if "loss" in k_ or k_ == "grad_norm"]
+                runs[name] = dict(metrics=history(trainer, keys), lrs=list(lrs),
+                                  times=history(trainer, ["time", "data_time"]),
+                                  params={n: p.detach().clone() for n, p in model.module.named_parameters()})
+        finally:
+            Solver.step, trainer_mod.build_multi_train_step = real_step, real_multi
+        assert sorted(runs["SGD K=2"]["metrics"]) == list(range(0, UD_GATE_STEPS, 2)), runs["SGD K=2"]["metrics"]
+
+        def call_errs(calls: dict, steps: dict) -> tuple:
+            """Each call's metrics against the mean of its two steps' → (worst loss rel err, its key, grad_norm's)."""
+            loss, where, norm = 0.0, None, 0.0
+            for it, got in calls.items():
+                for key, v in got.items():
+                    mean = (steps[it][key] + steps[it + 1][key]) / 2
+                    rel = abs(v - mean) / max(abs(mean), 1e-12)
+                    if key == "grad_norm":
+                        norm = max(norm, rel)
+                    elif rel >= loss:
+                        loss, where = rel, f"{key} at {it}"
+            return loss, where, norm
+
+        def as_calls(run: dict) -> dict:
+            """A K=1 run with its steps' metrics paired into K=2 calls (the floor two K=1 runs give)."""
+            m = run["metrics"]
+            return dict(run, metrics={it: {k_: (v + m[it + 1][k_]) / 2 for k_, v in m[it].items()}
+                                      for it in range(0, UD_GATE_STEPS, 2)})
+
+        scale = max(float(p.abs().max()) for p in runs["SGD K=1"]["params"].values())
+
+        def param_diff(a: dict, b: dict) -> float:
+            return max(float((a[n] - b[n]).abs().max()) for n in a) / scale
+
+        def k_errs(two: dict, one: dict, calls: int = UD_GATE_STEPS // 2) -> dict:
+            loss, where, norm = call_errs({it: two["metrics"][it] for it in range(0, 2 * calls, 2)}, one["metrics"])
+            return {"loss": loss, "where": where, "norm": norm, "lr": two["lrs"] == one["lrs"],
+                    "param": param_diff(two["params"], one["params"])}
+
+        def k_gate(e: dict, loss_tol: float, param_tol: float = float("inf")) -> bool:
+            return e["loss"] <= loss_tol and e["norm"] <= TRAIN_GRAD_NORM_RTOL and e["lr"] and e["param"] <= param_tol
+
+        moved = {o: param_diff(runs[f"{o} K=1"]["params"], initial) for o in ("SGD", "AdamW")}
+        param_tol = UD_PARAM_SHARE * moved["SGD"]
+        errs = {"SGD K=2": k_errs(runs["SGD K=2"], runs["SGD K=1"]),
+                "SGD K=1 again": k_errs(as_calls(runs["SGD K=1 again"]), runs["SGD K=1"]),
+                repeat: k_errs(runs[repeat], runs["SGD K=1"]), skip: k_errs(runs[skip], runs["SGD K=1"]),
+                "AdamW K=2": k_errs(runs["AdamW K=2"], runs["AdamW K=1"]),
+                "AdamW K=1 again": k_errs(as_calls(runs["AdamW K=1 again"]), runs["AdamW K=1"]),
+                "AdamW K=2, first call": k_errs(runs["AdamW K=2"], runs["AdamW K=1"], calls=1),
+                "AdamW K=1 again, first call": k_errs(as_calls(runs["AdamW K=1 again"]), runs["AdamW K=1"], calls=1)}
+        sgd_pass = {n: k_gate(errs[n], TRAIN_LOSS_RTOL, param_tol) for n in ("SGD K=2", repeat, skip)}
+        log(f"[{tag}] {smi}: K=2 against K=1 from the same weights and loader order, {UD_GATE_STEPS} steps each at"
+            f" B={UD_BATCH}: each call's metrics against the mean of its two K=1 steps (a second K=1 run's pairs"
+            f" beside: the floor), max |Δparam| / max |param| after {UD_GATE_STEPS} steps (the EMA's); the steps"
+            f" moved the parameters max |θ4 − θ0| / max |θ| = {moved['SGD']:.3e} under SGD at lr {UD_SGD_LR:g},"
+            f" {moved['AdamW']:.3e} under AdamW at lr {runs['AdamW K=1']['lrs'][0][1]:g}; "
+            + "; ".join(f"{n}: losses {e['loss']:.3e} ({e['where']}), grad_norm {e['norm']:.3e}, LR equal {e['lr']},"
+                        f" Δparam {e['param']:.3e}" + (f", gate {'passed' if sgd_pass[n] else 'failed'}"
+                                                        if n in sgd_pass else "") for n, e in errs.items())
+            + f"; SGD gate: losses ≤ {TRAIN_LOSS_RTOL:.0e}, grad_norm ≤ {TRAIN_GRAD_NORM_RTOL:.0e}, Δparam ≤"
+            f" {UD_PARAM_SHARE} of the steps' {moved['SGD']:.3e} = {param_tol:.3e}; AdamW, first call: losses ≤"
+            f" {UD_ADAMW_LOSS_RTOL:.0e}, grad_norm ≤ {TRAIN_GRAD_NORM_RTOL:.0e}; LRs"
+            f" {[f'{lr:.3e}' for _, lr in runs['SGD K=1']['lrs']]} (SGD),"
+            f" {[f'{lr:.3e}' for _, lr in runs['AdamW K=1']['lrs']]} (AdamW)")
+        assert sgd_pass["SGD K=2"], errs["SGD K=2"]
+        assert not sgd_pass[repeat] and not sgd_pass[skip], (errs[repeat], errs[skip])
+        assert k_gate(errs["AdamW K=2, first call"], UD_ADAMW_LOSS_RTOL), errs["AdamW K=2, first call"]
+        assert [s for s, _ in runs["SGD K=1"]["lrs"]] == list(range(UD_GATE_STEPS)), runs["SGD K=1"]["lrs"]
+        for name, k in (("SGD K=1", 1), ("SGD K=2", 2)):
+            t = runs[name]["times"]
+            steps = [t[it]["time"] / k for it in sorted(t)[1:]]  # the first call waits for the workers
+            data = [t[it]["data_time"] for it in sorted(t)[1:]]
+            log(f"[{tag}] {smi}, {name}: step p50 {np.median(steps) * 1e3:.2f} ms (a call / K, the first call left"
+                f" out), data_time p50 {np.median(data) * 1e3:.2f} ms a call")
+        del runs
+
+        # 3. the fine-tune: 12 steps at K=2, checkpoints every 5, the profiler over calls 3-4, validation
+        saves = []
+        real_save = Checkpointer.save
+
+        def recording_save(self, name, state, **extra):
+            saves.append((name, int(extra.get("iteration", -1))))
+            return real_save(self, name, state, **extra)
+
+        prof = ProfilerHook(os.path.join(root, "profile"), *UD_PROFILED)
+
+        class UserTrainer(FocoosTrainer):
+            def _register_hooks(self, loop, checkpointer, schedule) -> None:
+                super()._register_hooks(loop, checkpointer, schedule)
+                prof.trainer = loop
+                loop.hooks.insert(0, prof)
+
+        ckpt_dir = os.path.join(root, "ckpt")
+        model.module.load_state_dict(initial)
+        Checkpointer.save = recording_save
+        try:
+            trainer = UserTrainer(model, args(UD_STEPS, UD_K, checkpointer_period=UD_CKPT_PERIOD,
+                                              checkpointer_max_to_keep=2, ckpt_dir=ckpt_dir, log_period=2),
+                                  train_ds, val_ds)
+            t0 = time.perf_counter()
+            res, counts = counted(trainer.train, total)
+            wall = time.perf_counter() - t0
+        finally:
+            Checkpointer.save = real_save
+        val_forwards = -(-UD_VAL // (UD_BATCH // 2))  # the final validation at the trainer's B/2
+        box = res["metrics"]["bbox"]
+        t = history(trainer, ["time", "data_time"])
+        log(f"[{tag}] {smi}: FocoosModel.train {res['iterations']} steps at B={UD_BATCH}, steps_per_call={UD_K},"
+            f" {workers} workers, {wall:.1f}s with the final validation; a call p50"
+            f" {np.median([v['time'] for v in t.values()]) * 1e3:.2f} ms, data_time p50"
+            f" {np.median([v['data_time'] for v in t.values()]) * 1e3:.2f} ms a call; final val bbox"
+            f" {ap_line(box)}; launches {counts}")
+        assert res["iterations"] == UD_STEPS and trainer.loop.state.step == UD_STEPS
+        assert counts["msda_backward"] == n_dec * UD_STEPS, counts
+        assert counts["msda_forward"] == n_dec * (UD_STEPS + val_forwards), counts
+        assert counts["fused_resnet_stem"] == val_forwards and counts["nms_keep"] == 0, counts
+        assert all(np.isfinite(v) for v in box.values()) and 0.0 <= box["AP"] <= 100.0, box
+        # checkpoints: JAX's rule, a save when a multiple of the period falls in (it, it + K], named by the last step
+        want = [(f"model_{it + UD_K - 1:07d}", it + UD_K - 1) for it in range(0, UD_STEPS, UD_K)
+                if (it + UD_K) // UD_CKPT_PERIOD > it // UD_CKPT_PERIOD] + [("model_final", UD_STEPS - 1)]
+        log(f"[{tag}] checkpoints saved (name, iteration): {saves}; JAX's rule for period {UD_CKPT_PERIOD} at"
+            f" K={UD_K}: {want}")
+        assert saves == want, (saves, want)
+        tb = os.path.join(res["run_dir"], "tb")
+        if importlib.util.find_spec("tensorboardX") is None:
+            log(f"[{tag}] tensorboardX is not installed here: the trainer ran without its TensorBoard writer")
+            assert not os.path.exists(tb)
+        else:
+            events = [f for f in os.listdir(tb) if f.startswith("events.out.tfevents")]
+            log(f"[{tag}] tensorboardX imports: the TensorBoard writer wrote {events} in the run dir")
+            assert events
+        # the profiler's window: two calls, MSDA 6 + 6 a step in its trace
+        n_prof = UD_PROFILED[1]
+        dur, _ = parse_trace(prof.trace_path)
+        evs = device_events(prof.trace_path)
+        n_fwd = sum(1 for e in evs if "msda_forward_" in e["name"])
+        n_bwd = sum(1 for e in evs if "msda_backward_" in e["name"])
+        busy_file = parse_trace_busy_us(prof.trace_path)
+        busy_mem, _ = device_busy(prof.profiler)
+        with open(prof.trace_path) as f:
+            xs = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+        span = max(float(e["ts"]) + float(e["dur"]) for e in xs) - min(float(e["ts"]) for e in xs)
+        top = sorted(dur.items(), key=lambda kv: -kv[1])[:4]
+        log(f"[{tag}] {smi}: ProfilerHook over iterations {UD_PROFILED[0]}-{UD_PROFILED[0] + n_prof - 1}"
+            f" ({os.path.basename(prof.trace_path)}, {os.path.getsize(prof.trace_path) / 2**20:.1f} MiB): MSDA forward"
+            f" kernels {n_fwd}, backward {n_bwd} ({n_dec} each a step expected); device busy from the trace file"
+            f" {busy_file / 1e3:.2f} ms, from the profiler's events {busy_mem / 1e3:.2f} ms (rel"
+            f" {abs(busy_file - busy_mem) / max(busy_mem, 1e-9):.2e}); {busy_file / n_prof / 1e3:.2f} ms a step, idle"
+            f" share {1 - busy_file / span:.3f} of the trace's span; largest kernels "
+            + ", ".join(f"{k[:50]} {v / max(busy_file, 1e-9):.1%}" for k, v in top))
+        assert n_fwd == n_dec * n_prof and n_bwd == n_dec * n_prof, (n_fwd, n_bwd)
+        assert abs(busy_file - busy_mem) <= 0.01 * busy_mem, (busy_file, busy_mem)
+
+        # a resume from model_0000005 continues at iteration 6
+        with open(os.path.join(ckpt_dir, "last_checkpoint"), "w") as f:
+            f.write("model_0000005")
+        trainer = FocoosTrainer(model, args(8, UD_K, ckpt_dir=ckpt_dir, resume=True), train_ds)
+        res, counts = counted(trainer.train, total)
+        log(f"[{tag}] resumed from model_0000005: start_iter {trainer.loop.start_iter}, ran to {res['iterations']},"
+            f" the state's step {trainer.loop.state.step}; launches {counts}")
+        assert trainer.loop.start_iter == 6 and res["iterations"] == 8 and trainer.loop.state.step == 8
+        assert counts["msda_backward"] == n_dec * 2, counts
+
+        # retry_if_oom on the card: one retry after emptying the cache, then the OOM; never the CPU
+        total_mem = torch.cuda.get_device_properties(dev).total_memory
+        tries, where = [], []
+
+        @retry_if_oom
+        def too_big_once():
+            tries.append(1)
+            return torch.empty(2 * total_mem if len(tries) == 1 else 1 << 20, dtype=torch.uint8, device=dev).device
+
+        @retry_if_oom
+        def too_big_always():
+            where.append(torch.empty(2 * total_mem, dtype=torch.uint8, device=dev).device)
+
+        got = too_big_once()
+        raised = False
+        try:
+            too_big_always()
+        except torch.OutOfMemoryError:
+            raised = True
+        log(f"[{tag}] retry_if_oom: a first request of {2 * total_mem / 2**30:.0f} GiB then 1 MiB returned on {got}"
+            f" after {len(tries)} calls; always {2 * total_mem / 2**30:.0f} GiB raised torch.OutOfMemoryError {raised},"
+            f" ran on {where or 'no device'}")
+        assert got.type == "cuda" and len(tries) == 2 and raised and where == []
+
+        # device_op_ms of one b8 eval forward (reported)
+        x8 = torch.from_numpy(np.random.default_rng(63).integers(0, 256, (8, 640, 640, 3), np.uint8)).to(dev)
+        model.module.eval()
+        with torch.inference_mode():
+            model.module(x8)
+            ms = device_op_ms(lambda: model.module(x8), n_calls=3)
+        log(f"[{tag}] {smi}: device_op_ms of a b8 eval forward at 640²: {ms:.2f} ms of device busy time a forward")
+        del model, trainer
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[{tag}] launches over the phase's counted runs: {total}; phase wall time"
+        f" {time.perf_counter() - phase_t0:.1f}s")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # export: the serving artifacts (focoos_tpu_torch/infer)
 
 EXPORT_TOL = {"fp32": 1e-6, "bf16": 1e-6, "pt2": 1e-5}  # x max|ref|, runtime against FocoosModel.forward
@@ -4010,6 +4546,7 @@ def main() -> int:
     segm_train = phase_segm_train(dev, smi)
     fai_cls = phase_fai_cls(dev, smi)
     rtmo_train = phase_rtmo_train(dev, smi)
+    user_data = phase_user_data(dev, smi)
     export = phase_export(dev, smi)
 
     # library_ms: no single PyTorch call computes any of these functions (MSDA needs a
@@ -4047,6 +4584,7 @@ def main() -> int:
         k["launches_segm_train"] = segm_train.get(k["name"], 0)
         k["launches_fai_cls"] = fai_cls[k["name"]]
         k["launches_rtmo_train"] = rtmo_train[k["name"]]
+        k["launches_user_data"] = user_data[k["name"]]
         k["launches_export"] = export[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(smi)

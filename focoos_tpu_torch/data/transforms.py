@@ -1,6 +1,5 @@
 """Augmentation system: numpy/cv2/PIL host-side transforms (copy of
-``focoos_tpu/data/transforms.py``, trimmed to what ``data/default_aug.py``
-and ``data/mappers.py`` build).
+``focoos_tpu/data/transforms.py``).
 
 Re-design of the reference's detectron2-fork transform stack
 (focoos/data/transforms/{augmentation,transform}.py): the
@@ -11,16 +10,21 @@ draw is the JAX package's, in the same order, from the global ``np.random``
 state: seeded alike, both packages augment a record identically. cv2 and PIL
 are imported where an image is transformed, never at import; uint8 resizes go
 through PIL's antialiased bilinear, as the reference's, unless
-``FOCOOS_RESIZE_BACKEND=cv2`` (the JAX package's switch). The JAX package's
-other augmentations (extent, blend-based color jitter, min-IoU crop,
-fixed-size crop, lighting, resize-scale) land with the preset or mapper
-that builds them.
+``FOCOOS_RESIZE_BACKEND=cv2`` (the JAX package's switch). Besides what the
+presets build, a user's own augmentation list may name the JAX package's
+other augmentations: ``ResizeLongestEdge``, ``ResizeScale``,
+``FixedSizeCrop``, ``RandomCropWithInstance``, ``MinIoURandomCrop``
+(``MinIoURandomCrop`` draws its IoU mode from Python's ``random``, as JAX's),
+``RandomResize``, ``RandomExtent``, the blend-based ``RandomContrast``,
+``RandomBrightness``, ``RandomSaturation`` and ``RandomLighting``, and the
+``ExtentTransform`` and ``BlendTransform`` they carry.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Sequence, Tuple, Union
+import random
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -268,6 +272,74 @@ class RotationTransform(Transform):
         )
 
 
+class ExtentTransform(Transform):
+    """Crop a (possibly out-of-bounds) subrect and resample to a fixed output
+    size; out-of-source pixels read the fill color. uint8 goes through PIL
+    Image.EXTENT bilinear exactly like the reference (transform.py:28-68);
+    other dtypes use a nearest floor-sampled numpy fallback."""
+
+    def __init__(self, src_rect, output_size, fill=0):
+        self.src_rect = tuple(float(v) for v in src_rect)  # x0, y0, x1, y1
+        self.output_size = (int(output_size[0]), int(output_size[1]))  # h, w
+        self.fill = fill
+
+    def apply_image(self, img, nearest: bool = False):
+        out_h, out_w = self.output_size
+        if img.dtype == np.uint8:
+            from PIL import Image
+
+            squeeze = img.ndim > 2 and img.shape[2] == 1
+            pil = Image.fromarray(img[:, :, 0] if squeeze else img, mode="L" if squeeze else None)
+            pil = pil.transform(size=(out_w, out_h), method=Image.EXTENT, data=self.src_rect,
+                                resample=Image.NEAREST if nearest else Image.BILINEAR, fill=self.fill)
+            out = np.asarray(pil)
+            return out[..., None] if squeeze else out
+        x0, y0, x1, y1 = self.src_rect
+        xs = x0 + (np.arange(out_w) + 0.5) * (x1 - x0) / out_w
+        ys = y0 + (np.arange(out_h) + 0.5) * (y1 - y0) / out_h
+        xi = np.floor(xs).astype(np.int64)
+        yi = np.floor(ys).astype(np.int64)
+        h, w = img.shape[:2]
+        valid = (yi[:, None] >= 0) & (yi[:, None] < h) & (xi[None, :] >= 0) & (xi[None, :] < w)
+        out_shape = (out_h, out_w) + img.shape[2:]
+        out = np.zeros(out_shape, img.dtype)
+        yc = np.clip(yi, 0, h - 1)
+        xc = np.clip(xi, 0, w - 1)
+        sampled = img[yc[:, None], xc[None, :]]
+        out[valid] = sampled[valid]
+        return out
+
+    def apply_segmentation(self, seg):
+        return self.apply_image(seg, nearest=True)
+
+    def apply_coords(self, coords):
+        x0, y0, x1, y1 = self.src_rect
+        out_h, out_w = self.output_size
+        coords = coords.astype(np.float64).copy()
+        coords[:, 0] = (coords[:, 0] - x0) * out_w / max(x1 - x0, 1e-9)
+        coords[:, 1] = (coords[:, 1] - y0) * out_h / max(y1 - y0, 1e-9)
+        return coords
+
+
+class BlendTransform(Transform):
+    """dst = src_weight * src_image + dst_weight * img (color jitter carrier)."""
+
+    def __init__(self, src_image, src_weight: float, dst_weight: float):
+        self.src_image = src_image
+        self.src_weight = src_weight
+        self.dst_weight = dst_weight
+
+    def apply_image(self, img):
+        out = self.src_weight * self.src_image + self.dst_weight * img.astype(np.float64)
+        return np.clip(out, 0, 255).astype(np.uint8) if img.dtype == np.uint8 else out.astype(img.dtype)
+
+    def apply_coords(self, coords):
+        return coords
+
+    def apply_segmentation(self, seg):
+        return seg
+
+
 # ---------------------------------------------------------------------------
 # augmentation protocol (reference: transforms/augmentation.py:104-392)
 # ---------------------------------------------------------------------------
@@ -394,6 +466,43 @@ class ResizeShortestEdge(Augmentation):
         return ResizeTransform(h, w, int(h * scale + 0.5), int(w * scale + 0.5))
 
 
+class ResizeLongestEdge(Augmentation):
+    """(reference :568)"""
+
+    def __init__(self, long_edge_length, sample_style: str = "choice"):
+        if isinstance(long_edge_length, int):
+            long_edge_length = (long_edge_length, long_edge_length)
+        self.long_edge_length = long_edge_length
+        self.sample_style = sample_style
+
+    def get_transform(self, image):
+        h, w = image.shape[:2]
+        if self.sample_style == "range":
+            size = np.random.randint(self.long_edge_length[0], self.long_edge_length[1] + 1)
+        else:
+            size = np.random.choice(self.long_edge_length)
+        if size == 0:
+            return NoOpTransform()
+        scale = size / max(h, w)
+        return ResizeTransform(h, w, int(h * scale + 0.5), int(w * scale + 0.5))
+
+
+class ResizeScale(Augmentation):
+    """Scale by a random factor then resize into a target box, keeping aspect
+    (LSJ component, reference :620)."""
+
+    def __init__(self, min_scale: float, max_scale: float, target_height: int, target_width: int):
+        self.min_scale = min_scale
+        self.max_scale = max_scale
+        self.th = target_height
+        self.tw = target_width
+
+    def get_transform(self, image):
+        h, w = image.shape[:2]
+        scale = _rand(self.min_scale, self.max_scale)
+        out_scale = min(self.th * scale / h, self.tw * scale / w)
+        return ResizeTransform(h, w, int(h * out_scale + 0.5), int(w * out_scale + 0.5))
+
 
 class RandomRotation(Augmentation):
     """(reference :681)"""
@@ -418,6 +527,26 @@ class RandomRotation(Augmentation):
             return NoOpTransform()
         return RotationTransform(h, w, angle, self.expand)
 
+
+class FixedSizeCrop(Augmentation):
+    """Crop (or pad) to a fixed size (reference :741)."""
+
+    def __init__(self, crop_size: Tuple[int, int], pad_value: float = 128.0, seg_pad_value: int = 255):
+        self.crop_size = crop_size
+        self.pad_value = pad_value
+        self.seg_pad_value = seg_pad_value
+
+    def get_transform(self, image):
+        h, w = image.shape[:2]
+        ch, cw = self.crop_size
+        offset_h = np.random.randint(0, max(h - ch, 0) + 1)
+        offset_w = np.random.randint(0, max(w - cw, 0) + 1)
+        tfms = [CropTransform(offset_w, offset_h, min(cw, w), min(ch, h))]
+        pad_h = max(ch - h, 0)
+        pad_w = max(cw - w, 0)
+        if pad_h or pad_w:
+            tfms.append(PadTransform(0, 0, pad_w, pad_h, self.pad_value, self.seg_pad_value))
+        return TransformList(tfms)
 
 
 class RandomCrop(Augmentation):
@@ -451,6 +580,67 @@ class RandomCrop(Augmentation):
         x0 = np.random.randint(w - cw + 1)
         return CropTransform(x0, y0, cw, ch)
 
+
+class RandomCropWithInstance(RandomCrop):
+    """Category-area-constrained crop for semseg (reference :884): retries so
+    the crop does not consist of a single category."""
+
+    def __init__(self, crop_type: str, crop_size, single_category_max_area: float = 1.0, ignored_category: int = 255):
+        super().__init__(crop_type, crop_size)
+        self.single_category_max_area = single_category_max_area
+        self.ignored_category = ignored_category
+
+    def get_transform_with_sem_seg(self, image, sem_seg):
+        if self.single_category_max_area >= 1.0 or sem_seg is None:
+            return super().get_transform(image)
+        h, w = image.shape[:2]
+        for _ in range(10):
+            ch, cw = self.get_crop_size((h, w))
+            y0 = np.random.randint(h - ch + 1)
+            x0 = np.random.randint(w - cw + 1)
+            patch = sem_seg[y0 : y0 + ch, x0 : x0 + cw]
+            labels, counts = np.unique(patch, return_counts=True)
+            counts = counts[labels != self.ignored_category]
+            if len(counts) > 1 and counts.max() < counts.sum() * self.single_category_max_area:
+                return CropTransform(x0, y0, cw, ch)
+        return CropTransform(x0, y0, cw, ch)
+
+
+# reference name for the same class (augmentation.py:884)
+RandomCrop_CategoryAreaConstraint = RandomCropWithInstance
+
+
+class RandomContrast(Augmentation):
+    """(reference :986)"""
+
+    def __init__(self, intensity_min: float, intensity_max: float):
+        self.intensity_min = intensity_min
+        self.intensity_max = intensity_max
+
+    def get_transform(self, image):
+        w = _rand(self.intensity_min, self.intensity_max)
+        return BlendTransform(image.mean(), 1 - w, w)
+
+
+class RandomBrightness(Augmentation):
+    def __init__(self, intensity_min: float, intensity_max: float):
+        self.intensity_min = intensity_min
+        self.intensity_max = intensity_max
+
+    def get_transform(self, image):
+        w = _rand(self.intensity_min, self.intensity_max)
+        return BlendTransform(0.0, 1 - w, w)
+
+
+class RandomSaturation(Augmentation):
+    def __init__(self, intensity_min: float, intensity_max: float):
+        self.intensity_min = intensity_min
+        self.intensity_max = intensity_max
+
+    def get_transform(self, image):
+        w = _rand(self.intensity_min, self.intensity_max)
+        grayscale = image.astype(np.float64) @ np.array([0.299, 0.587, 0.114])
+        return BlendTransform(grayscale[:, :, None], 1 - w, w)
 
 
 class ColorAugSSD(Augmentation):
@@ -559,6 +749,65 @@ class RandomZoomOut(Augmentation):
         return PadTransform(x0, y0, new_w - w - x0, new_h - h - y0, self.fill)
 
 
+class MinIoURandomCrop(Augmentation):
+    """Crop keeping min IoU with boxes (reference :1175)."""
+
+    def __init__(self, min_ious=(0.1, 0.3, 0.5, 0.7, 0.9), min_crop_size: float = 0.3, prob: float = 0.5):
+        self.min_ious = min_ious
+        self.min_crop_size = min_crop_size
+        self.prob = prob
+
+    def __call__(self, aug_input):
+        if np.random.rand() >= self.prob or aug_input.boxes is None or len(aug_input.boxes) == 0:
+            return NoOpTransform()
+        img = aug_input.image
+        h, w = img.shape[:2]
+        boxes = aug_input.boxes
+        for _ in range(50):
+            mode = random.choice((1, *self.min_ious))
+            min_iou = mode
+            cw = int(_rand(self.min_crop_size * w, w))
+            ch = int(_rand(self.min_crop_size * h, h))
+            if cw / ch < 0.5 or cw / ch > 2:
+                continue
+            x0 = int(_rand(0, w - cw))
+            y0 = int(_rand(0, h - ch))
+            patch = np.array([x0, y0, x0 + cw, y0 + ch], np.float64)
+            lt = np.maximum(boxes[:, :2], patch[:2])
+            rb = np.minimum(boxes[:, 2:], patch[2:])
+            wh = (rb - lt).clip(min=0)
+            inter = wh[:, 0] * wh[:, 1]
+            a1 = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+            iou = inter / np.maximum(a1, 1e-9)
+            if iou.min() < min_iou:
+                continue
+            centers = (boxes[:, :2] + boxes[:, 2:]) / 2
+            keep = (
+                (centers[:, 0] > patch[0]) & (centers[:, 1] > patch[1])
+                & (centers[:, 0] < patch[2]) & (centers[:, 1] < patch[3])
+            )
+            if not keep.any():
+                continue
+            tfm = CropTransform(x0, y0, cw, ch)
+            aug_input.transform(tfm)
+            return tfm
+        return NoOpTransform()
+
+    def get_transform(self, image):
+        return NoOpTransform()
+
+
+class RandomResize(Augmentation):
+    """Pick a size from a list (reference :1118)."""
+
+    def __init__(self, shape_list: List[Tuple[int, int]]):
+        self.shape_list = shape_list
+
+    def get_transform(self, image):
+        h, w = image.shape[:2]
+        nh, nw = self.shape_list[np.random.randint(len(self.shape_list))]
+        return ResizeTransform(h, w, nh, nw)
+
 
 class RandomAspectRatio(Augmentation):
     """Jitter the aspect ratio (reference :1139)."""
@@ -574,3 +823,42 @@ class RandomAspectRatio(Augmentation):
         r = _rand(*self.ratio_range)
         return ResizeTransform(h, w, h, int(w * r + 0.5))
 
+
+class RandomExtent(Augmentation):
+    """Random scaled/shifted subrect crop with zero padding outside the source
+    (reference :934-983): the rect starts centered at the image, is scaled by
+    Uniform(scale_range) and shifted by shift_range * size * Uniform(-.5, .5).
+    """
+
+    def __init__(self, scale_range: Tuple[float, float], shift_range: Tuple[float, float]):
+        self.scale_range = scale_range
+        self.shift_range = shift_range
+
+    def get_transform(self, image):
+        h, w = image.shape[:2]
+        rect = np.array([-0.5 * w, -0.5 * h, 0.5 * w, 0.5 * h])
+        rect *= _rand(*self.scale_range)
+        rect[0::2] += self.shift_range[0] * w * (np.random.rand() - 0.5)
+        rect[1::2] += self.shift_range[1] * h * (np.random.rand() - 0.5)
+        rect[0::2] += 0.5 * w
+        rect[1::2] += 0.5 * h
+        return ExtentTransform(rect, (int(rect[3] - rect[1]), int(rect[2] - rect[0])))
+
+
+class RandomLighting(Augmentation):
+    """AlexNet PCA lighting jitter over ImageNet statistics, RGB order
+    (reference :1079-1115): adds eigvecs @ (N(0, scale) * eigvals)."""
+
+    _EIG_VECS = np.array(
+        [[-0.5675, 0.7192, 0.4009], [-0.5808, -0.0045, -0.8140], [-0.5836, -0.6948, 0.4203]]
+    )
+    _EIG_VALS = np.array([0.2175, 0.0188, 0.0045])
+
+    def __init__(self, scale: float):
+        self.scale = scale
+
+    def get_transform(self, image):
+        assert image.shape[-1] == 3, "RandomLighting needs RGB"
+        weights = np.random.normal(scale=self.scale, size=3)
+        return BlendTransform(src_image=self._EIG_VECS.dot(weights * self._EIG_VALS),
+                              src_weight=1.0, dst_weight=1.0)

@@ -15,9 +15,10 @@ stay on the device for the evaluator's mask IoU (``ops/mask_iou.py``). The
 JAX package's switches pick the host paths instead: FOCOOS_SEMSEG_EVAL_HOST,
 FOCOOS_INSTSEG_EVAL_HOST (the reference's exact resize-then-decode) and
 FOCOOS_INSTSEG_EVAL_FETCH (packed masks to the host even when exact).
-In training, ``preprocess_entries`` makes the padded mask targets. The
-panoptic and export decodes are not ported yet (ROADMAP Queue 1 items 6
-and 7).
+In training, ``preprocess_entries`` makes the padded mask targets.
+``panoptic_inference`` combines one image's queries into a panoptic id map
+(on the tensors' device, one copy of the per-query areas to the host); as
+in the JAX package, ``postprocess`` does not dispatch to it.
 """
 
 from __future__ import annotations
@@ -234,6 +235,61 @@ class MaskFormerProcessor(Processor):
         )
 
     # ------------------------------------------------------------------
+    def panoptic_inference(
+        self,
+        cls_probs: Union[np.ndarray, torch.Tensor],  # [Q, C] softmax class probabilities (no void column)
+        masks: Union[np.ndarray, torch.Tensor],  # [Q, H, W] mask probabilities
+        thing_ids: Optional[set] = None,
+        object_threshold: float = 0.8,
+        overlap_threshold: float = 0.8,
+        label_divisor: int = 1000,
+    ) -> Tuple[np.ndarray, List[dict]]:
+        """Combine queries into a panoptic id map (Mask2Former semantics, JAX
+        ``models/fai_mf/processor.py:214``) → (pan_map [H, W] int32 with ids
+        ``cls * label_divisor + inst`` and 0 = void, the encoding
+        ``PanopticEvaluator`` consumes; segments_info, a list of {id,
+        category_id, isthing, area}). Each pixel goes to the kept query
+        (score > ``object_threshold``) with the highest score-weighted mask
+        probability; a query keeps the pixels where its own mask is ≥ 0.5,
+        and is dropped when they are under ``overlap_threshold`` of its mask;
+        stuff fragments of one class merge into one segment. The arrays may
+        be tensors on the card: the map is computed there, equal to the
+        numpy one, and the per-query areas come to the host in one copy."""
+        thing_ids = thing_ids or set()
+        cls_probs = torch.as_tensor(cls_probs)
+        masks = torch.as_tensor(masks, device=cls_probs.device)
+        scores, labels = cls_probs.amax(-1), cls_probs.argmax(-1)
+        keep = scores > object_threshold
+        h, w = masks.shape[-2:]
+        segments: List[dict] = []
+        cur_scores, cur_labels, cur_masks = scores[keep], labels[keep], masks[keep]
+        if cur_masks.shape[0] == 0:
+            return np.zeros((h, w), np.int32), segments
+        mask_ids = (cur_scores[:, None, None] * cur_masks).argmax(0)  # numpy's argmax: the first of equal maxima
+        orig = cur_masks >= 0.5
+        won = orig.gather(0, mask_ids[None])[0]  # the winning query's own mask holds the pixel
+        n = cur_masks.shape[0]
+        areas = torch.stack([torch.bincount(mask_ids[won], minlength=n), orig.flatten(1).sum(1)]).tolist()
+        seg_ids = [0] * n
+        stuff_segment_by_class: dict = {}
+        inst_counter: dict = {}
+        for k, (cls, area, orig_area) in enumerate(zip(cur_labels.tolist(), *areas)):
+            if area == 0 or orig_area == 0 or area / orig_area < overlap_threshold:
+                continue
+            isthing = cls in thing_ids
+            if not isthing and cls in stuff_segment_by_class:  # merge stuff fragments of one class
+                seg_ids[k] = stuff_segment_by_class[cls]
+                next(s for s in segments if s["id"] == seg_ids[k])["area"] += area
+                continue
+            inst_counter[cls] = inst_counter.get(cls, 0) + 1
+            seg_ids[k] = cls * label_divisor + inst_counter[cls]
+            if not isthing:
+                stuff_segment_by_class[cls] = seg_ids[k]
+            segments.append({"id": int(seg_ids[k]), "category_id": cls, "isthing": isthing, "area": area})
+        lut = torch.tensor(seg_ids, dtype=torch.int32, device=mask_ids.device)
+        pan = torch.where(won, lut[mask_ids], 0).to(torch.int32)
+        return pan.cpu().numpy(), segments
+
     def eval_decode(self, output: MaskFormerModelOutput, batched_inputs: List[DatasetEntry]):
         """The device half of ``eval_postprocess``, queued behind the forward:
         a ``SemanticDecode`` or ``InstanceDecode``, or ``output`` itself where

@@ -38,6 +38,7 @@ from focoos_tpu_torch.trainer.evaluation.evaluators import (
     DetectionEvaluator,
     InstanceSegmentationEvaluator,
     KeypointEvaluator,
+    PanopticEvaluator,
     SemSegEvaluator,
     get_evaluator,
 )
@@ -52,6 +53,7 @@ __all__ = [
     "DetectionEvaluator",
     "InstanceSegmentationEvaluator",
     "KeypointEvaluator",
+    "PanopticEvaluator",
     "SemSegEvaluator",
     "get_evaluator",
     "inference_on_dataset",

@@ -6,10 +6,10 @@ and bbox AP (``InstanceSegmentationEvaluator``, the mask IoU on the device
 where the decode left its packed masks there) and OKS keypoint AP
 (``KeypointEvaluator``) on the numpy core of ``coco_eval.py``; the
 confusion-matrix mIoU of ``SemSegEvaluator``; the multi-label F1 of
-``ClassificationEvaluator``. One process evaluates the whole dataset; the
-classification evaluator keeps the JAX package's ``state_for_gather`` /
-``load_gathered_states`` seam. The panoptic evaluator lands with fai_mf's
-panoptic decode (ROADMAP Queue 1 item 7).
+``ClassificationEvaluator``; the panoptic quality of ``PanopticEvaluator``
+over fai_mf's ``panoptic_inference`` maps. One process evaluates the whole
+dataset; the classification and panoptic evaluators keep the JAX package's
+``state_for_gather`` / ``load_gathered_states`` seam.
 """
 
 from __future__ import annotations
@@ -300,6 +300,131 @@ class ClassificationEvaluator(DatasetEvaluator):
                 "micro_f1": float(micro_f1) * 100,
             }
         }
+
+
+class PanopticEvaluator(DatasetEvaluator):
+    """Panoptic Quality (copy of the JAX package's; reference:
+    panoptic_evaluation.py:24,176, which round-trips PNGs through
+    panopticapi; here PQ/SQ/RQ are computed directly in numpy, same metric
+    definition). ``get_evaluator`` does not build it, as JAX's does not: a
+    caller scores ``panoptic_inference``'s maps with it directly.
+
+    Inputs per image: ``inputs[i]["pan_seg"]`` GT id map [H, W] int32 with ids
+    ``category_id * label_divisor + instance_id`` (0 = VOID), and
+    ``outputs[i]["panoptic_seg"] = (pred_id_map, _)`` in the same encoding.
+    Segments match when IoU > 0.5 (computed over non-VOID pixels); PQ is the
+    matched-IoU sum over (TP + FP/2 + FN/2), averaged per category then over
+    categories, with a things/stuff split when ``thing_ids`` is given.
+    """
+
+    def __init__(
+        self,
+        num_classes: int,
+        class_names: Optional[List[str]] = None,
+        thing_ids: Optional[List[int]] = None,
+        label_divisor: int = 1000,
+    ):
+        self.num_classes = num_classes
+        self.class_names = class_names
+        self.thing_ids = set(thing_ids or [])
+        self.label_divisor = label_divisor
+        self.reset()
+
+    def reset(self):
+        # per-category accumulators
+        self._iou = np.zeros(self.num_classes, np.float64)
+        self._tp = np.zeros(self.num_classes, np.int64)
+        self._fp = np.zeros(self.num_classes, np.int64)
+        self._fn = np.zeros(self.num_classes, np.int64)
+
+    def process(self, inputs, outputs):
+        for inp, out in zip(inputs, outputs):
+            gt = np.asarray(inp["pan_seg"], np.int64)
+            pred = np.asarray(out["panoptic_seg"][0], np.int64)
+            self._accumulate(gt, pred)
+
+    def _accumulate(self, gt: np.ndarray, pred: np.ndarray):
+        ld = self.label_divisor
+        void = 0
+        # joint histogram of (gt_id, pred_id) pair pixel counts
+        pair = gt.reshape(-1) * (1 << 32) + pred.reshape(-1)
+        pair_ids, pair_counts = np.unique(pair, return_counts=True)
+        gt_part = pair_ids >> 32
+        pr_part = pair_ids & ((1 << 32) - 1)
+
+        gt_ids, gt_areas_arr = np.unique(gt, return_counts=True)
+        pr_ids, pr_areas_arr = np.unique(pred, return_counts=True)
+        gt_area = dict(zip(gt_ids.tolist(), gt_areas_arr.tolist()))
+        pr_area = dict(zip(pr_ids.tolist(), pr_areas_arr.tolist()))
+        # pixels each prediction overlaps with GT VOID (excluded from union)
+        pred_void = {
+            int(p): int(c) for g, p, c in zip(gt_part, pr_part, pair_counts) if g == void
+        }
+
+        matched_gt, matched_pr = set(), set()
+        for g, p, inter in zip(gt_part.tolist(), pr_part.tolist(), pair_counts.tolist()):
+            if g == void or p == void:
+                continue
+            if g // ld != p // ld:
+                continue  # PQ only matches same-category segments
+            union = gt_area[g] + pr_area[p] - inter - pred_void.get(p, 0)
+            iou = inter / union if union > 0 else 0.0
+            if iou > 0.5:
+                c = int(g // ld)
+                if c < self.num_classes:
+                    self._iou[c] += iou
+                    self._tp[c] += 1
+                matched_gt.add(g)
+                matched_pr.add(p)
+
+        for g in gt_ids.tolist():
+            if g != void and g not in matched_gt and (g // ld) < self.num_classes:
+                self._fn[g // ld] += 1
+        for p in pr_ids.tolist():
+            if p == void or p in matched_pr:
+                continue
+            # unmatched predictions mostly covered by VOID don't count as FP
+            if pred_void.get(p, 0) / max(pr_area[p], 1) > 0.5:
+                continue
+            if (p // ld) < self.num_classes:
+                self._fp[p // ld] += 1
+
+    def state_for_gather(self):
+        return (self._iou, self._tp, self._fp, self._fn)
+
+    def load_gathered_states(self, states):
+        self._iou = np.sum([s[0] for s in states], axis=0)
+        self._tp = np.sum([s[1] for s in states], axis=0)
+        self._fp = np.sum([s[2] for s in states], axis=0)
+        self._fn = np.sum([s[3] for s in states], axis=0)
+
+    def evaluate(self):
+        valid = (self._tp + self._fp + self._fn) > 0
+        sq = np.where(self._tp > 0, self._iou / np.maximum(self._tp, 1), 0.0)
+        rq = np.where(valid, self._tp / np.maximum(self._tp + 0.5 * self._fp + 0.5 * self._fn, 1e-9), 0.0)
+        pq = sq * rq
+
+        def agg(mask):
+            m = valid & mask
+            return (
+                float(pq[m].mean()) * 100 if m.any() else 0.0,
+                float(sq[m].mean()) * 100 if m.any() else 0.0,
+                float(rq[m].mean()) * 100 if m.any() else 0.0,
+            )
+
+        all_mask = np.ones(self.num_classes, bool)
+        res_pq, res_sq, res_rq = agg(all_mask)
+        res = {"PQ": res_pq, "SQ": res_sq, "RQ": res_rq}
+        if self.thing_ids:
+            th = np.zeros(self.num_classes, bool)
+            th[[i for i in self.thing_ids if i < self.num_classes]] = True
+            res["PQ_th"], res["SQ_th"], res["RQ_th"] = agg(th)
+            res["PQ_st"], res["SQ_st"], res["RQ_st"] = agg(~th)
+        if self.class_names:
+            for i, name in enumerate(self.class_names[: self.num_classes]):
+                if valid[i]:
+                    res[f"PQ-{name}"] = float(pq[i]) * 100
+        return {"panoptic_seg": res}
 
 
 def get_evaluator(task: Task, num_classes: int, class_names: Optional[List[str]] = None) -> DatasetEvaluator:

@@ -1,6 +1,6 @@
 """EventStorage — global metric store for training (copy of
-``focoos_tpu/trainer/events.py``, trimmed to the scalars and images the
-port's trainer and hooks use; reference: focoos/trainer/events.py).
+``focoos_tpu/trainer/events.py``, trimmed to the scalars, images and
+histograms the port's trainer and hooks use; reference: focoos/trainer/events.py).
 
 The port keeps its own copy so that it runs without ``focoos_tpu``. Same
 stack-based API as the reference (``get_event_storage()`` inside hooks),
@@ -58,13 +58,14 @@ class HistoryBuffer:
 
 
 class EventStorage:
-    """Scalar and image event store (reference: trainer/events.py:25-341)."""
+    """Scalar/image/histogram event store (reference: trainer/events.py:25-341)."""
 
     def __init__(self, start_iter: int = 0):
         self._history: Dict[str, HistoryBuffer] = defaultdict(HistoryBuffer)
         self._smoothing_hints: Dict[str, bool] = {}
         self._latest_scalars: Dict[str, Tuple[float, int]] = {}
         self._vis_data: List[Tuple[str, np.ndarray, int]] = []
+        self._histograms: List[dict] = []
         self._iter = start_iter
 
     @property
@@ -88,10 +89,23 @@ class EventStorage:
     def put_image(self, img_name: str, img: np.ndarray) -> None:
         self._vis_data.append((img_name, img, self._iter))
 
+    def clear_images(self) -> None:
+        self._vis_data = []
+
+    def put_histogram(self, hist_name: str, values: np.ndarray, bins: int = 1000) -> None:
+        counts, edges = np.histogram(np.asarray(values), bins=bins)
+        self._histograms.append(dict(tag=hist_name, counts=counts, edges=edges, global_step=self._iter))
+
+    def clear_histograms(self) -> None:
+        self._histograms = []
+
     def history(self, name: str) -> HistoryBuffer:
         if name not in self._history:
             raise KeyError(f"No history metric '{name}'")
         return self._history[name]
+
+    def histories(self) -> Dict[str, HistoryBuffer]:
+        return self._history
 
     def latest(self) -> Dict[str, Tuple[float, int]]:
         return self._latest_scalars

@@ -5,8 +5,9 @@ The port keeps its own copy so that it runs without ``focoos_tpu``. Same
 4-phase lifecycle as the reference (focoos/trainer/hooks/base.py:5-48):
 before_train / before_step / after_step / after_train, driven by the
 TrainerLoop. The JAX-specific hooks map to torch: ``MemoryStatsHook`` reads
-``torch.cuda.memory_allocated``; the profiler hook, the TensorBoard writer
-and the hub sync are not ported (ROADMAP Queue 1 items 5 and 10).
+``torch.cuda.memory_allocated``, ``ProfilerHook`` (JAX's ``JaxProfilerHook``)
+runs ``torch.profiler``; ``TensorboardWriter`` writes through ``tensorboardX``
+as JAX's does. The hub sync is not ported (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -137,6 +138,46 @@ class JSONWriter(EventWriter):
 
     def close(self):
         self._file.close()
+
+
+class TensorboardWriter(EventWriter):
+    """TensorBoard writer via tensorboardX (reference: hooks/tensorboard_writer.py:7).
+    Raises ImportError where tensorboardX is missing; the trainer then goes without it."""
+
+    def __init__(self, log_dir: str, window_size: int = 20):
+        from tensorboardX import SummaryWriter
+
+        self._writer = SummaryWriter(log_dir)
+        self.window_size = window_size
+        self._last_write = -1
+
+    def write(self):
+        storage = get_event_storage()
+        new_last = self._last_write
+        for k, (v, itr) in storage.latest_with_smoothing_hint(self.window_size).items():
+            if itr > self._last_write:
+                self._writer.add_scalar(k, v, itr)
+                new_last = max(new_last, itr)
+        self._last_write = new_last
+        for name, img, itr in storage._vis_data:
+            self._writer.add_image(name, img, itr, dataformats="HWC")
+        storage.clear_images()
+        for h in storage._histograms:
+            self._writer.add_histogram_raw(
+                tag=h["tag"],
+                min=float(h["edges"][0]),
+                max=float(h["edges"][-1]),
+                num=int(h["counts"].sum()),
+                sum=0.0,
+                sum_squares=0.0,
+                bucket_limits=h["edges"][1:].tolist(),
+                bucket_counts=h["counts"].tolist(),
+                global_step=h["global_step"],
+            )
+        storage.clear_histograms()
+
+    def close(self):
+        self._writer.close()
 
 
 # ---------------------------------------------------------------------------
@@ -325,6 +366,62 @@ class MemoryStatsHook(HookBase):
             return
         get_event_storage().put_scalar("device_mem_mb", torch.cuda.memory_allocated(self._device) / 1e6,
                                        smoothing_hint=False)
+
+
+class ProfilerHook(HookBase):
+    """``torch.profiler`` over iterations ``[start_iter, start_iter + num_iters)``
+    (JAX's ``JaxProfilerHook``; reference TorchProfiler: hooks/hook.py:359):
+    CPU activity, and CUDA activity on a machine with a card, which is
+    synchronized when the window opens and when it closes. The Chrome trace
+    goes to ``output_dir/profile_iter_<first>-<last>.pt.trace.json``
+    (``trace_path``); ``profiler`` keeps the profiler for its in-memory
+    events. Under ``steps_per_call`` K > 1 the window opens before the call
+    that holds ``start_iter`` and closes after the call that reaches the
+    window's end, so it covers whole calls; with K = 1 that is JAX's
+    ``iter == start_iter`` and ``iter + 1 >= start_iter + num_iters``."""
+
+    def __init__(self, output_dir: str, start_iter: int = 10, num_iters: int = 5):
+        self._dir = output_dir
+        self._start = start_iter
+        self._stop = start_iter + num_iters
+        self._active = False
+        self._first = None
+        self.profiler = None
+        self.trace_path: Optional[str] = None
+
+    @staticmethod
+    def _sync() -> None:
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+
+    def before_step(self):
+        it, k = self.trainer.iter, max(1, int(getattr(self.trainer, "steps_per_call", 1)))
+        if not self._active and self.profiler is None and it <= self._start < it + k:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._sync()
+            self.profiler = torch.profiler.profile(activities=activities)
+            self.profiler.__enter__()
+            self._active, self._first = True, it
+
+    def after_step(self):
+        it, k = self.trainer.iter, max(1, int(getattr(self.trainer, "steps_per_call", 1)))
+        if self._active and it + k >= self._stop:
+            self._close(it + k - 1)
+
+    def after_train(self):
+        if self._active:  # the run ended inside the window
+            self._close(self.trainer.iter - 1)
+
+    def _close(self, last: int) -> None:
+        self._sync()
+        self.profiler.__exit__(None, None, None)
+        self._active = False
+        os.makedirs(self._dir, exist_ok=True)
+        self.trace_path = os.path.join(self._dir, f"profile_iter_{self._first}-{last}.pt.trace.json")
+        self.profiler.export_chrome_trace(self.trace_path)
+        logger.info(f"Saved profiler trace to {self.trace_path}")
 
 
 class VisualizationHook(HookBase):

@@ -7,7 +7,8 @@ PyTorch runs it eagerly, so the step is a Python function over a
 computes in its compute dtype; its parameters, their gradients (autograd
 through the casts), the AdamW state and the EMA are fp32. The metrics
 stay on the device as one stacked fp32 tensor (JAX's ``_pack_metrics``), so a
-step does not wait on a dozen scalar copies.
+step does not wait on a dozen scalar copies. ``build_multi_train_step`` runs
+K steps per host call and averages their metrics on the device.
 """
 
 from __future__ import annotations
@@ -82,6 +83,25 @@ def build_train_step(
         return keys, torch.stack([metrics[k].detach().float() for k in keys])
 
     return step_fn
+
+
+def build_multi_train_step(step_fn: Callable, steps_per_call: int) -> Callable:
+    """K optimizer steps per host call (JAX's ``build_multi_train_step``):
+    ``multi_fn(state, batches)`` runs ``step_fn`` on each of the K
+    ``(images, targets)`` pairs in turn, so the LR schedule and the EMA
+    advance per inner step, and returns the mean of the K steps' metrics,
+    still on the device. JAX stacks the K batches for a ``lax.scan``; eager
+    PyTorch runs K ordinary steps, so batches of different shapes need no
+    fallback."""
+
+    def multi_fn(state: TrainState, batches) -> Tuple[Tuple[str, ...], torch.Tensor]:
+        if len(batches) != steps_per_call:
+            raise ValueError(f"{len(batches)} batches for steps_per_call={steps_per_call}")
+        packed = [step_fn(state, images, targets) for images, targets in batches]
+        keys = packed[0][0]
+        return keys, torch.stack([m for _, m in packed]).mean(0)
+
+    return multi_fn
 
 
 def unpack_metrics(keys: Tuple[str, ...], packed: torch.Tensor) -> Dict[str, float]:

@@ -1,19 +1,21 @@
 """FocoosTrainer and its iteration loop (port of focoos_tpu/trainer/trainer.py;
 reference: focoos/trainer/trainer.py).
 
-The loop feeds batches to the eager train step (``train_step.py``), stamps
-its metrics into ``trainer/events.py``'s ``EventStorage`` (plain numpy) one step
-late, so that the copy of step k's metrics waits on the card only after step
-k+1 has been queued, stops on a non-finite loss and ends cleanly on
-``EarlyStopException``. The trainer registers the JAX package's hooks: the
-LR log, device memory, in-training validation with the best checkpoint,
-early stopping and prediction mosaics, and periodic checkpoints
-(``trainer/checkpointer.py``) that ``resume`` restarts from. It writes
+The loop feeds batches to the eager train step (``train_step.py``), K of them
+per host call with ``TrainerArgs.steps_per_call = K`` (their metrics averaged
+on the card, ``iter`` advancing by K), stamps the metrics into
+``trainer/events.py``'s ``EventStorage`` (plain numpy) one call late, so that
+the copy of call k's metrics waits on the card only after call k+1 has been
+queued, stops on a non-finite loss and ends cleanly on ``EarlyStopException``.
+The trainer registers the JAX package's hooks: the LR log, device memory, the
+TensorBoard writer where ``tensorboardX`` imports, in-training validation
+with the best checkpoint, early stopping and prediction mosaics, and periodic
+checkpoints (``trainer/checkpointer.py``) that ``resume`` restarts from. It writes
 ``model_info.json`` at each status change, the final weights (the EMA's when
 enabled, with the live BatchNorm statistics) as ``model_final.npz`` in the
 JAX package's layout, and the final validation metrics into
-``model_info.json``. Multi-step dispatch, ``init_checkpoint``, sharding and
-the hub sync are not ported yet: asking for them raises ``NotImplementedError``.
+``model_info.json``. ``init_checkpoint``, sharding and the hub sync are not
+ported yet: asking for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,7 +37,13 @@ from focoos_tpu_torch.trainer import hooks as hooks_mod
 from focoos_tpu_torch.trainer.checkpointer import Checkpointer, PeriodicCheckpointerMixin
 from focoos_tpu_torch.trainer.events import EventStorage
 from focoos_tpu_torch.trainer.solver import Solver, ema_decay_schedule
-from focoos_tpu_torch.trainer.train_step import TrainState, build_train_step, create_train_state, unpack_metrics
+from focoos_tpu_torch.trainer.train_step import (
+    TrainState,
+    build_multi_train_step,
+    build_train_step,
+    create_train_state,
+    unpack_metrics,
+)
 from focoos_tpu_torch.utils.logger import get_logger
 
 logger = get_logger(__name__)
@@ -61,7 +69,10 @@ class TrainerLoop:
         device: torch.device,
         start_iter: int = 0,
         gather_metric_period: int = 1,
+        steps_per_call: int = 1,
     ):
+        """``step_fn(state, images, targets)``, or with ``steps_per_call`` K > 1
+        ``step_fn(state, [(images, targets)] * K)`` (``build_multi_train_step``)."""
         self.step_fn = step_fn
         self.state = state
         self._data_iter = iter(data_iter)
@@ -70,7 +81,7 @@ class TrainerLoop:
         self.start_iter = start_iter
         self.iter = start_iter
         self.gather_metric_period = gather_metric_period
-        self.steps_per_call = 1  # read by the hooks' period arithmetic (trainer/hooks.py)
+        self.steps_per_call = max(1, int(steps_per_call))  # also read by the hooks' period arithmetic
         self.hooks: List[hooks_mod.HookBase] = []
         self.storage: Optional[EventStorage] = None
         self._pending = None
@@ -102,7 +113,10 @@ class TrainerLoop:
                     self.run_step()
                     for h in self.hooks:
                         h.after_step()
-                    self.iter += 1
+                    self.iter += self.steps_per_call
+                # as JAX's loop: iter == max_iter after the loop. With max_iter not a multiple of K the
+                # last call still runs K steps, so the run takes more optimizer steps than max_iter
+                self.iter = min(self.iter, self.max_iter)
             except hooks_mod.EarlyStopException:
                 logger.info("Early stopping triggered")
             except Exception:
@@ -115,13 +129,17 @@ class TrainerLoop:
 
     def run_step(self) -> None:
         t0 = time.perf_counter()
-        images, targets = next(self._data_iter)
-        images = images.to(self.device, non_blocking=True)
-        targets = targets.to(self.device, non_blocking=True)
+        batches = []
+        for _ in range(self.steps_per_call):
+            images, targets = next(self._data_iter)
+            batches.append((images.to(self.device, non_blocking=True), targets.to(self.device, non_blocking=True)))
         data_time = time.perf_counter() - t0
         prev = self._pending
-        keys, packed = self.step_fn(self.state, images, targets)
-        # one-step-delayed fetch: step k's metrics are copied after step k+1 is queued
+        if self.steps_per_call == 1:
+            keys, packed = self.step_fn(self.state, *batches[0])
+        else:
+            keys, packed = self.step_fn(self.state, batches)
+        # one-call-delayed fetch: call k's metrics are copied after call k+1 is queued
         self._pending = (keys, packed, data_time, self.iter)
         if prev is not None and (prev[-1] + 1) % self.gather_metric_period == 0:
             self._flush_one(prev)
@@ -175,7 +193,6 @@ def _unsupported(args: TrainerArgs) -> List[str]:
     """What ``args`` asks for that the port does not do yet, each with its ROADMAP Queue 1 item."""
     asks = {
         "init_checkpoint (item 5; the JAX trainer reads it nowhere)": bool(args.init_checkpoint),
-        f"steps_per_call {args.steps_per_call} (item 5)": args.steps_per_call > 1,
         f"sharding {args.sharding!r} (item 9)": args.sharding != "dp",
         f"mesh_shape {args.mesh_shape} (item 9)": bool(args.mesh_shape),
         f"num_devices {args.num_devices} (item 9)": args.num_devices not in (-1, 0, 1),
@@ -228,6 +245,10 @@ class FocoosTrainer:
         state = create_train_state(module, solver, ema_enabled=args.ema_enabled)
         ema_fn = ema_decay_schedule(args.ema_decay, args.ema_warmup) if args.ema_enabled else None
         step_fn = build_train_step(self.loss_module.make_loss_fn(module, model.config), ema_fn)
+        spc = max(1, int(args.steps_per_call))
+        if spc > 1:
+            step_fn = build_multi_train_step(step_fn, spc)
+            logger.info(f"Multi-step dispatch: {spc} optimizer steps per host call")
 
         checkpointer = Checkpointer(state, args.ckpt_dir or os.path.join(self.run_dir, "ckpt"))
         start_iter, resume_extra = 0, {}
@@ -244,7 +265,7 @@ class FocoosTrainer:
             timeout=args.workers_timeout,
         )
         self.loop = loop = TrainerLoop(step_fn, state, loader, args.max_iters, model.device, start_iter=start_iter,
-                                       gather_metric_period=args.gather_metric_period)
+                                       gather_metric_period=args.gather_metric_period, steps_per_call=spc)
         self._register_hooks(loop, checkpointer, solver.schedule)
         if start_iter > 0 and isinstance(resume_extra.get("hooks"), dict):
             loop.load_hook_state_dict(resume_extra["hooks"])
@@ -279,6 +300,11 @@ class FocoosTrainer:
             hooks_mod.CommonMetricPrinter(max_iter=args.max_iters),
             hooks_mod.JSONWriter(os.path.join(self.run_dir, ArtifactName.METRICS.value)),
         ]
+        try:  # as JAX registers it: skipped where tensorboardX is missing
+            writers.append(hooks_mod.TensorboardWriter(os.path.join(self.run_dir, "tb")))
+            logger.info(f"TensorBoard events in {os.path.join(self.run_dir, 'tb')}")
+        except ImportError:
+            logger.info("tensorboardX is not installed: no TensorBoard events")
         periodic = PeriodicCheckpointerMixin(
             checkpointer, args.checkpointer_period, args.max_iters, args.checkpointer_max_to_keep
         )

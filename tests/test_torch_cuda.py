@@ -1143,3 +1143,49 @@ def test_quantizer_benchmark_comparison_on_the_card(cuda, tmp_path):
         assert lat.device == torch.cuda.get_device_name(cuda) and lat.im_size == 96 and 0 < lat.min <= lat.max
     after = model.module.state_dict()
     assert all(torch.equal(before[k], after[k]) for k in before)
+
+
+def test_profiler_hook_traces_the_card(cuda, tmp_path):
+    """``ProfilerHook`` around two iterations of card work: its Chrome trace
+    holds the card's kernels, and ``parse_trace_busy_us`` of it agrees with
+    the union of the profiler's own kernel intervals within 1%."""
+    from focoos_tpu_torch.trainer.hooks import ProfilerHook
+    from focoos_tpu_torch.trainer.trainer import TrainerLoop
+    from focoos_tpu_torch.utils.profiling import busy_us, parse_trace, parse_trace_busy_us
+
+    x = torch.randn(512, 512, device=cuda)
+
+    def step(state, images, targets):
+        for _ in range(4):
+            torch.mm(x, x)
+        return ("total_loss",), torch.ones(1, device=cuda)
+
+    hook = ProfilerHook(str(tmp_path), start_iter=1, num_iters=2)
+    loop = TrainerLoop(step, None, iter([(torch.zeros(2), torch.zeros(2))] * 8), 4, cuda)
+    loop.register_hooks([hook])
+    loop.train()
+    dur, _ = parse_trace(hook.trace_path)
+    assert dur and sum(dur.values()) > 0
+    kern = [e for e in hook.profiler.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    mine = busy_us((e.time_range.start, e.time_range.end) for e in kern)
+    assert abs(parse_trace_busy_us(hook.trace_path) - mine) <= 0.01 * mine
+
+
+def test_retry_if_oom_reraises_a_real_card_oom(cuda):
+    """A request for more than the card holds: one retry after emptying the
+    cache, then ``torch.OutOfMemoryError``; nothing runs on the CPU."""
+    from focoos_tpu_torch.utils.memory import retry_if_oom
+
+    tries, devices = [], []
+    total = torch.cuda.get_device_properties(cuda).total_memory
+
+    @retry_if_oom
+    def too_big():
+        tries.append(1)
+        t = torch.empty(2 * total, dtype=torch.uint8, device=cuda)
+        devices.append(t.device.type)
+
+    with pytest.raises(torch.OutOfMemoryError):
+        too_big()
+    assert len(tries) == 2 and devices == []

@@ -224,8 +224,10 @@ def test_keypoint_gt_without_visible_keypoints_counts_as_a_miss():
 
 
 def test_get_evaluator_refuses_the_tasks_not_ported():
-    """Every Task has its evaluator since fai_cls's landed; the panoptic
-    task, which has none yet (ROADMAP Queue 1 item 7), is refused."""
+    """Every Task has its evaluator since fai_cls's landed. "panoptic" is
+    not a Task: ``get_evaluator`` refuses it, as the JAX package's does
+    (focoos_tpu/trainer/evaluation/evaluators.py:476-488); a caller builds
+    ``PanopticEvaluator`` directly."""
     assert all(get_evaluator(task, 3) is not None for task in Task)
     with pytest.raises(ValueError, match="No evaluator"):
         get_evaluator("panoptic", 3)
