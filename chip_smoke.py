@@ -70,7 +70,7 @@ non-zero:
    through the loader with 4 worker processes and in process (bit-equal
    batches, in order); the train loader timed alone at B=16 with the fai
    detection augmentations; one fp32 step on the card against the CPU's
-   step in fp64 on mapped train records; FocoosModel.train (B=16, 20 steps, validation every 10) in fp32
+   step in fp64 on mapped train records; FocoosModel.train (B=16, 10 steps, validation every 5) in fp32
    and in bf16, each with step and data_time p50, peak memory, bbox/AP and
    three profiled steps after it; FocoosModel.eval; both MSDA kernels on
    the fine-tuned model's captured locations; b1 and b16 serving in fp32
@@ -141,7 +141,20 @@ non-zero:
    fai-mf-l-coco-ins and rtmo-s equal to FocoosModel.infer(); then b1 p50
    and b16 images/s of each runtime against FocoosModel's, in turns, with
    FocoosModel also run with its wrappers calling the kernels without their
-   custom ops; the ops' host cost a call; end-to-end breakdowns.
+   custom ops; the ops' host cost a call; end-to-end breakdowns;
+15. distributed — training and evaluation across processes
+   (``focoos_tpu_torch/parallel``), fai-detr-l-coco at full width, 640²,
+   fp32, SGD at lr 1e-2 (``phase_distributed``): (a) ``FocoosModel.train``
+   under ``dp`` in a launched NCCL world of 1 and (b) under ``fsdp``, 4 steps
+   at B=8 each, against the same steps with no process group (and a second
+   such run: the MSDA backward's atomics gap), fsdp's ``model_final.npz``
+   keys and shapes against dp's; (c) one step on two gloo ranks of this card
+   (4 images a rank) against one process at B=8 on its query selection and
+   assignment, and two planted faults (each rank's own box count, its own
+   BatchNorm statistics) that must fail that gate; (d) two ranks evaluating
+   16 images at batch 8 split 9 and 7 against one process's
+   ``evaluate_dataset`` (bbox/AP to 1e-9, one stem launch an eval forward
+   on each rank).
 
 Each model path runs again in bf16 compute (``ModelManager.get(...,
 dtype="bfloat16")``, fp32 parameters), right after its fp32 run and with its
@@ -159,8 +172,9 @@ at the training batch B=8), each with its bound and share.
 The last three lines are the kernels' JSON record (``launches`` from the
 serving and training main paths, ``launches_lifecycle``,
 ``launches_finetune_m``, ``launches_fai_mf``, ``launches_segm_train``,
-``launches_fai_cls``, ``launches_rtmo_train``, ``launches_user_data`` and
-``launches_export`` summed over those phases' counted runs), the card's
+``launches_fai_cls``, ``launches_rtmo_train``, ``launches_user_data``,
+``launches_export`` and ``launches_distributed`` (every rank's) summed over
+those phases' counted runs), the card's
 name and power limit as
 nvidia-smi reports them, and the result JSON.
 """
@@ -235,7 +249,7 @@ LIFECYCLE_BATCH = 8  # the fine-tune's batch and its val_dataset's size
 # finetune_m: the seeded dataset's splits, the fine-tune's batch, steps and
 # validation period, and the profiled steps after it
 FT_TRAIN, FT_VAL = 64, 16
-FT_BATCH, FT_STEPS, FT_EVAL_PERIOD, FT_PROFILED = 16, 20, 10, 3
+FT_BATCH, FT_STEPS, FT_EVAL_PERIOD, FT_PROFILED = 16, 10, 5, 3  # cut from 20 and 10: the script's time limit
 
 
 def log(msg: str) -> None:
@@ -2493,7 +2507,7 @@ SEG_STEP_CARD = "fai-mf-l-ade"  # the card-vs-CPU step: 640², B=2 mapped semant
 SEG_FT_CARD, SEG_FT_SIZE = "fai-mf-l-coco-ins", 1024  # the fine-tune from disk, the card's own resolution
 SEG_FT_HW = (480, 640)  # the instance set's originals (height, width): COCO's most common size
 SEG_FT_TRAIN, SEG_FT_VAL = 32, 8
-SEG_FT_BATCH, SEG_FT_STEPS, SEG_FT_EVAL_PERIOD = 8, 10, 5
+SEG_FT_BATCH, SEG_FT_STEPS, SEG_FT_EVAL_PERIOD = 8, 6, 3  # cut from 10 and 5: the script's time limit
 # the sustained run: steps 1 .. SEG_FT_SUSTAINED - SEG_FT_PROFILED - 1 timed as one loop, past the
 # 8 workers x 2 batches the DataLoader prefetches; then SEG_FT_PROFILED steps under the profiler
 SEG_FT_SUSTAINED, SEG_FT_PROFILED = 24, 3
@@ -3027,11 +3041,11 @@ CLS_LOGIT_STD = 4.0  # the conditioned classifier's logit spread over the compar
 CLS_GT_IMAGES, CLS_EVAL_BATCH = 64, 32
 CLS_FT_HW = (240, 320)  # the folder set's JPEGs (height, width)
 CLS_FT_TRAIN, CLS_FT_VAL = 64, 16
-CLS_FT_BATCH, CLS_FT_STEPS, CLS_FT_EVAL_PERIOD, CLS_FT_PROFILED = 64, 20, 10, 3
+CLS_FT_BATCH, CLS_FT_STEPS, CLS_FT_EVAL_PERIOD, CLS_FT_PROFILED = 64, 10, 5, 3  # cut from 20 and 10: the time limit
 KP_CARD, KP_SIZE = "rtmo-s-coco", 640
 KP_FT_HW = (480, 640)  # the keypoint set's JPEGs (height, width): COCO's most common size
 KP_FT_TRAIN, KP_FT_VAL = 64, 16
-KP_FT_BATCH, KP_FT_STEPS, KP_FT_EVAL_PERIOD, KP_FT_PROFILED = 16, 20, 10, 3
+KP_FT_BATCH, KP_FT_STEPS, KP_FT_EVAL_PERIOD, KP_FT_PROFILED = 16, 10, 5, 3  # cut from 20 and 10: the time limit
 KP_DCC_TOL = 1e-5  # DCC's running statistics after the card's fp32 step against the CPU's fp64 step, per feature
 KP_NAMES = ["nose", "left_eye", "right_eye", "left_ear", "right_ear", "left_shoulder", "right_shoulder", "left_elbow",
             "right_elbow", "left_wrist", "right_wrist", "left_hip", "right_hip", "left_knee", "right_knee",
@@ -4117,6 +4131,7 @@ EXPORT_TOL = {"fp32": 1e-6, "bf16": 1e-6, "pt2": 1e-5}  # x max|ref|, runtime ag
 # 1.856e-2 to 3.047e-2, scores 7.310e-3 to 8.505e-3 (bf16 pair: boxes to 1.687e-2)
 INT8_TOL = 5e-2
 EXPORT_CALIB_IMAGES = 8
+EXPORT_ROUNDS = 2  # the runtimes' timing turns (cut from 3: the script's time limit)
 EXPORT_SIZE, EXPORT_BUCKET, EXPORT_BATCH = 640, 512, 16  # fai-detr-l's card size, its bucket, the b16 batch
 EXPORT_FAMILIES = (("fai-cls-m-coco", 224), ("bisenetformer-l-ade", 640), ("fai-mf-l-coco-ins", 1024), ("rtmo-s-coco", 640))
 
@@ -4455,7 +4470,7 @@ def phase_export(dev, smi: str) -> dict:
         "InferModel int8": served["int8"].runtime, "InferModel .pt2 fp32": served["pt2"].runtime,
     }
     rounds = {k: {"b1": [], "b16": []} for k in runners}
-    for _ in range(3):
+    for _ in range(EXPORT_ROUNDS):
         for k, run in runners.items():
             for b, x in (("b1", x1), ("b16", batch16)):
                 run(x)
@@ -4468,7 +4483,7 @@ def phase_export(dev, smi: str) -> dict:
                     ts.append(time.perf_counter() - t)
                 rounds[k][b].append(float(np.median(ts)))
     nb = EXPORT_BATCH
-    log(f"[export] {smi}, TF32 off: per call incl. the H2D copy of the uint8 batch, median of 3 rounds in turns"
+    log(f"[export] {smi}, TF32 off: per call incl. the H2D copy of the uint8 batch, median of {EXPORT_ROUNDS} rounds in turns"
         f" (.pt2 serves b{nb} as {nb} calls of its b1 program):")
     for k, r in rounds.items():
         log(f"[export]   {k:22s} b1 p50 {np.median(r['b1']) * 1e3:8.2f} ms (rounds {min(r['b1']) * 1e3:.2f}-"
@@ -4495,6 +4510,305 @@ def phase_export(dev, smi: str) -> dict:
 
     shutil.rmtree(root, ignore_errors=True)
     log(f"[export] phase done in {time.perf_counter() - t_phase:.1f}s; launches of its counted runs {total}")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# distributed: data-parallel and FSDP training, rank-sharded evaluation
+DIST_CARD = "fai-detr-l-coco"
+DIST_SIZE = 640
+DIST_BATCH = 8  # the global batch of every run of the phase
+DIST_STEPS = 4  # (a), (b): FocoosModel.train steps a run
+DIST_BACKEND = "nccl"  # (a), (b): a launched world of 1; (c), (d) run over gloo (NCCL takes one rank a device)
+DIST_PARAM_SHARE = 0.02  # (a), (b): max |Δparam| within this share of the steps' max |θ4 − θ0| (user_data's gate)
+# (a), (b): after the first step a gate also passes within this many times the gap of two one-process runs: the
+# MSDA backward's atomics make those differ (7.75e-4 in one per-layer VFL loss at step 2 in about half the runs on
+# an H100 80GB HBM3 at 700 W, fp32: a discrete flip), so past the first step the losses are gated on their total
+DIST_GAP_FACTOR = 3.0
+DIST_EVAL_IMAGES, DIST_EVAL_BATCH, DIST_EVAL_SPLIT = 16, 8, (9, 7)
+DIST_AP_TOL = 1e-9
+DIST_RANK_DEVICE = "cuda:0"  # (c), (d): both ranks on the one card
+
+
+def dist_sgd_args(**kw):
+    """SGD at lr 1e-2 with momentum (user_data's K gate: AdamW runs part after their first call)."""
+    from focoos_tpu_torch.ports import TrainerArgs
+
+    return TrainerArgs(optimizer="SGD", learning_rate=UD_SGD_LR, optimizer_extra={"momentum": 0.9}, **kw)
+
+
+def dist_step(model, images: torch.Tensor, targets, assign: torch.Tensor, selection: torch.Tensor,
+              sharding=None) -> dict:
+    """One SGD step of ``model`` on this rank's ``images`` and ``targets``
+    on a carried query selection ([b, Q]) and assignment ([L+1, b, N]),
+    through the trainer's step module wrapped for ``sharding`` when given →
+    the metrics (the ranks' mean). Carried: the global batch's statistics
+    summed in another order move the encoder's scores by ~1e-6, and a
+    near-tie at the top-300 cut-off then reorders the queries."""
+    from focoos_tpu_torch.models.fai_detr.loss import detr_criterion
+    from focoos_tpu_torch.parallel.sharding import apply_sharding
+    from focoos_tpu_torch.trainer.solver import Solver
+    from focoos_tpu_torch.trainer.train_step import build_train_step, create_train_state
+    from focoos_tpu_torch.trainer.trainer import _StepModule
+
+    module, dev = model.module, model.device
+
+    def loss_fn(x, t):
+        _, aux = module(x)
+        losses = detr_criterion(aux, t, model.config, assign.to(dev))
+        total = losses.pop("total")
+        return total, losses
+
+    run = loss_fn if sharding is None else apply_sharding(_StepModule(module, loss_fn), module, sharding, dev)
+    state = create_train_state(module, Solver(module, dist_sgd_args(run_name="step", max_iters=1)))
+    with carried_selection(module.predictor, selection):
+        keys, packed = build_train_step(run)(state, images.to(dev), targets.to(dev))
+    module.eval()
+    return dict(zip(keys, packed.cpu().tolist()))
+
+
+@contextlib.contextmanager
+def planted(fault):
+    """One of the two faults the 2-rank gate must catch: ``count``, each
+    rank's own box count as the loss normalizer; ``bn``, each rank's own
+    BatchNorm statistics."""
+    from focoos_tpu_torch.parallel import mesh
+
+    real_count, real_sum = mesh.global_count, mesh.all_reduce_sum
+    if fault == "count":
+        mesh.global_count = lambda x, floor: x.clamp(min=floor)
+    elif fault == "bn":
+        mesh.all_reduce_sum = lambda t: t
+    try:
+        yield
+    finally:
+        mesh.global_count, mesh.all_reduce_sum = real_count, real_sum
+
+
+def dist_ranks(inputs_path: str) -> dict:
+    """A rank of phases (c) and (d), both ranks on cuda:0 over gloo: the
+    one-step 2-rank gate and its two planted faults on this rank's half of
+    the batch, then the evaluation of this rank's share (9 and 7 images) →
+    on rank 0, every rank's results."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from focoos_tpu_torch.models.focoos_model import FocoosModel
+    from focoos_tpu_torch.ops import cuda_build
+    from focoos_tpu_torch.parallel import mesh
+    from focoos_tpu_torch.trainer import evaluation
+
+    cuda_build.load_libraries(("msda", "msda_bwd", "stem"))  # built by the parent: the cache's
+    blob = torch.load(inputs_path, weights_only=False)
+    rank, dev = mesh.get_rank(), torch.device(DIST_RANK_DEVICE)
+    # the parent's model, built from its config and holding its weights (no random init to redo)
+    model = FocoosModel._on_device(blob["initial"], blob["config"], blob["model_info"], dev, torch.float32)
+    rows = slice(rank * DIST_BATCH // 2, (rank + 1) * DIST_BATCH // 2)
+    t = blob["targets"]
+    images, targets = blob["images"][rows], type(t)(t.labels[rows], t.boxes[rows], t.valid[rows])
+    assign, selection = blob["assign"][:, rows], blob["selection"][rows]
+    out = {"rank": rank, "steps": {}, "counts": {}}
+    for name, fault in (("2 ranks", None), ("rank-local num_boxes", "count"), ("rank-local BatchNorm statistics", "bn")):
+        model.module.load_state_dict(blob["initial"])
+        with planted(fault):
+            out["steps"][name], counts = counted(lambda: dist_step(model, images, targets, assign, selection, "dp"),
+                                                 {k: 0 for k in kernel_counts()})
+        out["counts"][name] = counts
+    model.module.load_state_dict(blob["initial"])
+    split = [list(range(DIST_EVAL_SPLIT[0])), list(range(DIST_EVAL_SPLIT[0], sum(DIST_EVAL_SPLIT)))]
+    real_shard = evaluation._shard_indices
+    evaluation._shard_indices = lambda n, r, w: split[r]  # 9 and 7: rank 0 runs two forwards, rank 1 one
+    try:
+        (out["eval"], out["eval_s"]), out["counts"]["eval"] = counted(
+            lambda: evaluate_timed(model, blob["eval_entries"], DIST_EVAL_BATCH), {k: 0 for k in kernel_counts()})
+    finally:
+        evaluation._shard_indices = real_shard
+    return mesh.all_gather_objects(out)
+
+
+def phase_distributed(dev, smi: str) -> dict:
+    """Data-parallel and FSDP training and rank-sharded evaluation of
+    fai-detr-l-coco at full width, 640², fp32 (``perturb``,
+    ``condition_for_training``): (a) FocoosModel.train under ``dp`` in a
+    launched NCCL world of 1 against the same steps with no process group;
+    (b) the same under ``fsdp``, its model_final.npz keys and shapes against
+    (a)'s; (c) one step on two ranks over gloo on this one card (4 images a
+    rank) against one process at B=8 on the same images in the same order,
+    on one carried assignment, and two planted faults (rank-local box count,
+    rank-local BatchNorm statistics) that must fail that gate; (d) two ranks
+    evaluating 16 images at batch 8 split 9 and 7, against one process's
+    ``evaluate_dataset``. Every gate beside the gap between two one-process
+    runs (the MSDA backward's atomics) → the kernels' launches."""
+    import os
+    import shutil
+    import tempfile
+
+    from focoos_tpu_torch import ModelManager
+    from focoos_tpu_torch.models.fai_detr.loss import match
+    from focoos_tpu_torch.parallel.launch import free_port, launch
+    from focoos_tpu_torch.trainer.trainer import FocoosTrainer
+
+    tag, phase_t0 = "distributed", time.perf_counter()
+    total = {k: 0 for k in kernel_counts()}
+    root = tempfile.mkdtemp(prefix="chip_smoke_distributed_")
+    model = ModelManager.get(DIST_CARD, device=dev, seed=0)
+    perturb(model.module, seed=71)
+    condition_for_training(model.module)
+    n_dec = model.config.transformer_predictor_dec_layers
+    initial = {k: v.detach().clone() for k, v in model.module.state_dict().items()}
+    ds = train_dataset(DIST_BATCH * DIST_STEPS, DIST_SIZE, seed=72)
+
+    # (a), (b): FocoosModel's trainer, DIST_STEPS steps a run from the same weights and loader order
+    def train_run(sharding=None) -> dict:
+        model.module.load_state_dict(initial)
+        args = dist_sgd_args(run_name=f"dist_{sharding}", output_dir=root, batch_size=DIST_BATCH,
+                             max_iters=DIST_STEPS, sharding=sharding or "dp", workers=0, ema_enabled=True, seed=0,
+                             checkpointer_period=10**6, log_period=DIST_STEPS, eval_period=0, samples=0)
+
+        def train():
+            trainer = FocoosTrainer(model, args, ds)
+            res = trainer.train()
+            keys = [k_ for k_ in trainer.loop.storage.histories() if "loss" in k_ or k_ == "grad_norm"]
+            return res, history(trainer, keys)
+
+        t0 = time.perf_counter()
+        run = train if sharding is None else (
+            lambda: launch(train, num_devices=1, dist_url=f"tcp://localhost:{free_port()}", backend=DIST_BACKEND))
+        (res, metrics), counts = counted(run, total)
+        assert res["iterations"] == DIST_STEPS, res
+        assert counts["msda_forward"] == counts["msda_backward"] == n_dec * DIST_STEPS, (sharding, counts)
+        with np.load(os.path.join(res["run_dir"], "model_final.npz")) as data:
+            shapes = {k: data[k].shape for k in data.files}
+        return dict(metrics=metrics, counts=counts, shapes=shapes, s=time.perf_counter() - t0,
+                    params={n: p.detach().clone() for n, p in model.module.named_parameters()})
+
+    runs = {"one process": train_run(), "one process again": train_run(), "dp": train_run("dp"),
+            "fsdp": train_run("fsdp")}
+    ref = runs["one process"]
+    scale = max(float(p.abs().max()) for p in ref["params"].values())
+    moved = max(float((ref["params"][n] - initial[n]).abs().max()) for n in ref["params"]) / scale
+
+    def errs(run: dict) -> dict:
+        key_err, where, total, norm, loss0, norm0 = 0.0, None, 0.0, 0.0, 0.0, 0.0
+        for it, got in run["metrics"].items():
+            for key, v in got.items():
+                r = ref["metrics"][it][key]
+                rel = abs(v - r) / max(abs(r), 1e-12)
+                if key == "grad_norm":
+                    norm = max(norm, rel)
+                    norm0 = max(norm0, rel if it == 0 else 0.0)
+                    continue
+                loss0 = max(loss0, rel if it == 0 else 0.0)
+                total = max(total, rel if key == "total_loss" else 0.0)
+                if rel >= key_err:
+                    key_err, where = rel, f"{key} at {it}"
+        param = max(float((run["params"][n] - ref["params"][n]).abs().max()) for n in ref["params"]) / scale
+        bit = run["metrics"] == ref["metrics"] and all(torch.equal(run["params"][n], ref["params"][n])
+                                                      for n in ref["params"])
+        return {"loss0": loss0, "norm0": norm0, "loss": total, "key": key_err, "where": where, "norm": norm,
+                "param": param, "bit_equal": bit}
+
+    gate = {name: errs(runs[name]) for name in ("one process again", "dp", "fsdp")}
+    gap = gate["one process again"]
+    param_tol = DIST_PARAM_SHARE * moved
+    tols = {"loss": max(TRAIN_LOSS_RTOL, DIST_GAP_FACTOR * gap["loss"]),
+            "norm": max(TRAIN_GRAD_NORM_RTOL, DIST_GAP_FACTOR * gap["norm"]),
+            "param": max(param_tol, DIST_GAP_FACTOR * gap["param"])}
+    log(f"[{tag}] {smi}: (a) dp and (b) fsdp, FocoosModel.train in a launched {DIST_BACKEND} world of 1, against"
+        f" the same {DIST_STEPS} steps (B={DIST_BATCH}, {DIST_SIZE}², SGD lr {UD_SGD_LR:g}, EMA) with no process"
+        f" group; the steps moved the parameters max |θ{DIST_STEPS} − θ0| / max |θ| = {moved:.3e}; "
+        + "; ".join(f"{n}: first step losses {e['loss0']:.3e}, grad_norm {e['norm0']:.3e}; all steps total_loss"
+                    f" {e['loss']:.3e}, every loss key {e['key']:.3e} ({e['where']}), grad_norm {e['norm']:.3e},"
+                    f" Δparam {e['param']:.3e}, bit-equal {e['bit_equal']}, {runs[n]['s']:.1f}s" for n, e in gate.items())
+        + f"; one process {ref['s']:.1f}s; gates: first step every loss ≤ {TRAIN_LOSS_RTOL:.0e}, grad_norm ≤"
+        f" {TRAIN_GRAD_NORM_RTOL:.0e}; all steps the larger of those and {DIST_GAP_FACTOR:g}x the one-process gap:"
+        f" total_loss ≤ {tols['loss']:.3e}, grad_norm ≤ {tols['norm']:.3e}, Δparam ≤ {tols['param']:.3e}"
+        f" ({DIST_PARAM_SHARE} x {moved:.3e} = {param_tol:.3e}); the loss keys past the first step reported")
+    for name in ("dp", "fsdp"):
+        e = gate[name]
+        assert e["loss0"] <= TRAIN_LOSS_RTOL and e["norm0"] <= TRAIN_GRAD_NORM_RTOL, (name, e)
+        assert all(e[k] <= tols[k] for k in tols), (name, e, tols)
+    assert runs["fsdp"]["shapes"] == runs["dp"]["shapes"] == ref["shapes"], "model_final.npz keys or shapes differ"
+    log(f"[{tag}] (b) fsdp's model_final.npz: the same {len(ref['shapes'])} keys and shapes as dp's and one"
+        f" process's (JAX layout)")
+
+    # (c), (d): two ranks on this card over gloo, against one process on the same 8 images in the same order
+    images, targets = model.processor.train(True).preprocess_entries(ds[:DIST_BATCH], max_instances=100)
+    model.processor.train(False)
+    images = torch.from_numpy(images)
+    model.module.load_state_dict(initial)
+    model.module.train()
+    pred, chosen = model.module.predictor, []
+    real_select = type(pred).select_queries
+    pred.select_queries = lambda memory, ss: (lambda out: chosen.append(out[0]) or out)(real_select(pred, memory, ss))
+    try:
+        with torch.no_grad():  # the one process's own query selection and assignment, carried to every run
+            _, aux = model.module(images.to(dev))
+            assign = match(aux, targets.to(dev), model.config).cpu()
+    finally:
+        del pred.select_queries
+    selection = chosen[0].cpu()
+    model.module.eval()
+    one = []
+    for _ in range(2):  # the one-process step twice: the gap of the MSDA backward's atomics
+        model.module.load_state_dict(initial)
+        one.append(counted(lambda: dist_step(model, images, targets, assign, selection), total)[0])
+    model.module.load_state_dict(initial)
+    with torch.inference_mode():
+        eval_images = [np.ascontiguousarray(x) for x in
+                       np.random.default_rng(73).integers(0, 256, (DIST_EVAL_IMAGES, DIST_SIZE, DIST_SIZE, 3),
+                                                          dtype=np.uint8)]
+    eval_entries = entries_with_gt(eval_images, pseudo_gt(model, eval_images))
+    (ref_eval, ref_eval_s), ref_eval_counts = counted(
+        lambda: evaluate_timed(model, eval_entries, DIST_EVAL_BATCH), total)
+    inputs = os.path.join(root, "dist_inputs.pt")
+    torch.save({"initial": initial, "images": images, "targets": targets, "assign": assign,
+                "selection": selection, "eval_entries": eval_entries, "config": model.config,
+                "model_info": model.model_info}, inputs)
+    t0 = time.perf_counter()
+    ranks = launch(dist_ranks, num_devices=2, args=(inputs,), backend="gloo")
+    spawn_s = time.perf_counter() - t0
+    for r in ranks:
+        for k in total:
+            total[k] += sum(c[k] for c in r["counts"].values())
+    for r in ranks:
+        for name, counts in r["counts"].items():
+            if name != "eval":
+                assert counts["msda_forward"] == counts["msda_backward"] == n_dec, (r["rank"], name, counts)
+        forwards = math.ceil(DIST_EVAL_SPLIT[r["rank"]] / DIST_EVAL_BATCH)
+        assert r["counts"]["eval"]["fused_resnet_stem"] == forwards, (r["rank"], r["counts"]["eval"])
+        assert r["counts"]["eval"]["msda_forward"] == n_dec * forwards, (r["rank"], r["counts"]["eval"])
+
+    def step_errs(got: dict) -> tuple:
+        loss = max((abs(got[k] - one[0][k]) / max(abs(one[0][k]), 1e-12), k) for k in one[0] if k != "grad_norm")
+        return loss[0], abs(got["grad_norm"] - one[0]["grad_norm"]) / one[0]["grad_norm"], loss[1]
+
+    floor = step_errs(one[1])
+    checks = {name: step_errs(ranks[0]["steps"][name]) for name in ranks[0]["steps"]}
+    passes = {n: l <= TRAIN_LOSS_RTOL and g <= TRAIN_GRAD_NORM_RTOL for n, (l, g, _) in checks.items()}
+    same_on_ranks = all(r["steps"] == ranks[0]["steps"] for r in ranks)
+    log(f"[{tag}] {smi}: (c) one dp step on 2 ranks (gloo, both on cuda:0, {DIST_BATCH // 2} images a rank) against"
+        f" one process at B={DIST_BATCH} on the same images in the same order, on its query selection and assignment"
+        f" (total {one[0]['total_loss']:.6f}, grad_norm {one[0]['grad_norm']:.6f}); the one-process step again:"
+        f" losses {floor[0]:.3e}, grad_norm {floor[1]:.3e}; "
+        + "; ".join(f"{n}: losses {l:.3e} ({k}), grad_norm {g:.3e}, gate {'passed' if passes[n] else 'failed'}"
+                    for n, (l, g, k) in checks.items())
+        + f" (gate: losses ≤ {TRAIN_LOSS_RTOL:.0e}, grad_norm ≤ {TRAIN_GRAD_NORM_RTOL:.0e}); every rank logged the"
+        f" same metrics: {same_on_ranks}; the 2-rank launch took {spawn_s:.1f}s (two processes reaching the card)")
+    assert passes["2 ranks"] and same_on_ranks, checks
+    assert not passes["rank-local num_boxes"] and not passes["rank-local BatchNorm statistics"], checks
+
+    ap = {r["rank"]: r["eval"]["bbox"]["AP"] for r in ranks}
+    ap_err = max(abs(v - ref_eval["bbox"]["AP"]) for v in ap.values())
+    log(f"[{tag}] (d) {DIST_EVAL_IMAGES} images evaluated at batch {DIST_EVAL_BATCH} on 2 ranks split"
+        f" {DIST_EVAL_SPLIT[0]} and {DIST_EVAL_SPLIT[1]} ({[r['eval_s'] for r in ranks]}s): bbox {ap_line(ranks[0]['eval']['bbox'])};"
+        f" one process {ap_line(ref_eval['bbox'])} ({ref_eval_s:.2f}s, stem launches {ref_eval_counts['fused_resnet_stem']});"
+        f" |ΔAP| {ap_err:.3e} (tol {DIST_AP_TOL:.0e}); the ranks returned the same dict:"
+        f" {all(r['eval'] == ranks[0]['eval'] for r in ranks)}; stem launches a rank"
+        f" {[r['counts']['eval']['fused_resnet_stem'] for r in ranks]} (one an eval forward)")
+    assert ap_err <= DIST_AP_TOL, (ap, ref_eval["bbox"]["AP"])
+    assert all(r["eval"] == ranks[0]["eval"] for r in ranks)
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[{tag}] phase done in {time.perf_counter() - phase_t0:.1f}s; launches of its counted runs, every rank {total}")
     return total
 
 
@@ -4548,6 +4862,7 @@ def main() -> int:
     rtmo_train = phase_rtmo_train(dev, smi)
     user_data = phase_user_data(dev, smi)
     export = phase_export(dev, smi)
+    distributed = phase_distributed(dev, smi)
 
     # library_ms: no single PyTorch call computes any of these functions (MSDA needs a
     # grid_sample per level and a weighted sum; the stem three convs, BN, ReLU and a
@@ -4586,6 +4901,7 @@ def main() -> int:
         k["launches_rtmo_train"] = rtmo_train[k["name"]]
         k["launches_user_data"] = user_data[k["name"]]
         k["launches_export"] = export[k["name"]]
+        k["launches_distributed"] = distributed[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -2,9 +2,11 @@
 focoos/data/loaders.py:94-141).
 
 ``TrainingSampler`` draws the same ``np.random.default_rng(seed)``
-permutations as the JAX package's (one shard: the port runs one process),
-so both packages see the same index stream. ``build_train_loader`` is
-PyTorch's own loader, ``torch.utils.data.DataLoader``, over that sampler:
+permutations as the JAX package's, so both packages see the same index
+stream, and shards it the same way over the ranks of a process group (JAX:
+the hosts): rank r takes ``order[r::world]``. ``build_train_loader`` is
+PyTorch's own loader, ``torch.utils.data.DataLoader``, over that sampler,
+with the rank's share ``total_batch_size // world`` of the batch:
 
 - batches come in sampler order; a finite sampler's trailing partial batch
   is yielded and the stream then ends;
@@ -14,7 +16,9 @@ PyTorch's own loader, ``torch.utils.data.DataLoader``, over that sampler:
   ``preprocess_entries``, which makes CPU tensors only: workers never touch
   CUDA. ``num_workers=0`` maps and collates in the calling thread;
 - each worker seeds the global numpy and ``random`` states as the JAX
-  package's workers do, with ``seed * 1000 + worker id``: DataLoader seeds
+  package's workers do, with ``seed * 1000 + worker id`` (plus
+  ``rank * num_workers`` on rank r, so that no two ranks' workers draw the
+  same augmentations, where JAX's hosts would): DataLoader seeds
   torch and ``random`` in its workers but not numpy, and forked workers
   would otherwise all draw the parent's numpy state, and so the same
   augmentations;
@@ -38,26 +42,33 @@ import numpy as np
 import torch
 from torch.utils.data import DataLoader
 
+from focoos_tpu_torch.parallel import mesh
 from focoos_tpu_torch.ports import DatasetEntry
 
 
 class TrainingSampler:
-    """Infinite shuffled index stream (reference: data/samplers.py:10)."""
+    """Infinite shuffled index stream, sharded across ranks (reference:
+    data/samplers.py:10): rank r of the process group's ``world`` takes
+    ``order[r::world]`` of each permutation."""
 
     def __init__(self, size: int, shuffle: bool = True, seed: int = 0):
         self._size = size
         self._shuffle = shuffle
         self._seed = seed
+        self._shard = mesh.get_rank()
+        self._num_shards = mesh.get_world_size()
 
     def __iter__(self) -> Iterator[int]:
         g = np.random.default_rng(self._seed)
         while True:
             order = g.permutation(self._size) if self._shuffle else np.arange(self._size)
-            yield from order.tolist()
+            yield from order[self._shard :: self._num_shards].tolist()
 
 
 class InferenceSampler:
-    """One epoch of every index, in order (reference: data/samplers.py:67)."""
+    """One epoch of every index, in order (reference: data/samplers.py:67):
+    the whole dataset; the evaluation shards it itself, contiguously
+    (``trainer/evaluation._shard_indices``)."""
 
     def __init__(self, size: int):
         self._indices = list(range(size))
@@ -73,12 +84,13 @@ class _SeedWorker:
     """``worker_init_fn``: numpy's and ``random``'s global states from
     ``seed * 1000 + worker id`` (focoos_tpu/data/loaders.py:247)."""
 
-    def __init__(self, seed: int):
+    def __init__(self, seed: int, offset: int = 0):
         self.seed = seed
+        self.offset = offset
 
     def __call__(self, worker_id: int) -> None:
-        np.random.seed(self.seed * 1000 + worker_id)
-        random.seed(self.seed * 1000 + worker_id)
+        np.random.seed(self.seed * 1000 + self.offset + worker_id)
+        random.seed(self.seed * 1000 + self.offset + worker_id)
 
 
 class _Collate:
@@ -128,19 +140,25 @@ def build_train_loader(
 ) -> TrainLoader:
     """Stream of (uint8 NHWC image batch, targets) on the CPU, the images
     pinned when ``pin_memory``; infinite over ``TrainingSampler`` (the
-    default), one pass over a finite ``sampler``. ``timeout`` bounds the
-    wait for a worker's batch in seconds (0: no bound)."""
+    default), one pass over a finite ``sampler``. In a process group each
+    rank's batches hold ``total_batch_size // world`` entries (JAX's
+    per-host batch). ``timeout`` bounds the wait for a worker's batch in
+    seconds (0: no bound)."""
     if total_batch_size < 1:
         raise ValueError(f"batch size must be >= 1, got {total_batch_size}")
+    world, rank = mesh.get_world_size(), mesh.get_rank()
+    per_rank = total_batch_size // world
+    if per_rank < 1:
+        raise ValueError(f"batch size {total_batch_size} is smaller than the {world} ranks")
     loader = DataLoader(
         dataset,
-        batch_size=total_batch_size,
+        batch_size=per_rank,
         sampler=TrainingSampler(len(dataset), shuffle=shuffle, seed=seed) if sampler is None else sampler,
         num_workers=num_workers,
         collate_fn=_Collate(processor, max_instances),
         pin_memory=pin_memory,
         timeout=timeout if num_workers > 0 else 0,
-        worker_init_fn=_SeedWorker(seed),
+        worker_init_fn=_SeedWorker(seed, rank * num_workers),
         generator=torch.Generator().manual_seed(seed),  # the workers' torch seeds, without the global RNG
     )
     return TrainLoader(loader)

@@ -13,6 +13,11 @@ focoos/infer/runtimes/).
   ``model_{H}x{W}.pt2`` buckets, which hold the kernels as the custom ops
   of ``focoos_tpu_torch/ops``.
 
+``data_parallel`` (JAX runtimes.py:138-190) serves a module runtime from a
+replica on each of several devices (``DataParallelRuntime``): the batch is
+padded up to a multiple of the replicas with its last image, split among
+them, and the outputs gathered on the first device and cropped back.
+
 Each runtime takes an NHWC batch (numpy or tensor) and returns the
 outputs, tensors on its device, in the processor's ``get_output_names``
 order. ``benchmark`` times the card with CUDA events, as
@@ -24,7 +29,7 @@ from __future__ import annotations
 import glob
 import os
 import re
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +69,12 @@ class TorchRuntime(BaseRuntime):
         self.output_names = output_names
         self.device = torch.device(device)
 
+    def to_device(self, device: torch.device) -> "TorchRuntime":
+        """Move the module (and so the runtime) to ``device``."""
+        self.device = torch.device(device)
+        self.module.to(self.device)
+        return self
+
     def __call__(self, images) -> List[torch.Tensor]:
         x = torch.as_tensor(images).to(self.device)
         with torch.inference_mode():
@@ -90,6 +101,37 @@ class Int8Runtime(TorchRuntime):
         self.num_int8_layers = set_int8_mode(module, True, act_scales=scales)
         self.num_static_scales = len(scales)
         logger.info(f"Int8Runtime: {self.num_int8_layers} int8 layers, {len(scales)} with calibrated scales")
+
+
+class DataParallelRuntime(BaseRuntime):
+    """A module runtime replicated on ``devices`` (JAX's ``XLARuntime`` with
+    ``data_parallel``, runtimes.py:138-190): a batch of n is padded with its
+    last image up to a multiple of the replicas, each replica takes an equal
+    contiguous part, each part's forward is queued on its device before any
+    output is read, and the outputs come back concatenated on the first
+    device, cropped to n."""
+
+    def __init__(self, runtime: TorchRuntime, devices: Sequence[torch.device]):
+        import copy
+
+        from focoos_tpu_torch.nn.layers.common import clear_cast_caches
+
+        devices = [torch.device(d) for d in devices]
+        if devices[0] != runtime.device:
+            raise ValueError(f"the first device {devices[0]} must be the runtime's own, {runtime.device}")
+        clear_cast_caches(runtime.module)
+        self.replicas = [runtime] + [copy.deepcopy(runtime).to_device(d) for d in devices[1:]]
+        self.output_names = runtime.output_names
+        self.device = devices[0]
+
+    def __call__(self, images) -> List[torch.Tensor]:
+        x = torch.as_tensor(images)
+        n, d = x.shape[0], len(self.replicas)
+        pad = (-n) % d
+        if pad:
+            x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+        parts = [r(part) for r, part in zip(self.replicas, x.chunk(d))]
+        return [torch.cat([p[k].to(self.device) for p in parts])[:n] for k in range(len(self.output_names))]
 
 
 def _program_input_shape(program) -> Tuple[int, ...]:
@@ -197,11 +239,27 @@ def load_runtime(
     family: Optional[str] = None,
     data_parallel: bool = False,
     allow_resize_dispatch: bool = True,
+    devices: Optional[Sequence[torch.device]] = None,
 ) -> BaseRuntime:
-    """RuntimeType → runtime (JAX runtimes.py:457; reference: infer/runtimes/load_runtime.py:25)."""
-    if data_parallel:
-        raise NotImplementedError("data_parallel serving is not ported yet (ROADMAP Queue 1 item 9)")
+    """RuntimeType → runtime (JAX runtimes.py:457; reference: infer/runtimes/load_runtime.py:25).
+    ``data_parallel``: the module runtimes served from a replica on each of
+    ``devices`` (default: every local CUDA device for a module on the card,
+    else ``device`` alone), the first of them ``device``; one device is the
+    plain runtime. Exported programs are fixed to the device they were
+    exported on and take no ``data_parallel``."""
     runtime_type = RuntimeType(runtime_type)
+    if data_parallel:
+        if runtime_type == RuntimeType.TORCH_EXPORT:
+            raise ValueError("data_parallel serves the module runtimes; an exported program stays on its device")
+        runtime = load_runtime(runtime_type, module=module, artifact_path=artifact_path, output_names=output_names,
+                               device=device, family=family)
+        if runtime.device.type == "cuda" and runtime.device.index is None:
+            runtime.device = torch.device("cuda", torch.cuda.current_device())
+        if devices is None:
+            devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                       if runtime.device.type == "cuda" else [runtime.device])
+            devices = [runtime.device] + [d for d in devices if d != runtime.device]
+        return runtime if len(devices) == 1 else DataParallelRuntime(runtime, devices)
     if runtime_type in (RuntimeType.CUDA_BF16, RuntimeType.CUDA_FP32, RuntimeType.CPU):
         if module is None or device is None:
             raise ValueError(f"{runtime_type} needs the module and its device")

@@ -27,12 +27,14 @@ from focoos_tpu_torch.models.fai_cls.config import ClassificationConfig
 from focoos_tpu_torch.models.fai_cls.ports import ClassificationModelOutput
 from focoos_tpu_torch.nn.backbone.base import BaseBackbone
 from focoos_tpu_torch.nn.layers.common import ComputeDtype, Conv2d, init_like_flax_
+from focoos_tpu_torch.parallel import mesh
 
 
 class Dropout(nn.Module):
     """flax ``nn.Dropout``: in training, each value is kept with probability
     ``1 - rate`` and scaled by ``1 / (1 - rate)``; the keep mask is drawn
-    from ``generator`` on the input's device, or given as ``keep``."""
+    from ``generator`` on the input's device (the global batch's draw, of
+    which this rank keeps its rows), or given as ``keep``."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -44,7 +46,8 @@ class Dropout(nn.Module):
             return x
         keep_prob = 1.0 - self.rate
         if keep is None:
-            keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+            # the global batch's draw, of which this rank keeps its rows
+            keep = mesh.global_rand(x.shape, generator, x.device) < keep_prob
         return torch.where(keep.to(x.device), x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

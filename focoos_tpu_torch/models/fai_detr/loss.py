@@ -26,6 +26,7 @@ from focoos_tpu_torch.ops.boxes import (
     generalized_box_iou,
 )
 from focoos_tpu_torch.ops.matching import batched_auction_assign
+from focoos_tpu_torch.parallel import mesh
 
 
 def _focal_class_cost(p: torch.Tensor, alpha: float, gamma: float) -> torch.Tensor:
@@ -122,7 +123,7 @@ def detr_criterion(
     layers suffixed ``_i``, the encoder selection ``_enc``, plus ``total``.
     ``assign`` ([L+1, B, N], from ``match``) skips the matching, so that two
     runs can be compared on one assignment."""
-    num_boxes = targets.valid.float().sum().clamp(min=1.0)
+    num_boxes = mesh.global_count(targets.valid.float().sum(), 1.0)  # the global batch's, divided among the ranks
     if assign is None:
         assign = match(aux, targets, cfg)
     all_logits, all_boxes = _prediction_sets(aux)

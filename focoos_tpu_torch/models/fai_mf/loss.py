@@ -31,6 +31,7 @@ from focoos_tpu_torch.models.fai_mf.config import MaskFormerConfig
 from focoos_tpu_torch.models.fai_mf.ports import MaskFormerAuxOutputs, MaskFormerTargets
 from focoos_tpu_torch.ops.matching import batched_auction_assign
 from focoos_tpu_torch.ops.point_sample import point_sample, uncertainty_sampled_coords
+from focoos_tpu_torch.parallel import mesh
 
 
 @dataclass
@@ -98,6 +99,7 @@ def _layer_losses(
     cfg: MaskFormerConfig,
     coords: Optional[torch.Tensor],  # [M, P, 2], or None to draw them
     generator: Optional[torch.Generator],
+    span: Optional[Tuple[int, int]] = None,  # this rank's M rows among every rank's (mesh.row_span)
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """One layer's unweighted losses (JAX ``_layer_losses``) → (losses, the
     valid rows' loss points)."""
@@ -116,7 +118,7 @@ def _layer_losses(
     empty_weight[-1] = cfg.criterion_eos_coef
     w = empty_weight[tgt_cls]
     nll = -torch.gather(F.log_softmax(logits, -1), 2, tgt_cls[..., None])[..., 0]
-    loss_ce = (w * nll).sum() / w.sum().clamp(min=1e-6)
+    loss_ce = (w * nll).sum() / mesh.global_count(w.sum(), 1e-6)
 
     # mask losses on the matched pairs (reference loss_masks :465-527), on the valid rows only: JAX
     # samples every padding row too (static shapes) and weighs its terms by 0
@@ -125,7 +127,7 @@ def _layer_losses(
     tgt = targets.masks[bi, ti].float()
     if coords is None:
         with torch.no_grad():
-            coords = uncertainty_sampled_coords(generator, src.detach(), cfg.criterion_num_points, 3.0, 0.75)
+            coords = uncertainty_sampled_coords(generator, src.detach(), cfg.criterion_num_points, 3.0, 0.75, span)
     src_pts = point_sample(src, coords)  # [M, P]
     with torch.no_grad():
         tgt_pts = point_sample(tgt, coords)
@@ -152,24 +154,27 @@ def maskformer_criterion(
     and assignment it used). Draws come from ``generator`` on the outputs'
     device (None: torch's default generator there), except what ``carried`` sets."""
     carried = carried or CriterionDraws()
-    num_masks = targets.valid.float().sum().clamp(min=1.0)
+    num_masks = mesh.global_count(targets.valid.float().sum(), 1.0)  # the global batch's, divided among the ranks
     s, b = aux.logits.shape[:2]
     used = replace(carried)
     if used.assign is None:
         if used.match_coords is None:
-            used.match_coords = torch.rand((s, b, 1, max(cfg.criterion_num_points, 1), 2), generator=generator,
-                                           device=aux.logits.device)
+            # the global batch's draw, of which this rank keeps its images (rank r holds images r·b onward)
+            used.match_coords = mesh.global_rand((s, b, 1, max(cfg.criterion_num_points, 1), 2), generator,
+                                                 aux.logits.device, dim=1,
+                                                 span=(mesh.get_rank() * b, mesh.get_world_size() * b))
         used.assign = match(aux, targets, cfg, used.match_coords)
     weights = {"loss_ce": cfg.weight_dict_loss_ce, "loss_mask": cfg.weight_dict_loss_mask,
                "loss_dice": cfg.weight_dict_loss_dice}
     losses: Dict[str, torch.Tensor] = {}
     total = 0.0
     rows = targets.valid.reshape(-1).nonzero()[:, 0]  # one host sync a step, for every layer
+    span = mesh.row_span(rows.shape[0], rows.device) if carried.loss_coords is None else None
     loss_coords = []
     for li in range(s):
         layer, coords = _layer_losses(
             aux.logits[li], aux.masks[li], used.assign[li], targets, rows, num_masks, cfg,
-            None if carried.loss_coords is None else carried.loss_coords[li], generator)
+            None if carried.loss_coords is None else carried.loss_coords[li], generator, span)
         loss_coords.append(coords)
         is_last = li == s - 1
         for k, v in layer.items():

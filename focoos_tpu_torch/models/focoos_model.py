@@ -213,10 +213,55 @@ class FocoosModel:
         "metrics", "iterations"}; the module ends in eval mode holding the
         final (EMA when enabled) weights. The step computes in the model's
         dtype with fp32 parameters, gradients and optimizer state, as the
-        JAX trainer does: ``args.amp_enabled`` is not read."""
-        from focoos_tpu_torch.trainer.trainer import run_train
+        JAX trainer does: ``args.amp_enabled`` is not read.
 
-        return run_train(self, args, train_dataset, val_dataset)
+        With ``args.num_devices`` (or a 1-D ``args.mesh_shape``) above 1 and
+        no process group live, it launches one process per device
+        (``parallel.launch``: NCCL on the card, ``cuda:0`` onward, gloo on
+        the CPU), each training a copy of this model on its share of every
+        batch under ``args.sharding`` ("dp" or "fsdp"); this model then takes
+        the trained weights and model info of rank 0. The datasets must
+        pickle. Under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` set, no group
+        yet) each process joins the group, trains its rank and takes the
+        final weights, the same on every rank. Inside a live group
+        (``launch``) it trains this process's rank."""
+        from focoos_tpu_torch.parallel import mesh
+        from focoos_tpu_torch.trainer.trainer import check_ported, requested_world, run_train
+
+        check_ported(args)  # before any process starts
+        n = requested_world(args, self.device)
+        if n <= 1 or mesh.is_initialized():
+            return run_train(self, args, train_dataset, val_dataset)
+        from focoos_tpu_torch.parallel.launch import launch
+
+        state = {k: v.detach().cpu() for k, v in self.module.state_dict().items()}
+        portable = (state, self.config, self.model_info, self.device.type, self.dtype)
+        out = launch(_train_rank, num_devices=n, args=(portable, args, train_dataset, val_dataset),
+                     backend="nccl" if self.device.type == "cuda" else "gloo")
+        with torch.no_grad():
+            self.module.load_state_dict(out.pop("state"))
+        self.module.eval()
+        self.model_info = out.pop("model_info")
+        return out
+
+    @classmethod
+    def _on_device(cls, state: dict, config: ModelConfig, model_info: ModelInfo,
+                   device: torch.device, dtype: torch.dtype) -> "FocoosModel":
+        """The model that ``config`` builds, holding ``state``, on ``device``."""
+        from focoos_tpu_torch.model_manager import ModelManager
+
+        family = model_info.model_family.value
+        ModelManager._ensure_family_registered(family)
+        module = ModelManager._builders[family](config)
+        module.load_state_dict(state, strict=True)
+        self = cls.__new__(cls)
+        self.config, self.model_info, self.device = config, model_info, torch.device(device)
+        self.dtype = dtype
+        self.compute_dtype = str(dtype).removeprefix("torch.")
+        self.processor = ProcessorManager.get_processor(model_info.model_family, config, model_info.im_size)
+        set_compute_dtype(module, dtype)
+        self.module = module.to(self.device).eval()
+        return self
 
     def eval(self, args, val_dataset):
         """Score the model on ``val_dataset`` (a sequence of DatasetEntry, such
@@ -247,3 +292,20 @@ class FocoosModel:
 
         return export_model(self, runtime_type, out_dir, image_size, batch_size,
                             size_buckets=size_buckets, overwrite=overwrite)
+
+
+def _train_rank(portable, args, train_dataset, val_dataset):
+    """One launched rank of ``FocoosModel.train``: the model on this rank's
+    device, trained → its results with the trained weights (on the CPU) and
+    the model info. Every rank returns them, for under torchrun every
+    process goes on with its own; the trainer leaves the same full weights
+    on every rank."""
+    from focoos_tpu_torch.parallel import mesh
+    from focoos_tpu_torch.trainer.trainer import run_train
+
+    state, config, model_info, device_type, dtype = portable
+    model = FocoosModel._on_device(state, config, model_info, mesh.local_device(device_type), dtype)
+    out = run_train(model, args, train_dataset, val_dataset)
+    out["state"] = {k: v.detach().cpu() for k, v in model.module.state_dict().items()}
+    out["model_info"] = model.model_info
+    return out

@@ -42,6 +42,7 @@ from focoos_tpu_torch.models.rtmo.ports import KeypointTargets, RTMOAuxOutputs
 from focoos_tpu_torch.nn.layers.common import ComputeDtype
 from focoos_tpu_torch.ops.boxes import box_iou, elementwise_box_iou
 from focoos_tpu_torch.ops.topk import topk_lowest_index_first
+from focoos_tpu_torch.parallel import mesh
 
 INF = 1e8
 EPS = 1e-7
@@ -223,10 +224,11 @@ def rtmo_criterion(
     with torch.no_grad():
         sel, sel_valid = _gather_positives(assign, p_max)
         sel_gt = torch.gather(assign.gt_idx, 1, sel)  # [B, P] the gt of each slot
-    num_pos = assign.pos_mask.float().sum()
-    num_total = num_pos.clamp(min=1.0)
+    # the normalizers are the global batch's, divided among the ranks; num_pos, logged, the global count
+    num_pos = mesh.global_sum(assign.pos_mask.float().sum())
+    num_total = mesh.global_count(assign.pos_mask.float().sum(), 1.0)
     vf = sel_valid.float()
-    n_slots = vf.sum().clamp(min=1.0)
+    n_slots = mesh.global_count(vf.sum(), 1.0)
 
     p_boxes = _take(boxes, sel)  # [B, P, 4]
     p_kpts = _take(kpt_dec, sel)  # [B, P, K, 2]
@@ -245,7 +247,7 @@ def rtmo_criterion(
 
     # keypoint visibility BCE (weight 1, the mean)
     bce = (F.softplus(-p_kvis_logits) * t_vis + F.softplus(p_kvis_logits) * (1 - t_vis)).clamp(0, 50)
-    losses["loss_vis"] = (bce * vf[..., None]).sum() / (vf.sum() * k).clamp(min=1.0)
+    losses["loss_vis"] = (bce * vf[..., None]).sum() / mesh.global_count(vf.sum() * k, 1.0)
 
     # OKS loss (linear, normalized weights, weight 30, the mean over positives)
     d = torch.sqrt((p_kpts.float() - t_kpts).square().sum(-1) + 1e-12)  # [B, P, K]

@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from focoos_tpu_torch.ops.int8 import int8_conv2d, int8_matmul
+from focoos_tpu_torch.parallel import mesh
 
 
 class ComputeDtype:
@@ -150,7 +151,10 @@ class BatchNorm(ComputeDtype, nn.BatchNorm2d):
     BatchNorm2d's either way. As flax's BatchNorm with ``dtype``, statistics
     and normalization are fp32 (torch's batch_norm takes a bf16 input with
     fp32 parameters and computes in fp32) and the output is in the compute
-    dtype."""
+    dtype.
+
+    In training with the batch split over more than one rank, the statistics
+    are the global batch's, as under JAX's data mesh (``global_moments``)."""
 
     def __init__(self, num_features: int, frozen: bool = False, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__(num_features, eps=eps, momentum=momentum)
@@ -160,6 +164,13 @@ class BatchNorm(ComputeDtype, nn.BatchNorm2d):
         if self.frozen or not self.training:
             y = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
             return y.to(self.compute_dtype)
+        if mesh.data_parallel():
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))  # fp32 statistics, fp64 for a model in fp64
+            mean, var = global_moments(xf, (0,) + tuple(range(2, x.dim())))
+            self._move_running(mean.reshape(-1), var.reshape(-1))
+            shape = mean.shape
+            y = (xf - mean) * torch.rsqrt(var + self.eps)
+            return (y * self.weight.float().reshape(shape) + self.bias.float().reshape(shape)).to(self.compute_dtype)
         m, n = self.momentum, x.numel() // x.shape[1]
         # torch moves the running variance to (1-m)·old + m·var·n/(n-1), the
         # unbiased variance, in a copy the graph keeps; the n/(n-1) comes back
@@ -170,6 +181,34 @@ class BatchNorm(ComputeDtype, nn.BatchNorm2d):
             old = self.running_var
             self.running_var.copy_((moved - (1 - m) * old) * ((n - 1) / n) + (1 - m) * old)
         return y.to(self.compute_dtype)
+
+    @torch.no_grad()
+    def _move_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """flax's moving averages, of the mean and of the biased variance."""
+        m = self.momentum
+        self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+        self.running_var.copy_((1 - m) * self.running_var + m * var)
+
+
+def global_moments(x: torch.Tensor, dims: Tuple[int, ...], w: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean, biased variance) of fp32 ``x`` over ``dims`` (kept, size 1) and
+    over every rank's batch, weighted by ``w`` (0 or 1, broadcast against
+    ``x``) where given, the count floored at 1. Two passes, each one
+    ``all_reduce`` that the gradient flows back through
+    (``parallel.mesh.all_reduce_sum``): the sums with the count, then the
+    squared deviations from the global mean (the port's two-pass variance:
+    flax's E[x²] - E[x]² cancels in fp32)."""
+    xw = x if w is None else x * w
+    count = x.new_full((1,), x.numel() // math.prod(x.shape[d] for d in range(x.dim()) if d not in dims)) \
+        if w is None else w.sum().reshape(1)
+    sums = xw.sum(dims, keepdim=True)
+    first = mesh.all_reduce_sum(torch.cat([sums.reshape(-1), count]))
+    n = first[-1].clamp(min=1.0)
+    mean = (first[:-1] / n).reshape(sums.shape)
+    dev = (x - mean).square()
+    var = mesh.all_reduce_sum((dev if w is None else dev * w).sum(dims, keepdim=True)) / n
+    return mean, var
 
 
 class MaskedBatchNorm1d(nn.BatchNorm1d):
@@ -184,7 +223,9 @@ class MaskedBatchNorm1d(nn.BatchNorm1d):
     and when ``frozen`` (the trainer's ``freeze_bn``, as JAX's
     ``bn_use_running``), the running statistics normalize. Statistics and
     normalization are fp32; the output takes the input's dtype. The
-    state_dict keys are BatchNorm1d's."""
+    state_dict keys are BatchNorm1d's. With the batch split over more than
+    one rank, the statistics count the valid rows of every rank
+    (``global_moments``)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__(num_features, eps=eps, momentum=momentum)
@@ -193,14 +234,9 @@ class MaskedBatchNorm1d(nn.BatchNorm1d):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         xf = x.float().reshape(-1, x.shape[-1])
         if self.training and not self.frozen:
-            w = xf.new_ones(xf.shape[0]) if mask is None else mask.to(torch.float32).reshape(-1)
-            n = w.sum().clamp(min=1.0)
-            mean = (xf * w[:, None]).sum(0) / n
-            var = ((xf - mean).square() * w[:, None]).sum(0) / n
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
-                self.running_var.copy_((1 - m) * self.running_var + m * var)
+            mean, var = global_moments(xf, (0,), None if mask is None else mask.to(torch.float32).reshape(-1, 1))
+            mean, var = mean[0], var[0]
+            BatchNorm._move_running(self, mean, var)
         else:
             mean, var = self.running_mean, self.running_var
         y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight.float() + self.bias.float()

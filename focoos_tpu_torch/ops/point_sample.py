@@ -12,11 +12,12 @@ draws in. Plain PyTorch: no TPU kernel stands behind it.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from focoos_tpu_torch.ops.topk import topk_lowest_index_first
+from focoos_tpu_torch.parallel import mesh
 
 
 def point_sample(masks: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
@@ -67,17 +68,20 @@ def uncertainty_sampled_coords(
     num_points: int,
     oversample_ratio: float = 3.0,
     importance_sample_ratio: float = 0.75,
+    span: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """PointRend point selection (reference: point_rend.py:73-129): draw
     ``int(num_points · oversample_ratio)`` uniform points, keep the
     ``int(importance_sample_ratio · num_points)`` most uncertain, top up with
     fresh uniform points → [M, P, 2] fp32 on the logits' device. The draws
     come from ``generator``, which lives on that device (None: torch's
-    default generator there)."""
+    default generator there). With the batch split over ranks, the M rows
+    are this rank's of every rank's rows (``span``: ``mesh.row_span``'s), and
+    each draw is the global batch's, of which this rank keeps its rows."""
     m, dev = coarse_logits.shape[0], coarse_logits.device
     n_unc = int(importance_sample_ratio * num_points)
-    coords = torch.rand((m, int(num_points * oversample_ratio), 2), generator=generator, device=dev)
+    coords = mesh.global_rand((m, int(num_points * oversample_ratio), 2), generator, dev, span=span)
     extra = None
     if num_points > n_unc:
-        extra = torch.rand((m, num_points - n_unc, 2), generator=generator, device=dev)
+        extra = mesh.global_rand((m, num_points - n_unc, 2), generator, dev, span=span)
     return pick_uncertain_coords(coarse_logits, coords, n_unc, extra)

@@ -10,6 +10,11 @@ spares the tagged one. The payload is torch's own file
 (``<name>/state.pt``) in place of orbax's: ``TrainState.state_dict()``, that
 is the parameters and buffers (BatchNorm statistics), the optimizer's state,
 the EMA and the step.
+
+In a process group every rank calls ``save`` (under FSDP the state is
+gathered from the shards first, a collective), rank 0 alone writes, and the
+ranks meet at a barrier before going on; every rank loads, each taking its
+own layout (``TrainState.load_state_dict``).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from focoos_tpu_torch.parallel import mesh
 from focoos_tpu_torch.utils.logger import get_logger
 
 logger = get_logger(__name__)
@@ -38,17 +44,21 @@ class Checkpointer:
         os.makedirs(save_dir, exist_ok=True)
 
     def save(self, name: str, state: Any, **extra: Any) -> str:
-        """Save ``state`` (a TrainState) and ``extra`` (hook states, the iteration) under ``name``."""
+        """Save ``state`` (a TrainState) and ``extra`` (hook states, the
+        iteration) under ``name``; every rank calls it, rank 0 writes."""
         path = os.path.abspath(os.path.join(self.save_dir, name))
-        if os.path.exists(path):
-            shutil.rmtree(path)
-        os.makedirs(path)
-        torch.save(state.state_dict(), os.path.join(path, _STATE_FILE))
-        if extra:
-            np.savez(os.path.join(self.save_dir, f"{name}.extra.npz"), **_flatten_extra(extra))
-        with open(os.path.join(self.save_dir, _LAST_CHECKPOINT_TAG), "w") as f:
-            f.write(name)
-        logger.info(f"Saved checkpoint to {path}")
+        payload = state.state_dict()
+        if mesh.is_main_process():
+            if os.path.exists(path):
+                shutil.rmtree(path)
+            os.makedirs(path)
+            torch.save(payload, os.path.join(path, _STATE_FILE))
+            if extra:
+                np.savez(os.path.join(self.save_dir, f"{name}.extra.npz"), **_flatten_extra(extra))
+            with open(os.path.join(self.save_dir, _LAST_CHECKPOINT_TAG), "w") as f:
+                f.write(name)
+            logger.info(f"Saved checkpoint to {path}")
+        mesh.synchronize()
         return path
 
     def load(self, name_or_path: str) -> tuple:
@@ -105,6 +115,7 @@ class PeriodicCheckpointerMixin:
         self._recent: List[str] = []
 
     def step(self, iteration: int, state: Any, stride: int = 1, **extra: Any) -> None:
+        """Every rank calls it; rank 0 alone removes old checkpoints."""
         # fire when a multiple of ``period`` falls in (iteration, iteration + stride];
         # the name and the saved iteration are the last completed one, so that
         # resume (start_iter = saved + 1) replays no step
@@ -115,6 +126,8 @@ class PeriodicCheckpointerMixin:
             self._recent.append(name)
             while len(self._recent) > self.max_to_keep:
                 old = self._recent.pop(0)
+                if not mesh.is_main_process():
+                    continue
                 path = os.path.join(self.checkpointer.save_dir, old)
                 if os.path.isdir(path) and old != self.checkpointer.get_checkpoint_file():
                     shutil.rmtree(path, ignore_errors=True)

@@ -1,9 +1,13 @@
 """Evaluation loop and evaluators (port of focoos_tpu/trainer/evaluation/;
 reference: focoos/trainer/evaluation/).
 
-``inference_on_dataset`` computes what the JAX package's does, in one process
-on the model's device: each entry of the dataset once, in order, in batches
-of ``batch_size`` (the last one short: nothing is padded to a static shape).
+``inference_on_dataset`` computes what the JAX package's does on the model's
+device: each entry of the dataset once, in order, in batches of
+``batch_size`` (the last one short: nothing is padded to a static shape). In
+a process group each rank takes its contiguous share of the dataset
+(``_shard_indices``, JAX's), and the evaluators' states are gathered from
+every rank and merged, in rank order, before ``evaluate()``: every rank
+returns the metrics of the whole dataset.
 A producer thread, two batches ahead, reads each entry (a ``MapDataset``
 reads and maps it from disk there), preprocesses a batch and copies it to
 the card (pinned memory, a side stream, an event the forward waits on). The
@@ -31,6 +35,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from focoos_tpu_torch.parallel import mesh
 from focoos_tpu_torch.trainer.evaluation.evaluators import (
     ClassificationEvaluator,
     DatasetEvaluator,
@@ -83,13 +88,26 @@ def _to_host(output, device: torch.device):
     return dataclasses.replace(output, **fields), done
 
 
+def _shard_indices(n: int, rank: int, world: int) -> List[int]:
+    """Contiguous partition of [0, n) across ranks, every index once
+    (JAX evaluation/__init__.py:42-49; reference: data/samplers.py InferenceSampler)."""
+    per = n // world
+    rem = n % world
+    begin = rank * per + min(rank, rem)
+    end = begin + per + (1 if rank < rem else 0)
+    return list(range(begin, end))
+
+
 def inference_on_dataset(model, dataset, evaluator: DatasetEvaluator, batch_size: int = 8) -> Dict:
     """Batched evaluation of ``model`` (a FocoosModel in eval mode) on a
     sequence of DatasetEntry, with data and compute timing
-    (reference: trainer/evaluation/evaluator.py:115-236) → the evaluator's results."""
+    (reference: trainer/evaluation/evaluator.py:115-236) → the evaluator's
+    results over the whole dataset, on every rank of a process group."""
     evaluator.reset()
     stats.update(batches=0, host_bytes=0)
-    n = len(dataset)
+    rank, world = mesh.get_rank(), mesh.get_world_size()
+    indices = _shard_indices(len(dataset), rank, world)
+    n = len(indices)
     device = model.device
     cuda = device.type == "cuda"
     copy_stream = torch.cuda.Stream(device) if cuda else None
@@ -99,7 +117,7 @@ def inference_on_dataset(model, dataset, evaluator: DatasetEvaluator, batch_size
     def batches():
         for i in range(0, n, batch_size):
             t0 = time.perf_counter()
-            entries = [dataset[j] for j in range(i, min(i + batch_size, n))]
+            entries = [dataset[indices[j]] for j in range(i, min(i + batch_size, n))]
             batch, _ = model.processor.preprocess(entries)
             x = torch.from_numpy(np.ascontiguousarray(batch))
             ready = None
@@ -168,9 +186,11 @@ def inference_on_dataset(model, dataset, evaluator: DatasetEvaluator, batch_size
                 pass
         thread.join()
 
+    if world > 1:
+        evaluator.load_gathered_states(mesh.all_gather_objects(evaluator.state_for_gather()))
     results = evaluator.evaluate()
     logger.info(
-        f"Evaluated {n} images in {time.perf_counter() - start:.1f}s "
+        f"Evaluated {n} images (rank {rank} of {world}) in {time.perf_counter() - start:.1f}s "
         f"(compute {total_compute:.1f}s, data {total_data:.1f}s)"
     )
     return results

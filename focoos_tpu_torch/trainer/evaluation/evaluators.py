@@ -7,9 +7,10 @@ where the decode left its packed masks there) and OKS keypoint AP
 (``KeypointEvaluator``) on the numpy core of ``coco_eval.py``; the
 confusion-matrix mIoU of ``SemSegEvaluator``; the multi-label F1 of
 ``ClassificationEvaluator``; the panoptic quality of ``PanopticEvaluator``
-over fai_mf's ``panoptic_inference`` maps. One process evaluates the whole
-dataset; the classification and panoptic evaluators keep the JAX package's
-``state_for_gather`` / ``load_gathered_states`` seam.
+over fai_mf's ``panoptic_inference`` maps. Each keeps the JAX package's
+``state_for_gather`` / ``load_gathered_states`` seam: in a process group
+every rank scores its share of the dataset, and the evaluation merges the
+ranks' states, in rank order, before ``evaluate()``.
 """
 
 from __future__ import annotations
@@ -32,6 +33,14 @@ class DatasetEvaluator:
     def evaluate(self) -> Dict[str, Dict[str, float]]:
         raise NotImplementedError
 
+    def state_for_gather(self):
+        """The picklable accumulator state that the ranks gather."""
+        raise NotImplementedError(f"{type(self).__name__} does not support sharded evaluation")
+
+    def load_gathered_states(self, states: List) -> None:
+        """Replace the accumulators with the merge of every rank's state (in rank order)."""
+        raise NotImplementedError(f"{type(self).__name__} does not support sharded evaluation")
+
 
 class DatasetEvaluators(DatasetEvaluator):
     def __init__(self, evaluators: List[DatasetEvaluator]):
@@ -52,6 +61,13 @@ class DatasetEvaluators(DatasetEvaluator):
             if r:
                 results.update(r)
         return results
+
+    def state_for_gather(self):
+        return [e.state_for_gather() for e in self._evaluators]
+
+    def load_gathered_states(self, states):
+        for i, e in enumerate(self._evaluators):
+            e.load_gathered_states([s[i] for s in states])
 
 
 def _gt_from_entry(entry: DatasetEntry):
@@ -100,6 +116,12 @@ class DetectionEvaluator(DatasetEvaluator):
 
     def evaluate(self):
         return {"bbox": self._coco.summarize("bbox")}
+
+    def state_for_gather(self):
+        return self._coco._entries
+
+    def load_gathered_states(self, states):
+        self._coco._entries = [e for s in states for e in s]
 
 
 class InstanceSegmentationEvaluator(DatasetEvaluator):
@@ -161,6 +183,13 @@ class InstanceSegmentationEvaluator(DatasetEvaluator):
     def evaluate(self):
         return {"segm": self._coco.summarize("segm"), "bbox": self._box.summarize("bbox")}
 
+    def state_for_gather(self):
+        return (self._coco._entries, self._box._entries)
+
+    def load_gathered_states(self, states):
+        self._coco._entries = [e for s in states for e in s[0]]
+        self._box._entries = [e for s in states for e in s[1]]
+
 
 class KeypointEvaluator(DatasetEvaluator):
     """OKS keypoint AP (reference: keypoint.py:63)."""
@@ -194,6 +223,12 @@ class KeypointEvaluator(DatasetEvaluator):
     def evaluate(self):
         return {"keypoints": self._coco.summarize("keypoints")}
 
+    def state_for_gather(self):
+        return self._coco._entries
+
+    def load_gathered_states(self, states):
+        self._coco._entries = [e for s in states for e in s]
+
 
 class SemSegEvaluator(DatasetEvaluator):
     """Confusion-matrix mIoU / fwIoU / mACC / pACC (reference: sem_seg_evaluation.py:37)."""
@@ -225,6 +260,12 @@ class SemSegEvaluator(DatasetEvaluator):
                                   interpolation=cv2.INTER_NEAREST).astype(np.int64)
             n = self.num_classes + 1
             self._conf += np.bincount(n * gt.reshape(-1) + pred.reshape(-1), minlength=n**2).reshape(n, n)
+
+    def state_for_gather(self):
+        return self._conf
+
+    def load_gathered_states(self, states):
+        self._conf = np.sum(np.stack(states), axis=0)
 
     def evaluate(self):
         conf = self._conf[: self.num_classes, : self.num_classes].astype(np.float64)

@@ -21,6 +21,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from focoos_tpu_torch.parallel import mesh
 from focoos_tpu_torch.trainer.events import get_event_storage
 from focoos_tpu_torch.utils.logger import get_logger
 
@@ -378,7 +379,8 @@ class ProfilerHook(HookBase):
     events. Under ``steps_per_call`` K > 1 the window opens before the call
     that holds ``start_iter`` and closes after the call that reaches the
     window's end, so it covers whole calls; with K = 1 that is JAX's
-    ``iter == start_iter`` and ``iter + 1 >= start_iter + num_iters``."""
+    ``iter == start_iter`` and ``iter + 1 >= start_iter + num_iters``. In a
+    process group rank 0 writes its trace."""
 
     def __init__(self, output_dir: str, start_iter: int = 10, num_iters: int = 5):
         self._dir = output_dir
@@ -418,6 +420,8 @@ class ProfilerHook(HookBase):
         self._sync()
         self.profiler.__exit__(None, None, None)
         self._active = False
+        if not mesh.is_main_process():  # every rank profiles, rank 0 writes its trace
+            return
         os.makedirs(self._dir, exist_ok=True)
         self.trace_path = os.path.join(self._dir, f"profile_iter_{self._first}-{last}.pt.trace.json")
         self.profiler.export_chrome_trace(self.trace_path)

@@ -28,6 +28,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from focoos_tpu_torch.parallel import mesh
+from focoos_tpu_torch.parallel.sharding import is_sharded, local_tensors
 from focoos_tpu_torch.ports import TrainerArgs
 
 # module types whose parameters take ``weight_decay_norm`` (the reference's
@@ -215,16 +217,28 @@ class Solver:
 
     def step(self, step: int) -> torch.Tensor:
         """One update from the gradients in ``.grad`` → the global norm of the
-        unclipped gradients (a 0-d tensor on the parameters' device)."""
+        unclipped gradients (a 0-d tensor on the parameters' device). Under
+        FSDP the norm sums every rank's squares of the sharded gradients, and
+        adds once the squares of those it leaves whole (0-d parameters, whose
+        averaged gradient every rank holds)."""
         for p in self.params:  # JAX's grad is 0 where torch's is None; 0 still takes weight decay
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in self.params]
+        sharded = [is_sharded(p) for p in self.params]
+        grads = local_tensors([p.grad for p in self.params])  # in-place ops on a shard act on its DTensor
         if grads[0].is_cuda:  # one fused launch that reduces as a tree
             norms = torch._foreach_norm(grads)
         else:  # torch's CPU norm sums fp32 in sequence (~4e-5 off at 2.4M values); dot sums in a cascade
             norms = [torch.dot(g.flatten(), g.flatten()).sqrt() for g in grads]
-        norm = torch.linalg.vector_norm(torch.stack(norms))
+        if any(sharded):
+            split = torch.linalg.vector_norm(torch.stack([n for n, s in zip(norms, sharded) if s]))
+            whole = [n for n, s in zip(norms, sharded) if not s]
+            sq = mesh.global_sum(split.square())
+            if whole:
+                sq = sq + torch.linalg.vector_norm(torch.stack(whole)).square()
+            norm = sq.sqrt()
+        else:
+            norm = torch.linalg.vector_norm(torch.stack(norms))
         if self.clip > 0:
             # optax clip_by_global_norm: g · max / norm where norm >= max
             torch._foreach_mul_(grads, torch.where(norm < self.clip, 1.0, self.clip / norm))

@@ -19,6 +19,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from focoos_tpu_torch.parallel import mesh
+from focoos_tpu_torch.parallel.sharding import full, load_full_state_dict, shard_like, shard_optimizer_state
 from focoos_tpu_torch.trainer.solver import Solver
 
 
@@ -34,20 +36,25 @@ class TrainState:
 
     def state_dict(self) -> dict:
         """What a training checkpoint holds: the parameters and buffers
-        (BatchNorm statistics), the optimizer's state, the EMA and the step."""
-        return {"module": self.module.state_dict(), "optimizer": self.solver.optimizer.state_dict(),
-                "ema": self.ema_params, "step": self.step}
+        (BatchNorm statistics), the optimizer's state, the EMA and the step,
+        each in its full, one-process layout: under FSDP every rank gathers
+        the shards (a collective), so a dp, an fsdp and a one-process run
+        write the same keys and shapes."""
+        return full({"module": self.module.state_dict(), "optimizer": self.solver.optimizer.state_dict(),
+                     "ema": self.ema_params, "step": self.step})
 
     def load_state_dict(self, state: dict) -> None:
-        """Restore ``state_dict()``'s output in place, onto the tensors' own devices."""
-        self.module.load_state_dict(state["module"], strict=True)
+        """Restore ``state_dict()``'s output in place, onto the tensors' own
+        devices and layouts (each rank takes its shards under FSDP)."""
+        load_full_state_dict(self.module, state["module"], strict=True)
         self.solver.optimizer.load_state_dict(state["optimizer"])
+        shard_optimizer_state(self.solver.optimizer)
         if (state["ema"] is None) != (self.ema_params is None):
             raise ValueError("the checkpoint and this run disagree on whether the EMA is enabled")
         if self.ema_params is not None:
             with torch.no_grad():
                 for e, saved in zip(self.ema_params, state["ema"], strict=True):
-                    e.copy_(saved)
+                    e.copy_(shard_like(saved, e))
         self.step = int(state["step"])
 
 
@@ -80,7 +87,8 @@ def build_train_step(
         state.step += 1
         metrics = dict(metrics, total_loss=total.detach(), grad_norm=grad_norm)
         keys = tuple(sorted(metrics))
-        return keys, torch.stack([metrics[k].detach().float() for k in keys])
+        # the ranks' mean: each rank's loss is its share of the global batch's, over the global normalizers
+        return keys, mesh.mean_across_ranks(torch.stack([metrics[k].detach().float() for k in keys]))
 
     return step_fn
 

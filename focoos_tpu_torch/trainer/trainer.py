@@ -14,12 +14,25 @@ checkpoints (``trainer/checkpointer.py``) that ``resume`` restarts from. It writ
 ``model_info.json`` at each status change, the final weights (the EMA's when
 enabled, with the live BatchNorm statistics) as ``model_final.npz`` in the
 JAX package's layout, and the final validation metrics into
-``model_info.json``. ``init_checkpoint``, sharding and the hub sync are not
-ported yet: asking for them raises ``NotImplementedError``.
+``model_info.json``.
+
+In a process group (``parallel/launch.py``; ``FocoosModel.train`` launches
+one with ``num_devices`` > 1) each rank trains on its share of every batch
+through the module wrapped for ``TrainerArgs.sharding``: ``dp``
+(DistributedDataParallel) or ``fsdp`` (FSDP2 on a copy of the module, whose
+full weights go back into the model for validation and at the end). The
+losses and norms reduce over the global batch (``parallel/mesh.py``), so
+the step is the one-process step on the global batch. Rank 0 alone writes
+``model_info.json``, the weights, checkpoints, metrics, TensorBoard events,
+mosaics and profiler traces; every rank validates its share of the
+validation set and returns the merged metrics. ``init_checkpoint``, tensor
+parallelism (``tp``, ``fsdp_tp``, a 2-D ``mesh_shape``) and the hub sync
+are not ported yet: asking for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import copy
 import importlib
 import math
 import os
@@ -32,6 +45,8 @@ import torch
 
 from focoos_tpu_torch.data.loaders import build_train_loader
 from focoos_tpu_torch.nn.layers.common import BatchNorm, MaskedBatchNorm1d, clear_cast_caches
+from focoos_tpu_torch.parallel import mesh
+from focoos_tpu_torch.parallel.sharding import apply_sharding, check_mode, full, full_state_dict, load_full_state_dict
 from focoos_tpu_torch.ports import ArtifactName, ModelStatus, Task, TrainerArgs
 from focoos_tpu_torch.trainer import hooks as hooks_mod
 from focoos_tpu_torch.trainer.checkpointer import Checkpointer, PeriodicCheckpointerMixin
@@ -193,12 +208,45 @@ def _unsupported(args: TrainerArgs) -> List[str]:
     """What ``args`` asks for that the port does not do yet, each with its ROADMAP Queue 1 item."""
     asks = {
         "init_checkpoint (item 5; the JAX trainer reads it nowhere)": bool(args.init_checkpoint),
-        f"sharding {args.sharding!r} (item 9)": args.sharding != "dp",
-        f"mesh_shape {args.mesh_shape} (item 9)": bool(args.mesh_shape),
-        f"num_devices {args.num_devices} (item 9)": args.num_devices not in (-1, 0, 1),
+        f"sharding {args.sharding!r} (item 9: tensor parallelism)": args.sharding in ("tp", "fsdp_tp"),
+        f"mesh_shape {args.mesh_shape} (item 9: a 2-D mesh)": bool(args.mesh_shape) and len(args.mesh_shape) > 1,
         "sync_to_hub (item 10)": args.sync_to_hub,
     }
     return [what for what, asked in asks.items() if asked]
+
+
+def check_ported(args: TrainerArgs) -> None:
+    """Raise on what ``args`` asks for that the port does not do yet (``NotImplementedError``,
+    naming its ROADMAP item) or does not know (``ValueError``)."""
+    missing = _unsupported(args)
+    if missing:
+        raise NotImplementedError(f"not ported yet (ROADMAP Queue 1): {', '.join(missing)}")
+    check_mode(args.sharding)
+
+
+def requested_world(args: TrainerArgs, device: torch.device) -> int:
+    """The number of ranks ``args`` asks for: a 1-D ``mesh_shape``'s size,
+    else ``num_devices`` (-1: every local CUDA device for a model on the
+    card, one on the CPU; 0: one)."""
+    if args.mesh_shape:
+        return int(args.mesh_shape[0])
+    if args.num_devices == -1:
+        return max(torch.cuda.device_count(), 1) if torch.device(device).type == "cuda" else 1
+    return max(int(args.num_devices), 1)
+
+
+class _StepModule(torch.nn.Module):
+    """The model and its loss under one forward, so that DDP's reducer and
+    FSDP's root see every parameter the loss reaches (rtmo's criterion runs
+    DCC after the model's forward)."""
+
+    def __init__(self, model: torch.nn.Module, loss_fn: Callable):
+        super().__init__()
+        self.model = model
+        self.loss_fn = loss_fn
+
+    def forward(self, images, targets):
+        return self.loss_fn(images, targets)
 
 
 class FocoosTrainer:
@@ -210,41 +258,59 @@ class FocoosTrainer:
     (the JAX trainer ignores it too)."""
 
     def __init__(self, model, args: TrainerArgs, train_dataset, val_dataset=None):
-        missing = _unsupported(args)
-        if missing:
-            raise NotImplementedError(f"not ported yet (ROADMAP Queue 1): {', '.join(missing)}")
+        check_ported(args)
+        asked, world = requested_world(args, model.device), mesh.get_world_size()
+        explicit = bool(args.mesh_shape) or args.num_devices > 1
+        if (explicit and asked != world) or (not mesh.is_initialized() and asked > 1):
+            raise ValueError(f"args ask for {asked} ranks, this process group has {world}: "
+                             "train through FocoosModel.train or parallel.launch")
         self.loss_module = importlib.import_module(f"focoos_tpu_torch.models.{model.model_info.model_family.value}.loss")
         self.model = model
         self.args = args
         self.train_dataset = train_dataset
         self.val_dataset = val_dataset
-        self.run_dir = _versioned_run_dir(args.output_dir, args.run_name)
+        self.run_dir = mesh.broadcast_object(
+            _versioned_run_dir(args.output_dir, args.run_name) if mesh.is_main_process() else None)
         self.model_info = model.model_info
+        self._train_module = model.module
 
     def _set_status(self, status: ModelStatus, failure_reason: Optional[str] = None) -> None:
         """Status persisted to model_info.json (reference: trainer/trainer.py:558-584)."""
         self.model_info.status = status
         if failure_reason:
             self.model_info.description = f"{self.model_info.description or ''} [FAILED: {failure_reason[:300]}]"
-        self.model_info.dump_json(self.run_dir)
+        if mesh.is_main_process():
+            self.model_info.dump_json(self.run_dir)
 
     def train(self) -> Dict[str, Any]:
         args, model = self.args, self.model
         torch.manual_seed(args.seed)
-        np.random.seed(args.seed)
+        np.random.seed(args.seed + mesh.get_rank())  # a rank's own augmentations where no worker maps
         self._set_status(ModelStatus.TRAINING_STARTING)
         module = model.module
+        if mesh.is_initialized() and args.sharding == "fsdp":
+            # FSDP turns the parameters into shards for good: it trains a copy, and the full module stays for
+            # the rank-sharded validation (a sharded forward is a collective; the ranks' shares differ in
+            # length). A rank thus holds the full parameters twice during a step (sharding.py)
+            clear_cast_caches(module)
+            self._train_module = copy.deepcopy(module)
+        train_module = self._train_module
         model.processor.train(True)
         # freeze_bn: every BatchNorm takes its running statistics in training
         # too (JAX's FREEZE_ALL_BN), and the solver leaves its parameters alone
-        frozen = [m for m in module.modules() if isinstance(m, (BatchNorm, MaskedBatchNorm1d)) and not m.frozen
+        frozen = [m for m in train_module.modules() if isinstance(m, (BatchNorm, MaskedBatchNorm1d)) and not m.frozen
                   ] if args.freeze_bn else []
         for m in frozen:
             m.frozen = True
-        solver = Solver(module, args, freeze_prefixes=_freeze_prefixes(model))
-        state = create_train_state(module, solver, ema_enabled=args.ema_enabled)
+        loss_fn = self.loss_module.make_loss_fn(train_module, model.config)
+        if mesh.is_initialized():
+            loss_fn = apply_sharding(_StepModule(train_module, loss_fn), train_module, args.sharding, model.device)
+            logger.info(f"{args.sharding} over {mesh.get_world_size()} ranks, "
+                        f"{args.batch_size // mesh.get_world_size()} images a rank a step")
+        solver = Solver(train_module, args, freeze_prefixes=_freeze_prefixes(model))
+        state = create_train_state(train_module, solver, ema_enabled=args.ema_enabled)
         ema_fn = ema_decay_schedule(args.ema_decay, args.ema_warmup) if args.ema_enabled else None
-        step_fn = build_train_step(self.loss_module.make_loss_fn(module, model.config), ema_fn)
+        step_fn = build_train_step(loss_fn, ema_fn)
         spc = max(1, int(args.steps_per_call))
         if spc > 1:
             step_fn = build_multi_train_step(step_fn, spc)
@@ -283,10 +349,14 @@ class FocoosTrainer:
             module.eval()
             model.processor.train(False)
 
+        self._sync_weights()
         if state.ema_params is not None:  # the final weights are the EMA's
+            ema = full(state.ema_params)
             with torch.no_grad():
-                torch._foreach_copy_(list(module.parameters()), state.ema_params)
-        weights_path = model.save_weights(os.path.join(self.run_dir, ArtifactName.WEIGHTS.value))
+                torch._foreach_copy_(list(module.parameters()), ema)
+        weights_path = os.path.join(self.run_dir, ArtifactName.WEIGHTS.value)
+        if mesh.is_main_process():
+            model.save_weights(weights_path)
         self.model_info.weights_uri = weights_path
         self._set_status(ModelStatus.TRAINING_COMPLETED)
         metrics = self._final_metrics()
@@ -296,15 +366,17 @@ class FocoosTrainer:
     def _register_hooks(self, loop: TrainerLoop, checkpointer: Checkpointer, schedule) -> None:
         """(reference: trainer/trainer.py:472-556)"""
         args = self.args
-        writers = [
-            hooks_mod.CommonMetricPrinter(max_iter=args.max_iters),
-            hooks_mod.JSONWriter(os.path.join(self.run_dir, ArtifactName.METRICS.value)),
-        ]
-        try:  # as JAX registers it: skipped where tensorboardX is missing
-            writers.append(hooks_mod.TensorboardWriter(os.path.join(self.run_dir, "tb")))
-            logger.info(f"TensorBoard events in {os.path.join(self.run_dir, 'tb')}")
-        except ImportError:
-            logger.info("tensorboardX is not installed: no TensorBoard events")
+        writers = []
+        if mesh.is_main_process():  # the metrics are the ranks' mean already
+            writers = [
+                hooks_mod.CommonMetricPrinter(max_iter=args.max_iters),
+                hooks_mod.JSONWriter(os.path.join(self.run_dir, ArtifactName.METRICS.value)),
+            ]
+            try:  # as JAX registers it: skipped where tensorboardX is missing
+                writers.append(hooks_mod.TensorboardWriter(os.path.join(self.run_dir, "tb")))
+                logger.info(f"TensorBoard events in {os.path.join(self.run_dir, 'tb')}")
+            except ImportError:
+                logger.info("tensorboardX is not installed: no TensorBoard events")
         periodic = PeriodicCheckpointerMixin(
             checkpointer, args.checkpointer_period, args.max_iters, args.checkpointer_max_to_keep
         )
@@ -331,6 +403,7 @@ class FocoosTrainer:
         ``state.params``. The next step puts the module back in train mode."""
         from focoos_tpu_torch.trainer.evaluation import evaluate_dataset
 
+        self._sync_weights()
         self.model.module.eval()
         self.model.processor.train(False)
         try:
@@ -339,12 +412,20 @@ class FocoosTrainer:
             clear_cast_caches(self.model.module)  # a second copy of every weight, stale after the next step
             self.model.processor.train(True)
 
+    def _sync_weights(self) -> None:
+        """Under FSDP: the trained copy's full weights into the model (every rank calls it)."""
+        if self._train_module is not self.model.module:
+            load_full_state_dict(self.model.module, full_state_dict(self._train_module))
+
     def _render_val_samples(self, loop: TrainerLoop, n: int) -> Optional[np.ndarray]:
         """Annotated-prediction mosaic over the first N val images
         (reference: hooks/visualization.py:39), written to
-        ``run_dir/visualizations/`` and stored as an EventStorage image.
-        Drawing needs cv2: without it training goes on and this warns."""
+        ``run_dir/visualizations/`` and stored as an EventStorage image, by
+        rank 0. Drawing needs cv2: without it training goes on and this warns."""
         if self.val_dataset is None or n <= 0:
+            return None
+        self._sync_weights()
+        if not mesh.is_main_process():
             return None
         from focoos_tpu_torch.utils.vision import annotate_image
 
@@ -400,7 +481,8 @@ class FocoosTrainer:
         self.model.processor.train(False)
         results = evaluate_dataset(self.model, self.val_dataset, batch_size=max(1, self.args.batch_size // 2))
         self.model_info.val_metrics = hooks_mod._flatten_metrics(results) if results else None
-        self.model_info.dump_json(self.run_dir)
+        if mesh.is_main_process():
+            self.model_info.dump_json(self.run_dir)
         return results or {}
 
 

@@ -1189,3 +1189,56 @@ def test_retry_if_oom_reraises_a_real_card_oom(cuda):
     with pytest.raises(torch.OutOfMemoryError):
         too_big()
     assert len(tries) == 2 and devices == []
+
+
+def _global_batchnorm_rank(x: torch.Tensor, gy: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> list:
+    """A rank of the 2-rank BatchNorm test, on cuda:0 over gloo: its half of
+    the batch through a train-mode BatchNorm, backward with its half of the
+    output gradient → every rank's (y, dx, dweight, dbias, running mean,
+    running var), on the CPU."""
+    from focoos_tpu_torch.nn.layers.common import BatchNorm
+    from focoos_tpu_torch.parallel import mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    dev, rank, half = torch.device("cuda:0"), mesh.get_rank(), x.shape[0] // 2
+    rows = slice(rank * half, (rank + 1) * half)
+    bn = BatchNorm(x.shape[1]).to(dev).train()
+    with torch.no_grad():
+        bn.weight.copy_(weight)
+        bn.bias.copy_(bias)
+    xr = x[rows].to(dev).requires_grad_()
+    y = bn(xr)
+    (y * gy[rows].to(dev)).sum().backward()
+    return mesh.all_gather_objects(tuple(t.detach().cpu() for t in (y, xr.grad, bn.weight.grad, bn.bias.grad,
+                                                                   bn.running_mean, bn.running_var)))
+
+
+def test_global_batchnorm_on_two_ranks_of_one_card_matches_one_process(cuda):
+    """The port's BatchNorm on two ranks over gloo, both on the one card
+    (NCCL takes one rank a device), against the one-process BatchNorm on the
+    whole batch: the output, the input's gradient, the parameters' gradients
+    (the ranks' sum, as DDP's reduction gives it) and the running statistics,
+    fp32 × max|ref| 1e-5 (sums in another order; the gradient crosses both
+    ``all_reduce``s)."""
+    from focoos_tpu_torch.nn.layers.common import BatchNorm
+    from focoos_tpu_torch.parallel.launch import launch
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(8, 16, 12, 10, generator=g) * 2.0 + 0.5
+    gy = torch.randn(x.shape, generator=g)
+    weight, bias = torch.rand(16, generator=g) + 0.5, torch.randn(16, generator=g)
+    ranks = launch(_global_batchnorm_rank, num_devices=2, args=(x, gy, weight, bias), backend="gloo")
+
+    bn = BatchNorm(16).to(cuda).train()
+    with torch.no_grad():
+        bn.weight.copy_(weight)
+        bn.bias.copy_(bias)
+    xr = x.to(cuda).requires_grad_()
+    y = bn(xr)
+    (y * gy.to(cuda)).sum().backward()
+    ref = [t.detach().cpu() for t in (y, xr.grad, bn.weight.grad, bn.bias.grad, bn.running_mean, bn.running_var)]
+    got = [torch.cat([r[0] for r in ranks]), torch.cat([r[1] for r in ranks]), ranks[0][2] + ranks[1][2],
+           ranks[0][3] + ranks[1][3], ranks[0][4], ranks[0][5]]
+    for name, a, b in zip(("y", "dx", "dweight", "dbias", "running_mean", "running_var"), got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * float(b.abs().max()), msg=name)
+    torch.testing.assert_close(ranks[1][4], ranks[0][4], rtol=0, atol=0)

@@ -175,11 +175,12 @@ def test_missing_artifacts_and_runtime_guards(detr, tmp_path):
     for rt in (RuntimeType.CPU, RuntimeType.CUDA_INT8, RuntimeType.TORCH_EXPORT):
         with pytest.raises(FileNotFoundError):
             InferModel(str(tmp_path), rt, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        InferModel(detr["cpu_dir"], RuntimeType.CPU, data_parallel=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        runtimes.load_runtime(RuntimeType.CPU, module=detr["model"].module, output_names=["boxes"],
-                              device=torch.device("cpu"), data_parallel=True)
+    # data_parallel on the CPU's one device is the plain runtime; an exported program takes none
+    assert type(InferModel(detr["cpu_dir"], RuntimeType.CPU, data_parallel=True, device="cpu").runtime) is \
+        runtimes.TorchRuntime
+    with pytest.raises(ValueError, match="data_parallel"):
+        runtimes.load_runtime(RuntimeType.TORCH_EXPORT, artifact_path="x.pt2", output_names=["boxes"],
+                              data_parallel=True)
     with pytest.raises(ValueError):
         runtimes.load_runtime(RuntimeType.CPU, output_names=["boxes"])
     with pytest.raises(ValueError):

@@ -541,8 +541,8 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
         "fai-detr-l-coco", device="cpu", image_size=SIZE, num_queries=10, transformer_predictor_dec_layers=1,
         backbone_config={"model_type": "resnet", "depth": 18, "variant": "d", "freeze_norm": False},
     )
-    for kw, item in (({"init_checkpoint": "x.npz"}, 5), ({"sharding": "fsdp"}, 9),
-                     ({"mesh_shape": (2, 1)}, 9), ({"num_devices": 4}, 9), ({"sync_to_hub": True}, 10)):
+    for kw, item in (({"init_checkpoint": "x.npz"}, 5), ({"sharding": "tp"}, 9),
+                     ({"mesh_shape": (2, 1)}, 9), ({"sharding": "fsdp_tp"}, 9), ({"sync_to_hub": True}, 10)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             model.train(TrainerArgs(run_name="x", output_dir=str(tmp_path), **kw), _dataset(2))
     with pytest.raises(NotImplementedError, match="Optimizer"):
