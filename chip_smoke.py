@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # from the repository root, on a machine with an H100
     python3 chip_smoke.py --only-export    # the build and the export phase (14) alone; no result line
+    python3 chip_smoke.py --only-cli       # the build and the cli phase (16) alone; no result line
 
 Phases, each printing its own lines; any failure raises and the exit code is
 non-zero:
@@ -84,9 +85,9 @@ non-zero:
    fai-mf-l-ade step (B=2 640²) on the card against the CPU's step in fp64
    on its attention masks, points and assignment, fp32 and bf16; then
    fai-mf-l-coco-ins fine-tuned at 1024² from a seeded instance set of
-   640x480 JPEGs written to disk (the train loader alone; validation at the
-   preset's 1024 raising the resized-record ValueError of ROADMAP Queue 3;
-   FocoosModel.train at B=8 with validation at 480 in fp32 and bf16; a
+   640x480 JPEGs written to disk (the train loader alone; FocoosModel.eval
+   on the preset's validation split at 1024, its records resized and scored
+   in their own frame; FocoosModel.train at B=8 with validation at 480 in fp32 and bf16; a
    24-step loop without validation timed whole, its last steps profiled;
    the criterion alone; FocoosModel.eval); then bisenetformer-l-ade at 640² (infer(), card vs
    CPU forwards, b1/b16, evaluation against the CPU's own predictions, one
@@ -154,7 +155,19 @@ non-zero:
    BatchNorm statistics) that must fail that gate; (d) two ranks evaluating
    16 images at batch 8 split 9 and 7 against one process's
    ``evaluate_dataset`` (bbox/AP to 1e-9, one stem launch an eval forward
-   on each rank).
+   on each rank);
+16. cli — the port's command line (``focoos_tpu_torch/cli``), driven in
+   process through ``cli.main(argv)`` (``phase_cli``): ``predict`` of a
+   fai-detr-l-coco and an rtmo-s-coco model directory (seeded weights through
+   ``save_weights``) against ``FocoosModel.infer`` on the same directory and
+   JPEG; ``val`` on 16 seeded 640x480 Roboflow-COCO JPEGs at --im-size 640
+   (records resized to 640², their ground truth the card's own detections)
+   against ``FocoosModel.eval``; ``benchmark`` in fp32 and bf16; ``train``
+   of fai-detr-m-coco on that set with ``--sync-to-hub true`` against a hub
+   served on 127.0.0.1, then ``predict`` of its run directory;
+   ``ModelManager.get("hub://...")`` from that hub; ``checks`` and
+   ``version`` in a process of their own (the card's name as nvidia-smi
+   gives it).
 
 Each model path runs again in bf16 compute (``ModelManager.get(...,
 dtype="bfloat16")``, fp32 parameters), right after its fp32 run and with its
@@ -173,8 +186,8 @@ The last three lines are the kernels' JSON record (``launches`` from the
 serving and training main paths, ``launches_lifecycle``,
 ``launches_finetune_m``, ``launches_fai_mf``, ``launches_segm_train``,
 ``launches_fai_cls``, ``launches_rtmo_train``, ``launches_user_data``,
-``launches_export`` and ``launches_distributed`` (every rank's) summed over
-those phases' counted runs), the card's
+``launches_export``, ``launches_distributed`` (every rank's) and
+``launches_cli`` summed over those phases' counted runs), the card's
 name and power limit as
 nvidia-smi reports them, and the result JSON.
 """
@@ -182,6 +195,7 @@ nvidia-smi reports them, and the result JSON.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -1620,7 +1634,7 @@ def entries_with_gt(images: list, gts: list) -> list:
     return out
 
 
-def pseudo_gt(cpu_model, images: list, keypoints: bool = False) -> list:
+def pseudo_gt(cpu_model, images: list, keypoints: bool = False, entries=None, per_image: int = LIFECYCLE_GT) -> list:
     """The model's fp32 CPU detections (its ``eval_postprocess``) as ground
     truth: the top LIFECYCLE_GT x len(images) of all images together (20 an
     image on average), the cut moved down past any score gap under
@@ -1629,10 +1643,16 @@ def pseudo_gt(cpu_model, images: list, keypoints: bool = False) -> list:
     people whose box is under 64 px² left out. One
     cut for all images: with each image's own top 20, an image's 21st
     detection can outscore another's 20th and rank as a false positive above
-    a true one, so the CPU itself would score under 100."""
-    entries = entries_with_gt(images, [(np.zeros((0, 4), np.float32), np.zeros(0))] * len(images))
+    a true one, so the CPU itself would score under 100. ``entries`` (mapped
+    records of ``images``) give the frame the detections are scaled to: each
+    record's own size. ``per_image`` x len(images) is the cut: keep it under
+    COCO's 100 detections an image, which one image could otherwise take."""
+    if entries is None:
+        entries = entries_with_gt(images, [(np.zeros((0, 4), np.float32), np.zeros(0))] * len(images))
     with torch.inference_mode():
         out = cpu_model.forward(np.stack(images))
+    out = dataclasses.replace(out, **{f.name: getattr(out, f.name).cpu() for f in dataclasses.fields(out)
+                                      if isinstance(getattr(out, f.name), torch.Tensor)})  # a card model's too
     insts = [r["instances"] for r in cpu_model.processor.eval_postprocess(out, entries)]
     if keypoints:  # OKS scales by the box's area: over a sliver's ~0 area only exactly equal keypoints match
         insts = [i[(i.boxes.tensor[:, 2] - i.boxes.tensor[:, 0]) * (i.boxes.tensor[:, 3] - i.boxes.tensor[:, 1]) >= 64]
@@ -1640,7 +1660,7 @@ def pseudo_gt(cpu_model, images: list, keypoints: bool = False) -> list:
     scores = np.concatenate([np.asarray(i.scores) for i in insts])
     image_of = np.concatenate([np.full(len(i), n) for n, i in enumerate(insts)])
     order = np.argsort(-scores, kind="stable")
-    cut = LIFECYCLE_GT * len(images)
+    cut = per_image * len(images)
     while cut < len(order) and scores[order[cut - 1]] - scores[order[cut]] < GT_SCORE_GAP:
         cut += 1
     offsets = np.cumsum([0] + [len(i) for i in insts])
@@ -2791,9 +2811,9 @@ def phase_segm_train(dev, smi: str) -> dict:
         torch.cuda.empty_cache()
 
         # 2. fai-mf-l-coco-ins fine-tuned at 1024² from a set on disk of COCO-sized originals. Validation at
-        # the preset's 1024 resizes every record, which meets ROADMAP Queue 3's fault: the evaluator pairs
-        # predictions at the original size with ground truth at the mapped one and raises. Validation at the
-        # originals' short edge keeps every record exact.
+        # the preset's 1024 resizes every record: the evaluator scores it in the record's own frame (the
+        # resized-record fault of the JAX package, fixed in the port). The runs below validate at the
+        # originals' short edge, which keeps every record unresized.
         t0 = time.perf_counter()
         ins_root = write_instance_set(os.path.join(root, "ins"), SEG_FT_TRAIN, SEG_FT_VAL, SEG_FT_HW, seed=2)
         auto = AutoDataset(ins_root, task="instseg")
@@ -2852,20 +2872,19 @@ def phase_segm_train(dev, smi: str) -> dict:
                                workers=workers, eval_period=eval_period, checkpointer_period=iters, log_period=iters,
                                ema_enabled=True, seed=0, workers_timeout=300, samples=0)
 
-        # the preset's validation: the first one raises the pinned ValueError, and nothing else may
+        # the preset's validation split: resized records, scored in their own frame (the port's fix of the
+        # resized-record fault, where this validation raised on masks of two sizes)
         t0 = time.perf_counter()
-        try:
-            model.train(args(SEG_FT_EVAL_PERIOD), ft_train, preset_val)
-        except ValueError as e:
-            fault = str(e)
-        else:
-            raise AssertionError("validation of resized instance records ran: ROADMAP Queue 3's fault is gone,"
-                                 " so this phase should validate at the preset's resolution")
-        assert fault.startswith("mask_iou: masks of sizes"), fault
-        log(f"[{tag}] FocoosModel.train validating at the preset's {SEG_FT_SIZE}: {SEG_FT_EVAL_PERIOD} steps, then the"
-            f" first validation raised ValueError({fault!r}) ({time.perf_counter() - t0:.1f}s; ROADMAP Queue 3)."
-            f" The runs below validate at {min(SEG_FT_HW)}")
-        model.module.load_state_dict(initial)
+        fused_resnet_stem.launches = 0
+        preset = model.eval(TrainerArgs(run_name="preset_val", batch_size=SEG_FT_BATCH), preset_val)
+        assert all(np.isfinite(v) for k in ("segm", "bbox") for v in preset[k].values()), preset
+        assert fused_resnet_stem.launches == math.ceil(SEG_FT_VAL / SEG_FT_BATCH), fused_resnet_stem.launches
+        total["fused_resnet_stem"] += fused_resnet_stem.launches
+        assert p0.original_instances is not None and p0.original_instances.masks.tensor.shape[1:] == SEG_FT_HW
+        log(f"[{tag}] FocoosModel.eval on the preset's validation split at {SEG_FT_SIZE} ({SEG_FT_VAL} records resized"
+            f" from {SEG_FT_HW[1]}x{SEG_FT_HW[0]}, ground truth in their own frame): segm {ap_line(preset['segm'])};"
+            f" bbox {ap_line(preset['bbox'])} ({time.perf_counter() - t0:.1f}s). The runs below validate at"
+            f" {min(SEG_FT_HW)}")
 
         for dtype in ("float32", "bfloat16"):
             m = model if dtype == "float32" else ModelManager.get(SEG_FT_CARD, device=dev, classes=classes,
@@ -4812,6 +4831,370 @@ def phase_distributed(dev, smi: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# cli: the port's command line, driven in process through focoos_tpu_torch.cli.cli.main
+CLI_DETR, CLI_KP, CLI_TRAIN = "fai-detr-l-coco", "rtmo-s-coco", "fai-detr-m-coco"
+CLI_VAL_IMAGES, CLI_VAL_HW, CLI_VAL_BATCH = 16, (480, 640), 8  # the val verb's batch when none is given
+CLI_TOL = 1e-6  # predict's boxes and scores against FocoosModel.infer, × max|ref|
+CLI_AP_TOL = 1e-9
+CLI_AP_FLOOR = 99.0  # the card's own detections as ground truth, scored across the 640x480 → 640² resize
+CLI_GT = 5  # pseudo-GT boxes an image on average: one cut over the 16 images, 80 boxes, so none holds over 100
+CLI_BENCH_ITERS = 10
+CLI_TRAIN_STEPS, CLI_TRAIN_BATCH = 4, 8
+CLI_HUB_REF = "cli-detr"
+
+
+CLI_SECONDS: dict = {}  # each verb's last run_cli call, on the host clock
+
+
+def run_cli(argv: list) -> str:
+    """``focoos_tpu_torch.cli.cli.main(argv)`` in this process with ``os._exit``
+    held off for the call → what it printed (the verbs print JSON); its
+    seconds go to ``CLI_SECONDS[verb]``. Only this process's ``os._exit`` is
+    held off: a loader worker forked during the call ends through it."""
+    import io
+    import os
+    from contextlib import redirect_stdout
+
+    from focoos_tpu_torch.cli import cli
+
+    buf, real, me = io.StringIO(), os._exit, os.getpid()
+    os._exit = lambda code: real(code) if os.getpid() != me else None
+    t0 = time.perf_counter()
+    try:
+        with redirect_stdout(buf):
+            cli.main([str(a) for a in argv])
+    finally:
+        os._exit = real
+        CLI_SECONDS[argv[0]] = time.perf_counter() - t0
+    return buf.getvalue()
+
+
+class LoopbackHub:
+    """A hub on 127.0.0.1 (``http.server``, port 0, a thread): GET serves
+    ``files`` by path (query string included); PATCH and POST are recorded in
+    ``received`` (method, path, body) and answered ``{}``. Raises where the
+    machine refuses a loopback socket."""
+
+    def __init__(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.files, self.received = {}, []
+        hub = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def _reply(self, status: int, body: bytes) -> None:
+                self.send_response(status)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                body = hub.files.get(self.path)
+                self._reply(200 if body is not None else 404, body if body is not None else b'{"detail": "none"}')
+
+            def _record(self):
+                n = int(self.headers.get("Content-Length", 0))
+                hub.received.append((self.command, self.path, self.rfile.read(n)))
+                self._reply(200, b"{}")
+
+            do_PATCH = do_POST = _record
+
+            def log_message(self, *args):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever, name="cli-hub", daemon=True)
+        self.thread.start()
+
+    def serve(self, path: str, body: bytes) -> None:
+        self.files[path] = body
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join()
+
+
+def write_detection_set(root: str, n: int, hw: tuple, classes: list, seed: int) -> str:
+    """A Roboflow-COCO set of ``n`` seeded textured JPEGs of ``hw`` (height,
+    width) in ``train/`` and ``valid/``, without annotations yet."""
+    import os
+
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    images = []
+    for split in ("train", "valid"):
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+    for i in range(n):
+        img, _ = draw_shapes(rng, *hw)
+        for split in ("train", "valid"):
+            cv2.imwrite(os.path.join(root, split, f"img_{i:03d}.jpg"), img[..., ::-1])
+        images.append(dict(id=i, file_name=f"img_{i:03d}.jpg", height=hw[0], width=hw[1]))
+    write_detection_annotations(root, images, [[] for _ in images], classes)
+    return root
+
+
+def write_detection_annotations(root: str, images: list, boxes_classes: list, classes: list) -> None:
+    """Both splits' ``_annotations.coco.json``: per image a list of (XYXY box, class index)."""
+    import os
+
+    cats = [dict(id=0, name="objects", supercategory="none")] + [
+        dict(id=i + 1, name=c, supercategory="objects") for i, c in enumerate(classes)]
+    anns = []
+    for img, pairs in zip(images, boxes_classes):
+        for box, c in pairs:
+            x0, y0, x1, y1 = (float(v) for v in box)
+            anns.append(dict(id=len(anns) + 1, image_id=img["id"], category_id=int(c) + 1,
+                             bbox=[x0, y0, x1 - x0, y1 - y0], area=(x1 - x0) * (y1 - y0), iscrowd=0))
+    for split in ("train", "valid"):
+        with open(os.path.join(root, split, "_annotations.coco.json"), "w") as f:
+            json.dump(dict(images=images, annotations=anns, categories=cats), f)
+
+
+def same_prediction(got: dict, ref, what: str, keypoints: bool = False) -> float:
+    """``predict``'s prediction.json against ``FocoosModel.infer``'s result:
+    labels equal, boxes (whole pixels) and scores within CLI_TOL × max|ref|
+    (keypoints too) → the largest difference."""
+    g, r = got["detections"], ref.detections
+    assert len(g) == len(r) > 0, (what, len(g), len(r))
+    assert [d["cls_id"] for d in g] == [d.cls_id for d in r] and [d["label"] for d in g] == [d.label for d in r], what
+    err = 0.0
+    pairs = [("bbox", np.array([d["bbox"] for d in g], np.float64), np.array([d.bbox for d in r], np.float64)),
+             ("conf", np.array([d["conf"] for d in g]), np.array([d.conf for d in r]))]
+    if keypoints:
+        pairs.append(("keypoints", np.array([d["keypoints"] for d in g], np.float64),
+                      np.array([d.keypoints for d in r], np.float64)))
+    for name, a, b in pairs:
+        e = float(np.abs(a - b).max())
+        assert e <= CLI_TOL * float(np.abs(b).max()), f"{what}: {name} {e:.3e} off FocoosModel.infer"
+        err = max(err, e)
+    return err
+
+
+def phase_cli(dev, smi: str) -> dict:
+    """The port's command line (``focoos_tpu_torch/cli``) driven in process
+    through ``cli.main(argv)``, full width, fp32, seeded: (a) ``predict`` of
+    a model directory of fai-detr-l-coco and of rtmo-s-coco (seeded weights,
+    perturbed, saved with ``save_weights``) against ``FocoosModel.infer``
+    on the same directory and JPEG; (b) ``val`` on 16 seeded 640x480
+    Roboflow-COCO JPEGs at --im-size 640, whose ground truth is the card's
+    own detections, against ``FocoosModel.eval``; (c) ``benchmark`` in fp32
+    and bf16; (d) ``train`` of fai-detr-m-coco on the same set with
+    ``--sync-to-hub true`` against a hub on the loopback interface, then
+    ``predict`` of its run directory; (e) ``ModelManager.get("hub://...")``
+    from that hub against (a); (f) ``checks`` and ``version`` in a
+    subprocess. Each verb's kernels counted from 0 → their sums."""
+    import os
+    import shutil
+    import tempfile
+
+    import cv2
+
+    from focoos_tpu_torch import ModelManager, config, ports
+    from focoos_tpu_torch.data.auto_dataset import AutoDataset
+    from focoos_tpu_torch.data.default_aug import get_default_by_task
+    from focoos_tpu_torch.ports import Task, TrainerArgs
+
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in kernel_counts()}
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    hub = LoopbackHub()
+    saved_env = {k: os.environ.get(k) for k in ("FOCOOS_HOST_URL",)}
+    saved_cfg, saved_models_dir = config.FOCOOS_CONFIG.default_host_url, ports.MODELS_DIR
+    os.environ["FOCOOS_HOST_URL"] = config.FOCOOS_CONFIG.default_host_url = f"{hub.url}/v0"
+    ports.MODELS_DIR = os.path.join(root, "models")
+    seconds = {}
+    try:
+        log(f"[cli] hub: loopback at {hub.url}")
+        rng = np.random.default_rng(61)
+        request = os.path.join(root, "request.jpg")
+        img, _ = draw_shapes(rng, *CLI_VAL_HW)
+        cv2.imwrite(request, img[..., ::-1])
+
+        # (a) predict: model directories written as a user's fine-tune leaves them
+        t0 = time.perf_counter()
+        dirs = {}
+        for card, seed in ((CLI_DETR, 62), (CLI_KP, 63)):
+            m = ModelManager.get(card, device=dev, seed=0)
+            if card == CLI_DETR:
+                n_dec = m.config.transformer_predictor_dec_layers  # one MSDA launch each a forward
+            (perturb_rtmo if card == CLI_KP else perturb)(m.module, seed=seed)
+            dirs[card] = os.path.join(root, card)
+            m.model_info.dump_json(dirs[card])
+            m.save_weights(os.path.join(dirs[card], "model_final.npz"))
+            del m
+        log(f"[cli] model directories of {CLI_DETR} and {CLI_KP} written ({time.perf_counter() - t0:.1f}s: seeded"
+            " builds, perturbed, save_weights)")
+        preds, refs = {}, {}
+        for card in (CLI_DETR, CLI_KP):
+            out_dir = os.path.join(root, f"pred_{card}")
+            printed, counts = counted(lambda: run_cli(["predict", "--model", dirs[card], "--source", request, "--conf",
+                                                       "0", "--save-json", "--output-dir", out_dir]), total)
+            with open(os.path.join(out_dir, "prediction.json")) as f:
+                preds[card] = json.load(f)
+            assert printed.startswith("{") and "saved detections json" in printed, printed[-300:]
+            ref_model = ModelManager.get(dirs[card], device=dev)
+            refs[card] = ref_model.infer(request, threshold=0.0)
+            err = same_prediction(preds[card], refs[card], f"predict {card}", keypoints=card == CLI_KP)
+            want = ({"msda_forward": n_dec, "fused_resnet_stem": 1} if card == CLI_DETR else {"nms_keep": 1})
+            assert all(counts[k] == want.get(k, 0) for k in counts), (card, counts)
+            log(f"[cli] predict --model <{card} dir> --source <480x640 JPEG> --conf 0 --save-json:"
+                f" {len(preds[card]['detections'])} detections equal to FocoosModel.infer's (labels equal, largest"
+                f" difference {err:.3e}); the verb {CLI_SECONDS['predict']:.1f}s; launches {counts}")
+            if card == CLI_DETR:
+                detr_model = ref_model
+            del ref_model
+        seconds["predict"] = time.perf_counter() - t0
+
+        # (b) val: the card's own detections on the mapped records as ground truth, in the records' frame
+        t0 = time.perf_counter()
+        ds_root = write_detection_set(os.path.join(root, "cli_set"), CLI_VAL_IMAGES, CLI_VAL_HW, detr_model.classes,
+                                      seed=64)
+        val_augs = get_default_by_task(Task.DETECTION, 640)[1]
+        val = AutoDataset(ds_root, task="detection").get_split(val_augs, split="val")
+        entries = [val[i] for i in range(len(val))]
+        assert entries[0].image.shape[:2] == (640, 640) and (entries[0].height, entries[0].width) == CLI_VAL_HW
+        gts = pseudo_gt(detr_model, [e.image for e in entries], entries=entries, per_image=CLI_GT)
+        with open(os.path.join(ds_root, "valid", "_annotations.coco.json")) as f:
+            images = json.load(f)["images"]
+        write_detection_annotations(ds_root, images, [list(zip(b, c)) for b, c in gts], detr_model.classes)
+        val = AutoDataset(ds_root, task="detection").get_split(val_augs, split="val")
+        printed, counts = counted(lambda: run_cli(["val", "--model", dirs[CLI_DETR], "--dataset", ds_root,
+                                                   "--im-size", 640]), total)
+        got = json.loads(printed)["bbox"]
+        forwards = math.ceil(CLI_VAL_IMAGES / CLI_VAL_BATCH)
+        assert counts["fused_resnet_stem"] == forwards and counts["msda_forward"] == n_dec * forwards, counts
+        ref, ref_counts = counted(lambda: detr_model.eval(TrainerArgs(run_name="val", batch_size=CLI_VAL_BATCH), val),
+                                  {k: 0 for k in total})
+        ap_err = max(abs(got[k] - v) for k, v in ref["bbox"].items())
+        assert set(got) == set(ref["bbox"]) and ap_err <= CLI_AP_TOL, (got, ref["bbox"])
+        # the JAX package's scoring: the mapped records' ground truth against predictions in the records' frame
+        two_frames = detr_model.eval(TrainerArgs(run_name="val", batch_size=CLI_VAL_BATCH),
+                                     [dataclasses.replace(val[i], original_instances=None) for i in range(len(val))])["bbox"]
+        assert got["AP"] >= CLI_AP_FLOOR, (f"bbox/AP {got['AP']:.3f} against the card's own detections; scored"
+                                           f" across the two frames {two_frames['AP']:.3f}")
+        log(f"[cli] val --model <{CLI_DETR} dir> --dataset <{CLI_VAL_IMAGES} {CLI_VAL_HW[1]}x{CLI_VAL_HW[0]} JPEGs,"
+            f" {sum(len(b) for b, _ in gts)} pseudo-GT boxes> --im-size 640: records resized to 640², scored in their"
+            f" own frame: {ap_line(got)}; FocoosModel.eval {ap_line(ref['bbox'])} (largest difference {ap_err:.1e});"
+            f" the same scored across the two frames, as the JAX package scores it: {ap_line(two_frames)};"
+            f" at most {max(len(b) for b, _ in gts)} boxes an image; the verb {CLI_SECONDS['val']:.1f}s;"
+            f" launches {counts} ({forwards} forwards at the verb's batch {CLI_VAL_BATCH})")
+        seconds["val"] = time.perf_counter() - t0
+
+        # (c) benchmark, fp32 and bf16
+        t0 = time.perf_counter()
+        bench = {}
+        for dtype in ("float32", "bfloat16"):
+            argv = ["benchmark", "--model", dirs[CLI_DETR], "--iterations", CLI_BENCH_ITERS]
+            printed, counts = counted(lambda: run_cli(argv + (["--dtype", dtype] if dtype == "bfloat16" else [])),
+                                      total)
+            bench[dtype] = json.loads(printed)
+            assert bench[dtype]["fps"] > 0 and np.isfinite(bench[dtype]["mean"]) and counts["msda_forward"] > 0, bench
+            log(f"[cli] {smi}: benchmark --model <{CLI_DETR} dir> --iterations {CLI_BENCH_ITERS}"
+                f"{' --dtype bfloat16' if dtype == 'bfloat16' else ''}: {json.dumps(bench[dtype])}; the verb"
+                f" {CLI_SECONDS['benchmark']:.1f}s; launches {counts}")
+        seconds["benchmark"] = time.perf_counter() - t0
+        del detr_model
+
+        # (d) train with the hub sync, then predict from the run directory
+        t0 = time.perf_counter()
+        out_dir = os.path.join(root, "runs")
+        printed, counts = counted(lambda: run_cli([
+            "train", "--model", CLI_TRAIN, "--dataset", ds_root, "--max-iters", CLI_TRAIN_STEPS, "--batch-size",
+            CLI_TRAIN_BATCH, "--sync-to-hub", "true", "--output-dir", out_dir]), total)
+        res = json.loads(printed[printed.rindex('{\n  "run_dir"'):])
+        run_dir = res["run_dir"]
+        assert os.path.basename(run_dir) == f"{CLI_TRAIN}-{os.path.basename(ds_root)}", run_dir
+        with open(os.path.join(run_dir, "model_info.json")) as f:
+            m_dec = json.load(f)["config"]["transformer_predictor_dec_layers"]
+        # the validation at the end of training (EvalHook) and the final metrics, each at half the batch
+        evals = 2 * m_dec * math.ceil(CLI_VAL_IMAGES / (CLI_TRAIN_BATCH // 2))
+        assert counts["msda_backward"] == m_dec * CLI_TRAIN_STEPS, counts  # one a decoder layer a step
+        assert counts["msda_forward"] == m_dec * CLI_TRAIN_STEPS + evals, counts
+        sent = [(m, p) for m, p, _ in hub.received]
+        assert ("PATCH", f"/v0/models/{CLI_TRAIN}/training-job") in sent, sent
+        assert ("POST", f"/v0/models/{CLI_TRAIN}/metrics") in sent, sent
+        # the last PATCH is the one sent after the trainer set the run's final status
+        patch = json.loads([b for m, p, b in hub.received if m == "PATCH"][-1])
+        assert patch["model_info"]["status"] == "TRAINING_COMPLETED", patch["model_info"]["status"]
+        assert patch["iteration"] == CLI_TRAIN_STEPS - 1, patch["iteration"]
+        with open(os.path.join(run_dir, "metrics.json"), "rb") as f:
+            metrics_file = f.read()
+        assert any(metrics_file in b for m, _, b in hub.received if m == "POST"), "the metrics upload is not metrics.json"
+        log(f"[cli] train --model {CLI_TRAIN} --dataset <the set> --max-iters {CLI_TRAIN_STEPS} --batch-size"
+            f" {CLI_TRAIN_BATCH} --sync-to-hub true: {res['run_dir']}, bbox/AP {res['metrics']['bbox']['AP']:.3f};"
+            f" the hub received {sent} (last PATCH iteration {patch['iteration']}, status"
+            f" {patch['model_info']['status']}; metrics.json {len(metrics_file)} bytes); the verb"
+            f" {CLI_SECONDS['train']:.1f}s; launches {counts}")
+        out_dir = os.path.join(root, "pred_run")
+        printed, counts = counted(lambda: run_cli(["predict", "--model", run_dir, "--source", request, "--conf", "0",
+                                                   "--save-json", "--output-dir", out_dir]), total)
+        with open(os.path.join(out_dir, "prediction.json")) as f:
+            dets = json.load(f)["detections"]
+        assert dets and all(np.isfinite(d["conf"]) for d in dets) and counts["msda_forward"] == m_dec, counts
+        log(f"[cli] predict --model <the run dir>: model_final.npz loaded, {len(dets)} detections; the verb"
+            f" {CLI_SECONDS['predict']:.1f}s; launches {counts}")
+        seconds["train"] = time.perf_counter() - t0
+
+        # (e) hub://: the card and weights of (a)'s fai-detr-l directory from the hub, at a presigned-style URI
+        # of another file name, which the client saves as model_final.npz
+        t0 = time.perf_counter()
+        weights_path = f"/files/{CLI_HUB_REF}/weights.npz?signature=0"
+        with open(os.path.join(dirs[CLI_DETR], "model_info.json")) as f:
+            card = dict(json.load(f), ref=CLI_HUB_REF, weights_uri=hub.url + weights_path)
+        with open(os.path.join(dirs[CLI_DETR], "model_final.npz"), "rb") as f:
+            weights = f.read()
+        hub.serve(f"/v0/models/{CLI_HUB_REF}", json.dumps(card).encode())
+        hub.serve(weights_path, weights)
+        got_hub, counts = counted(lambda: ModelManager.get(f"hub://{CLI_HUB_REF}", device=dev).infer(
+            request, threshold=0.0), total)
+        local = os.path.join(ports.MODELS_DIR, CLI_HUB_REF, "model_final.npz")
+        with open(local, "rb") as f:
+            assert f.read() == weights
+        ref = refs[CLI_DETR].detections
+        assert [(d.cls_id, d.conf, d.bbox) for d in got_hub.detections] == [(d.cls_id, d.conf, d.bbox) for d in ref]
+        assert counts["msda_forward"] == n_dec and counts["fused_resnet_stem"] == 1, counts
+        log(f"[cli] ModelManager.get('hub://{CLI_HUB_REF}') from the loopback hub: {len(weights)} bytes of weights"
+            f" from {weights_path} into MODELS_DIR/{CLI_HUB_REF}/model_final.npz, infer() equal to (a)'s {len(ref)}"
+            f" detections; launches {counts}")
+        seconds["hub"] = time.perf_counter() - t0
+
+        # (f) checks and version, as a user runs them: a process of their own
+        t0 = time.perf_counter()
+        here = os.path.dirname(os.path.abspath(__file__))
+        started = {verb: subprocess.Popen([sys.executable, "-m", "focoos_tpu_torch.cli.cli", verb], cwd=here,
+                                          stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                   for verb in ("version", "checks")}  # both at once: each spends its seconds starting torch
+        procs = {}
+        for verb, proc in started.items():
+            out, err = proc.communicate(timeout=300)
+            procs[verb] = subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+            assert proc.returncode == 0, (verb, out[-2000:], err[-2000:])
+        name = smi.split(",")[0].strip()
+        devices = [ln.strip() for ln in procs["checks"].stdout.splitlines() if ln.strip().startswith("device 0:")]
+        assert devices and devices[0].startswith(f"device 0: {name} (cuda)"), (name, procs["checks"].stdout)
+        assert procs["version"].stdout.strip() == "focoos-tpu-torch 0.1.0", procs["version"].stdout
+        log(f"[cli] python -m focoos_tpu_torch.cli.cli version: {procs['version'].stdout.strip()!r}; checks: "
+            + " | ".join(ln.strip() for ln in procs["checks"].stdout.splitlines()))
+        seconds["checks"] = time.perf_counter() - t0
+    finally:
+        hub.close()
+        config.FOCOOS_CONFIG.default_host_url, ports.MODELS_DIR = saved_cfg, saved_models_dir
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[cli] {smi}: phase {time.perf_counter() - t_phase:.1f}s ("
+        + ", ".join(f"{k} {v:.1f}s" for k, v in seconds.items()) + f"); launches over its counted runs {total}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -4841,6 +5224,9 @@ def main() -> int:
     if sys.argv[1:] == ["--only-export"]:  # the serving layer alone: no kernels line and no result line
         phase_export(dev, smi)
         return 0
+    if sys.argv[1:] == ["--only-cli"]:  # the command line alone: no kernels line and no result line
+        phase_cli(dev, smi)
+        return 0
     msda = phase_msda(dev)
     msda_bwd = phase_msda_backward(dev)
     stem = phase_stem(dev)
@@ -4863,6 +5249,7 @@ def main() -> int:
     user_data = phase_user_data(dev, smi)
     export = phase_export(dev, smi)
     distributed = phase_distributed(dev, smi)
+    cli = phase_cli(dev, smi)
 
     # library_ms: no single PyTorch call computes any of these functions (MSDA needs a
     # grid_sample per level and a weighted sum; the stem three convs, BN, ReLU and a
@@ -4902,6 +5289,7 @@ def main() -> int:
         k["launches_user_data"] = user_data[k["name"]]
         k["launches_export"] = export[k["name"]]
         k["launches_distributed"] = distributed[k["name"]]
+        k["launches_cli"] = cli[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -19,6 +19,11 @@ _LAZY = {
     "ConfigManager": ("focoos_tpu_torch.model_manager", "ConfigManager"),
     "BackboneManager": ("focoos_tpu_torch.model_manager", "BackboneManager"),
     "FocoosModel": ("focoos_tpu_torch.models.focoos_model", "FocoosModel"),
+    "FocoosHUB": ("focoos_tpu_torch.hub.focoos_hub", "FocoosHUB"),
+    "RemoteModel": ("focoos_tpu_torch.hub.remote_model", "RemoteModel"),
+    "RemoteDataset": ("focoos_tpu_torch.hub.remote_dataset", "RemoteDataset"),
+    "ApiClient": ("focoos_tpu_torch.hub.api_client", "ApiClient"),
+    "FOCOOS_CONFIG": ("focoos_tpu_torch.config", "FOCOOS_CONFIG"),
 }
 
 

@@ -2,11 +2,16 @@
 focoos/data/loaders.py:94-141).
 
 ``TrainingSampler`` draws the same ``np.random.default_rng(seed)``
-permutations as the JAX package's, so both packages see the same index
-stream, and shards it the same way over the ranks of a process group (JAX:
-the hosts): rank r takes ``order[r::world]``. ``build_train_loader`` is
-PyTorch's own loader, ``torch.utils.data.DataLoader``, over that sampler,
-with the rank's share ``total_batch_size // world`` of the batch:
+permutations as the JAX package's, so one process sees the JAX package's
+index stream. In a process group rank r takes the positions ``≡ r (mod
+world)`` of that one stream, across the permutations' ends, so the ranks'
+batches together are one process's batch at every step. The JAX package's
+host r takes ``order[r::world]`` of each permutation, which departs from one
+process's batches at an epoch's end where the world does not divide the
+dataset's size (ROADMAP Queue 3). ``build_train_loader`` is PyTorch's own
+loader, ``torch.utils.data.DataLoader``, over that sampler, with the rank's
+share ``total_batch_size / world`` of the batch, which must divide evenly
+(JAX trains ``total_batch_size // world`` a host, and so fewer images):
 
 - batches come in sampler order; a finite sampler's trailing partial batch
   is yielded and the stream then ends;
@@ -48,8 +53,8 @@ from focoos_tpu_torch.ports import DatasetEntry
 
 class TrainingSampler:
     """Infinite shuffled index stream, sharded across ranks (reference:
-    data/samplers.py:10): rank r of the process group's ``world`` takes
-    ``order[r::world]`` of each permutation."""
+    data/samplers.py:10): rank r of the process group's ``world`` takes the
+    positions ``≡ r (mod world)`` of the one stream of permutations."""
 
     def __init__(self, size: int, shuffle: bool = True, seed: int = 0):
         self._size = size
@@ -60,9 +65,12 @@ class TrainingSampler:
 
     def __iter__(self) -> Iterator[int]:
         g = np.random.default_rng(self._seed)
+        skip = self._shard  # positions of the global stream before this rank's next one
         while True:
             order = g.permutation(self._size) if self._shuffle else np.arange(self._size)
-            yield from order[self._shard :: self._num_shards].tolist()
+            mine = order[skip :: self._num_shards]
+            yield from mine.tolist()
+            skip = (skip - self._size) % self._num_shards
 
 
 class InferenceSampler:
@@ -141,15 +149,18 @@ def build_train_loader(
     """Stream of (uint8 NHWC image batch, targets) on the CPU, the images
     pinned when ``pin_memory``; infinite over ``TrainingSampler`` (the
     default), one pass over a finite ``sampler``. In a process group each
-    rank's batches hold ``total_batch_size // world`` entries (JAX's
-    per-host batch). ``timeout`` bounds the wait for a worker's batch in
-    seconds (0: no bound)."""
+    rank's batches hold ``total_batch_size / world`` entries; a batch that
+    the world does not divide raises. ``timeout`` bounds the wait for a
+    worker's batch in seconds (0: no bound)."""
     if total_batch_size < 1:
         raise ValueError(f"batch size must be >= 1, got {total_batch_size}")
     world, rank = mesh.get_world_size(), mesh.get_rank()
-    per_rank = total_batch_size // world
-    if per_rank < 1:
+    if total_batch_size < world:
         raise ValueError(f"batch size {total_batch_size} is smaller than the {world} ranks")
+    if total_batch_size % world:
+        raise ValueError(f"batch size {total_batch_size} does not divide among the {world} ranks: each rank would "
+                         f"train {total_batch_size // world} images a step, {total_batch_size // world * world} in all")
+    per_rank = total_batch_size // world
     loader = DataLoader(
         dataset,
         batch_size=per_rank,

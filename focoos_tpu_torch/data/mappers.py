@@ -37,17 +37,21 @@ def _read_image(path: str) -> np.ndarray:
         return np.asarray(im.convert("RGB"))
 
 
-def _transform_keypoints(kpts: np.ndarray, tfm: TransformList, image_size) -> np.ndarray:
-    """[N, K, 3] → transformed, with out-of-image points marked invisible."""
-    if len(kpts) == 0:
-        return kpts
-    n, k, _ = kpts.shape
-    coords = tfm.apply_coords(kpts[..., :2].reshape(-1, 2)).reshape(n, k, 2)
+def _mark_outside(kpts: np.ndarray, coords: np.ndarray, image_size) -> np.ndarray:
+    """[N, K, 3] keypoints at ``coords`` [N, K, 2], those outside the image marked invisible."""
     vis = kpts[..., 2].copy()
     h, w = image_size
     oob = (coords[..., 0] < 0) | (coords[..., 0] >= w) | (coords[..., 1] < 0) | (coords[..., 1] >= h)
     vis[oob] = 0
     return np.concatenate([coords, vis[..., None]], axis=-1).astype(np.float32)
+
+
+def _transform_keypoints(kpts: np.ndarray, tfm: TransformList, image_size) -> np.ndarray:
+    """[N, K, 3] → transformed, with out-of-image points marked invisible."""
+    if len(kpts) == 0:
+        return kpts
+    n, k, _ = kpts.shape
+    return _mark_outside(kpts, tfm.apply_coords(kpts[..., :2].reshape(-1, 2)).reshape(n, k, 2), image_size)
 
 
 class DatasetMapper:
@@ -82,46 +86,30 @@ class DetectionDatasetMapper(DatasetMapper):
             [BoxMode.convert(np.asarray(a["bbox"], np.float64), BoxMode.XYWH_ABS, BoxMode.XYXY_ABS) for a in anns],
             np.float32,
         ).reshape(-1, 4)
-        aug_input = AugInput(image, boxes=boxes)
+        masks = self._masks(anns, h0, w0)
+        kpts = np.array(
+            [np.asarray(a.get("keypoints", [0] * 51), np.float32).reshape(-1, 3) for a in anns], np.float32
+        ).reshape(len(anns), -1, 3) if self.use_keypoints else None
+        aug_input = AugInput(image, boxes=boxes.copy())
         tfm = self.augmentations(aug_input)
         image = aug_input.image
-        boxes = aug_input.boxes
         hw = image.shape[:2]
-
-        classes = np.array([a["category_id"] for a in anns], np.int64)
-        inst = Instances(hw)
-        b = Boxes(boxes)
-        b.clip(hw)
-        inst.boxes = b
-        inst.classes = classes
-        inst.iscrowd = np.array([a.get("iscrowd", 0) for a in anns], np.int64)
-
-        if self.use_masks and anns and anns[0].get("segmentation") is not None:
-            masks = []
-            for a in anns:
-                seg = a.get("segmentation")
-                if isinstance(seg, list):
-                    m = polygons_to_bitmask([np.asarray(p) for p in seg], h0, w0)
-                elif isinstance(seg, dict):
-                    # COCO crowd regions ship as RLE (a compressed string or a counts list)
-                    from focoos_tpu_torch.utils.native import coco_rle_decode
-
-                    m = coco_rle_decode(seg, h0, w0)
-                else:
-                    m = np.asarray(seg, bool)
-                masks.append(tfm.apply_segmentation(m.astype(np.uint8)).astype(bool))
-            inst.masks = BitMasks(np.stack(masks) if masks else np.zeros((0, *hw), bool))
-
-        if self.use_keypoints:
-            kpts = np.array(
-                [np.asarray(a.get("keypoints", [0] * 51), np.float32).reshape(-1, 3) for a in anns], np.float32
-            ).reshape(len(anns), -1, 3)
-            inst.keypoints = Keypoints(_transform_keypoints(kpts, tfm, hw))
-
-        keep = b.nonempty()
-        inst = inst[keep]
+        inst = self._instances(
+            anns, aug_input.boxes, hw,
+            None if masks is None else [tfm.apply_segmentation(m.astype(np.uint8)).astype(bool) for m in masks],
+            None if kpts is None else _transform_keypoints(kpts, tfm, hw),
+        )
         if self.is_train and len(inst) == 0:
             return None  # retry another record (reference :150 filter empties)
+        # an eval record whose image was resized keeps its ground truth at its own size too: the
+        # evaluators score it in the frame eval_postprocess scales the predictions to (the JAX package
+        # scores the mapped ground truth against predictions at the record's size, ROADMAP Queue 3)
+        original = None
+        if not self.is_train and hw != (h0, w0):
+            original = self._instances(
+                anns, boxes, (h0, w0), masks,
+                None if kpts is None or len(kpts) == 0 else _mark_outside(kpts, kpts[..., :2], (h0, w0)),
+            )
         return DatasetEntry(
             image=image,
             height=record.get("height", h0),
@@ -129,7 +117,43 @@ class DetectionDatasetMapper(DatasetMapper):
             instances=inst,
             file_name=record["file_name"],
             image_id=record.get("image_id"),
+            original_instances=original,
         )
+
+    def _masks(self, anns: list, h0: int, w0: int) -> Optional[list]:
+        """Each annotation's mask at the record's size, or None where the mapper keeps no masks."""
+        if not (self.use_masks and anns and anns[0].get("segmentation") is not None):
+            return None
+        masks = []
+        for a in anns:
+            seg = a.get("segmentation")
+            if isinstance(seg, list):
+                m = polygons_to_bitmask([np.asarray(p) for p in seg], h0, w0)
+            elif isinstance(seg, dict):
+                # COCO crowd regions ship as RLE (a compressed string or a counts list)
+                from focoos_tpu_torch.utils.native import coco_rle_decode
+
+                m = coco_rle_decode(seg, h0, w0)
+            else:
+                m = np.asarray(seg, bool)
+            masks.append(m)
+        return masks
+
+    @staticmethod
+    def _instances(anns: list, boxes: np.ndarray, hw, masks: Optional[list], kpts: Optional[np.ndarray]) -> Instances:
+        """The annotations' Instances in an image of size ``hw``: boxes clipped, the empty ones dropped."""
+        classes = np.array([a["category_id"] for a in anns], np.int64)
+        inst = Instances(hw)
+        b = Boxes(boxes)
+        b.clip(hw)
+        inst.boxes = b
+        inst.classes = classes
+        inst.iscrowd = np.array([a.get("iscrowd", 0) for a in anns], np.int64)
+        if masks is not None:
+            inst.masks = BitMasks(np.stack(masks) if masks else np.zeros((0, *hw), bool))
+        if kpts is not None:
+            inst.keypoints = Keypoints(kpts)
+        return inst[b.nonempty()]
 
 
 class InstanceDatasetMapper(DetectionDatasetMapper):

@@ -120,16 +120,19 @@ class ModelManager:
         """Resolve + build a model on ``device`` (default ``"cuda"``; raises
         when CUDA is absent and no device was named). ``name`` may be a
         registry name, a local run dir holding model_info.json (and
-        optionally the JAX package's model_final.npz) or a ``ModelInfo``
-        (a copy is edited, as for a registry card); a registry model loads
-        ``MODELS_DIR/<name>/model_final.npz`` when present (JAX
-        model_manager.py:143-151). ``classes`` names the classes (and sets
-        ``num_classes``); ``hub://`` refs are not ported (ROADMAP Queue 1
-        item 10). ``seed`` seeds the random init of every weight not loaded. ``dtype``
+        optionally the JAX package's model_final.npz), ``"hub://<ref>"``
+        (the hub's card and weights, downloaded into ``MODELS_DIR/<ref>/``
+        by ``FocoosHUB().get_local_model``, JAX model_manager.py:139-140,
+        189-193) or a ``ModelInfo`` (a copy is edited, as for a registry
+        card); a registry model loads ``MODELS_DIR/<name>/model_final.npz``
+        when present (JAX model_manager.py:143-151). ``classes`` names the
+        classes (and sets ``num_classes``). ``seed`` seeds the random init of every weight not loaded. ``dtype
         is the compute dtype (None or "float32", "bfloat16", or a
         ``torch.dtype``), as the JAX package's ``dtype=`` (model_manager.py:123,
         173-178): parameters, statistics, gradients and optimizer state stay
-        fp32; ``FocoosModel`` carries it."""
+        fp32; ``FocoosModel`` carries it. ``device="meta"`` builds the
+        structure alone (shapes, widths, parameter counts): no memory, no
+        init, no weights loaded."""
         from focoos_tpu_torch.models.focoos_model import FocoosModel
 
         if device is None:
@@ -144,7 +147,7 @@ class ModelManager:
             model_info = ModelInfo.from_json(os.path.join(str(name), ArtifactName.INFO.value))
             weights_dir = str(name)
         elif str(name).startswith("hub://"):
-            raise NotImplementedError("hub:// refs are not ported yet (ROADMAP Queue 1 item 10)")
+            model_info, weights_dir = cls._from_hub(str(name)[len("hub://") :])
         elif ModelRegistry.exists(str(name)):
             # the registry caches its cards: edit a copy
             model_info = copy.deepcopy(ModelRegistry.get_model_info(str(name)))
@@ -172,8 +175,14 @@ class ModelManager:
 
         config = ConfigManager.from_dict(family, model_info.config, **config_overrides)
         model_info.config = config.to_dict()
+        if torch.device(device).type == "meta":
+            with torch.device("meta"):
+                module = cls._builders[family](config)
+            weights_dir, init_weights = None, False
+        else:
+            module = cls._builders[family](config)
         return FocoosModel(
-            module=cls._builders[family](config),
+            module=module,
             config=config,
             model_info=model_info,
             device=device,
@@ -182,3 +191,10 @@ class ModelManager:
             seed=seed,
             dtype=dtype,
         )
+
+    @classmethod
+    def _from_hub(cls, ref: str):
+        """(ModelInfo, weights dir) of a hub model, downloaded (JAX model_manager.py:189-193)."""
+        from focoos_tpu_torch.hub.focoos_hub import FocoosHUB
+
+        return FocoosHUB().get_local_model(ref)

@@ -79,7 +79,7 @@ class FocoosModel:
         if init_weights and local and os.path.isfile(local):
             loaded = from_jax_variables(load_variables_npz(local), model_info.model_family.value)
         _, skipped, missing = merge_compatible(module.state_dict(), loaded or {})
-        if skipped or missing:  # a file that covers every weight needs no random init
+        if (skipped or missing) and self.device.type != "meta":  # a file that covers every weight needs no random init
             # made on the CPU from the seed, so a seed gives the same model on every device
             module.init_weights(torch.Generator().manual_seed(seed))
         set_compute_dtype(module, self.dtype)
@@ -204,7 +204,7 @@ class FocoosModel:
         return end2end_latency(self, size or self.im_size[0], iterations, f"torch.{self.device.type}.e2e", self.device)
 
     # ------------------------------------------------------------------
-    def train(self, args, train_dataset, val_dataset=None):
+    def train(self, args, train_dataset, val_dataset=None, hub=None):
         """Fine-tune on ``train_dataset`` on the model's device (reference:
         focoos_model.py:221-274): a sequence of DatasetEntry, such as the
         ``MapDataset`` that ``AutoDataset.get_split`` returns, which
@@ -224,19 +224,22 @@ class FocoosModel:
         pickle. Under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` set, no group
         yet) each process joins the group, trains its rank and takes the
         final weights, the same on every rank. Inside a live group
-        (``launch``) it trains this process's rank."""
+        (``launch``) it trains this process's rank. ``hub``, a
+        ``FocoosHUB``, is what ``args.sync_to_hub`` syncs to (default
+        ``FocoosHUB()``; the JAX package takes the argument and reads it
+        nowhere); rank 0 alone syncs."""
         from focoos_tpu_torch.parallel import mesh
         from focoos_tpu_torch.trainer.trainer import check_ported, requested_world, run_train
 
         check_ported(args)  # before any process starts
         n = requested_world(args, self.device)
         if n <= 1 or mesh.is_initialized():
-            return run_train(self, args, train_dataset, val_dataset)
+            return run_train(self, args, train_dataset, val_dataset, hub=hub)
         from focoos_tpu_torch.parallel.launch import launch
 
         state = {k: v.detach().cpu() for k, v in self.module.state_dict().items()}
         portable = (state, self.config, self.model_info, self.device.type, self.dtype)
-        out = launch(_train_rank, num_devices=n, args=(portable, args, train_dataset, val_dataset),
+        out = launch(_train_rank, num_devices=n, args=(portable, args, train_dataset, val_dataset, hub),
                      backend="nccl" if self.device.type == "cuda" else "gloo")
         with torch.no_grad():
             self.module.load_state_dict(out.pop("state"))
@@ -294,7 +297,7 @@ class FocoosModel:
                             size_buckets=size_buckets, overwrite=overwrite)
 
 
-def _train_rank(portable, args, train_dataset, val_dataset):
+def _train_rank(portable, args, train_dataset, val_dataset, hub=None):
     """One launched rank of ``FocoosModel.train``: the model on this rank's
     device, trained → its results with the trained weights (on the CPU) and
     the model info. Every rank returns them, for under torchrun every
@@ -305,7 +308,7 @@ def _train_rank(portable, args, train_dataset, val_dataset):
 
     state, config, model_info, device_type, dtype = portable
     model = FocoosModel._on_device(state, config, model_info, mesh.local_device(device_type), dtype)
-    out = run_train(model, args, train_dataset, val_dataset)
+    out = run_train(model, args, train_dataset, val_dataset, hub=hub)
     out["state"] = {k: v.detach().cpu() for k, v in model.module.state_dict().items()}
     out["model_info"] = model.model_info
     return out

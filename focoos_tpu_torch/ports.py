@@ -26,6 +26,9 @@ ROOT_DIR = os.path.expanduser(os.getenv("FOCOOS_TPU_ROOT", "~/FocoosTPU"))
 MODELS_DIR = os.path.join(ROOT_DIR, "models")
 DATASETS_DIR = os.path.join(ROOT_DIR, "datasets")
 
+DEV_API_URL = "https://api.dev.focoos.ai/v0"
+PROD_API_URL = "https://api.focoos.ai/v0"
+
 
 class Task(str, Enum):
     """Vision task supported by the framework (focoos/ports.py:135)."""
@@ -371,7 +374,11 @@ class DatasetEntry:
     """One mapped training/eval record (focoos/ports.py:938).
 
     ``image`` is HWC uint8/float numpy; ``instances`` is a
-    ``focoos_tpu_torch.structures.Instances`` (numpy-backed).
+    ``focoos_tpu_torch.structures.Instances`` (numpy-backed), in the mapped
+    image's pixels. ``original_instances``, which the JAX package's entry
+    lacks, is the record's own ground truth at ``(height, width)``: an eval
+    mapper keeps it where it resized the image, and the evaluators score it,
+    in the frame that ``eval_postprocess`` scales the predictions to.
     """
 
     image: Optional[np.ndarray] = None
@@ -382,6 +389,7 @@ class DatasetEntry:
     label: Optional[Union[int, List[int]]] = None  # classification
     file_name: Optional[str] = None
     image_id: Optional[int] = None
+    original_instances: Optional[Any] = None
 
 
 @dataclass
@@ -458,3 +466,154 @@ class ModelInfo:
         with open(path, "w", encoding="utf-8") as f:
             json.dump(data, f, indent=2, default=default)
         return path
+
+
+# ---------------------------------------------------------------------------
+# Hub records (JAX ports.py:550-690)
+# ---------------------------------------------------------------------------
+
+
+def _dto_from_dict(cls, data: dict):
+    """Tolerant dict→dataclass: known keys bind, unknown keys are dropped
+    (hub API may grow fields; parsing must not break)."""
+    known = {f.name for f in fields(cls)}
+    return cls(**{k: v for k, v in (data or {}).items() if k in known})
+
+
+@dataclass
+class TrainingInfo:
+    """Training-job metadata attached to a hub model (focoos/ports.py:161)."""
+
+    algorithm_name: Optional[str] = ""
+    instance_device: Optional[str] = None
+    instance_type: Optional[str] = None
+    volume_size: Optional[int] = None
+    main_status: Optional[str] = None
+    failure_reason: Optional[str] = None
+    elapsed_time: Optional[int] = None
+    status_transitions: List[dict] = field(default_factory=list)
+    start_time: Optional[str] = None
+    end_time: Optional[str] = None
+    artifact_location: Optional[str] = None
+
+    @classmethod
+    def from_dict(cls, data: dict) -> "TrainingInfo":
+        return _dto_from_dict(cls, data)
+
+
+@dataclass
+class DatasetSpec:
+    """Dataset composition summary (focoos/ports.py:216)."""
+
+    train_length: int = 0
+    valid_length: int = 0
+    size_mb: float = 0.0
+
+    @classmethod
+    def from_dict(cls, data: dict) -> "DatasetSpec":
+        return _dto_from_dict(cls, data)
+
+
+@dataclass
+class DatasetPreview:
+    """Hub dataset listing record (focoos/ports.py:233)."""
+
+    ref: str
+    name: str
+    task: Optional[Task] = None
+    layout: Optional[str] = None
+    description: Optional[str] = None
+    spec: Optional[DatasetSpec] = None
+
+    @classmethod
+    def from_dict(cls, data: dict) -> "DatasetPreview":
+        d = dict(data or {})
+        if d.get("task"):
+            try:
+                d["task"] = Task(d["task"])
+            except ValueError:
+                d["task"] = None
+        if isinstance(d.get("spec"), dict):
+            d["spec"] = DatasetSpec.from_dict(d["spec"])
+        return _dto_from_dict(cls, d)
+
+
+@dataclass
+class Quotas:
+    """Account usage quotas (focoos/ports.py:793)."""
+
+    total_inferences: int = 0
+    max_inferences: int = 0
+    used_storage_gb: float = 0.0
+    max_storage_gb: float = 0.0
+    active_training_jobs: List[str] = field(default_factory=list)
+    max_active_training_jobs: int = 0
+    used_mlg4dnxlarge_training_jobs_hours: float = 0.0
+    max_mlg4dnxlarge_training_jobs_hours: float = 0.0
+
+    @classmethod
+    def from_dict(cls, data: dict) -> "Quotas":
+        return _dto_from_dict(cls, data)
+
+
+@dataclass
+class RemoteModelInfo:
+    """Hub-side model descriptor (focoos/ports.py:256)."""
+
+    ref: str
+    name: str
+    task: Task
+    status: ModelStatus
+    focoos_model: Optional[str] = None
+    description: Optional[str] = None
+    is_managed: Optional[bool] = None
+    owner_ref: Optional[str] = None
+    config: Optional[dict] = None
+    model_family: Optional[str] = None
+    metrics: Optional[dict] = None
+    classes: Optional[List[str]] = None
+    im_size: Optional[int] = None
+    val_metrics: Optional[dict] = None
+    training_info: Optional[TrainingInfo] = None
+    dataset: Optional[DatasetPreview] = None
+    hyperparameters: Optional[dict] = None
+    focoos_version: Optional[str] = None
+    location: Optional[str] = None
+    created_at: Optional[str] = None
+    updated_at: Optional[str] = None
+
+    @classmethod
+    def from_dict(cls, data: dict) -> "RemoteModelInfo":
+        d = dict(data or {})
+        d["task"] = Task(d["task"]) if not isinstance(d.get("task"), Task) else d["task"]
+        if not isinstance(d.get("status"), ModelStatus):
+            try:
+                d["status"] = ModelStatus(d.get("status"))
+            except ValueError:
+                d["status"] = ModelStatus.CREATED
+        if isinstance(d.get("training_info"), dict):
+            d["training_info"] = TrainingInfo.from_dict(d["training_info"])
+        if isinstance(d.get("dataset"), dict):
+            d["dataset"] = DatasetPreview.from_dict(d["dataset"])
+        return _dto_from_dict(cls, d)
+
+
+@dataclass
+class User:
+    """Hub user record (focoos/ports.py:820)."""
+
+    email: str
+    created_at: Optional[str] = None
+    updated_at: Optional[str] = None
+    company: Optional[str] = None
+    api_key: Optional[str] = None
+    quotas: Optional[Quotas] = None
+
+    @classmethod
+    def from_dict(cls, data: dict) -> "User":
+        d = dict(data or {})
+        if isinstance(d.get("api_key"), dict):  # reference wraps it: ApiKey{key}
+            d["api_key"] = d["api_key"].get("key")
+        if isinstance(d.get("quotas"), dict):
+            d["quotas"] = Quotas.from_dict(d["quotas"])
+        return _dto_from_dict(cls, d)

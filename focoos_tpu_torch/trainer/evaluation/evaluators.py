@@ -72,8 +72,16 @@ class DatasetEvaluators(DatasetEvaluator):
 
 def _gt_from_entry(entry: DatasetEntry):
     """(classes, boxes, areas, masks [G, H, W] or None, keypoints [G, K, 3] or None, crowd)
-    of an entry's instances."""
-    inst = entry.instances
+    of an entry's ground truth, in the record's own frame: ``original_instances``
+    where the eval mapper resized the image, else ``instances``.
+    ``eval_postprocess`` scales every prediction to the record's (height,
+    width), so both sides are scored in that one frame, as the reference SDK's
+    COCO evaluator does. The JAX package takes the mapped ground truth here
+    (focoos_tpu/trainer/evaluation/evaluators.py:72-95) and so scores a
+    resized record across two frames (ROADMAP Queue 3). Semantic
+    segmentation is not touched: ``SemSegEvaluator`` resizes the predicted
+    map to the entry's label map and scores both in that one frame."""
+    inst = entry.instances if getattr(entry, "original_instances", None) is None else entry.original_instances
     if inst is None or len(inst) == 0:
         return (np.zeros(0, np.int64), np.zeros((0, 4), np.float32), np.zeros(0, np.float64), None, None,
                 np.zeros(0, bool))

@@ -7,7 +7,8 @@ before_train / before_step / after_step / after_train, driven by the
 TrainerLoop. The JAX-specific hooks map to torch: ``MemoryStatsHook`` reads
 ``torch.cuda.memory_allocated``, ``ProfilerHook`` (JAX's ``JaxProfilerHook``)
 runs ``torch.profiler``; ``TensorboardWriter`` writes through ``tensorboardX``
-as JAX's does. The hub sync is not ported (ROADMAP Queue 1 item 10).
+as JAX's does. ``SyncToHubHook`` uploads the run's status and metrics to
+the hub.
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ class EarlyStopException(Exception):
 
 def _period_hit(trainer, period: int) -> bool:
     """True when any completed iteration of this host call lands on the period
-    boundary: some multiple of ``period`` lies in (iter, iter + steps_per_call].
+    boundary: some multiple of ``period`` lies in (iter, iter + k], k the
+    call's steps (``_call_steps``).
 
     With multi-step dispatch (steps_per_call=K>1) the loop advances K optimizer
     iterations per host call; a strict ``(iter+1) % period`` check fires late or
@@ -43,14 +45,22 @@ def _period_hit(trainer, period: int) -> bool:
     """
     if period <= 0:
         return False
-    k = max(1, int(getattr(trainer, "steps_per_call", 1)))
+    k = _call_steps(trainer)
     return (trainer.iter + k) // period > trainer.iter // period
+
+
+def _call_steps(trainer) -> int:
+    """The iterations this host call completes: ``steps_per_call``, or the
+    fewer left before ``max_iter`` (the port's loop stops there; JAX's runs
+    the last call whole)."""
+    k = max(1, int(getattr(trainer, "steps_per_call", 1)))
+    max_iter = getattr(trainer, "max_iter", None)
+    return k if max_iter is None else max(1, min(k, max_iter - trainer.iter))
 
 
 def _is_final_call(trainer) -> bool:
     """True when this host call completes the last training iteration."""
-    k = max(1, int(getattr(trainer, "steps_per_call", 1)))
-    return trainer.iter + k >= trainer.max_iter
+    return trainer.iter + _call_steps(trainer) >= trainer.max_iter
 
 
 class HookBase:
@@ -245,7 +255,7 @@ class PeriodicCheckpointerHook(HookBase):
         self._pc = periodic_checkpointer
 
     def after_step(self):
-        stride = max(1, int(getattr(self.trainer, "steps_per_call", 1)))
+        stride = _call_steps(self.trainer)
         self._pc.step(self.trainer.iter, self.trainer.state, stride=stride,
                       hooks=self.trainer.hook_state_dict())
 
@@ -397,7 +407,7 @@ class ProfilerHook(HookBase):
             torch.cuda.synchronize()
 
     def before_step(self):
-        it, k = self.trainer.iter, max(1, int(getattr(self.trainer, "steps_per_call", 1)))
+        it, k = self.trainer.iter, _call_steps(self.trainer)
         if not self._active and self.profiler is None and it <= self._start < it + k:
             activities = [torch.profiler.ProfilerActivity.CPU]
             if torch.cuda.is_available():
@@ -408,7 +418,7 @@ class ProfilerHook(HookBase):
             self._active, self._first = True, it
 
     def after_step(self):
-        it, k = self.trainer.iter, max(1, int(getattr(self.trainer, "steps_per_call", 1)))
+        it, k = self.trainer.iter, _call_steps(self.trainer)
         if self._active and it + k >= self._stop:
             self._close(it + k - 1)
 
@@ -443,6 +453,32 @@ class VisualizationHook(HookBase):
         img = self._render()
         if img is not None:
             get_event_storage().put_image(self._name, img)
+
+
+class SyncToHubHook(HookBase):
+    """Periodic metric/weight upload to the hub (reference: hooks/sync_to_hub.py:14;
+    JAX hooks.py:430-444): ``remote.sync_local_training_job`` every ``period``
+    iterations. Unlike the JAX hook it also syncs once more when the run has
+    ended, so that the hub learns the final status: ``FocoosTrainer.train``
+    calls ``sync`` after it has set TRAINING_COMPLETED (and written the final
+    metrics) or TRAINING_ERROR, which come after the loop's ``after_train``.
+    A failure (the network, the hub) is logged and swallowed: training never
+    dies on the uplink."""
+
+    def __init__(self, remote_model, run_dir: str, period: int = 100):
+        self._remote = remote_model
+        self._run_dir = run_dir
+        self._period = period
+
+    def sync(self, iteration: int) -> None:
+        try:
+            self._remote.sync_local_training_job(self._run_dir, iteration=iteration)
+        except Exception as e:  # network failures must not kill training
+            logger.warning(f"hub sync failed: {e}")
+
+    def after_step(self):
+        if _period_hit(self.trainer, self._period):
+            self.sync(self.trainer.iter)
 
 
 def _flatten_metrics(d: dict, prefix: str = "") -> Dict[str, float]:

@@ -100,10 +100,12 @@ def build_multi_train_step(step_fn: Callable, steps_per_call: int) -> Callable:
     advance per inner step, and returns the mean of the K steps' metrics,
     still on the device. JAX stacks the K batches for a ``lax.scan``; eager
     PyTorch runs K ordinary steps, so batches of different shapes need no
-    fallback."""
+    fallback. A call may hold fewer than K batches: the loop's last call
+    before ``max_iter`` does. Eager PyTorch builds no program for K, so a
+    short call runs its steps as the others do, with nothing built again."""
 
     def multi_fn(state: TrainState, batches) -> Tuple[Tuple[str, ...], torch.Tensor]:
-        if len(batches) != steps_per_call:
+        if not 1 <= len(batches) <= steps_per_call:
             raise ValueError(f"{len(batches)} batches for steps_per_call={steps_per_call}")
         packed = [step_fn(state, images, targets) for images, targets in batches]
         keys = packed[0][0]

@@ -3,7 +3,9 @@ reference: focoos/trainer/trainer.py).
 
 The loop feeds batches to the eager train step (``train_step.py``), K of them
 per host call with ``TrainerArgs.steps_per_call = K`` (their metrics averaged
-on the card, ``iter`` advancing by K), stamps the metrics into
+on the card, ``iter`` advancing by K; the last call takes ``max_iter - iter``
+where fewer than K steps are left, so a run takes ``max_iter`` optimizer
+steps, where the JAX package's loop takes K), stamps the metrics into
 ``trainer/events.py``'s ``EventStorage`` (plain numpy) one call late, so that
 the copy of call k's metrics waits on the card only after call k+1 has been
 queued, stops on a non-finite loss and ends cleanly on ``EarlyStopException``.
@@ -24,10 +26,11 @@ full weights go back into the model for validation and at the end). The
 losses and norms reduce over the global batch (``parallel/mesh.py``), so
 the step is the one-process step on the global batch. Rank 0 alone writes
 ``model_info.json``, the weights, checkpoints, metrics, TensorBoard events,
-mosaics and profiler traces; every rank validates its share of the
-validation set and returns the merged metrics. ``init_checkpoint``, tensor
-parallelism (``tp``, ``fsdp_tp``, a 2-D ``mesh_shape``) and the hub sync
-are not ported yet: asking for them raises ``NotImplementedError``.
+mosaics and profiler traces, and syncs the run to the hub
+(``sync_to_hub``); every rank validates its share of the validation set and
+returns the merged metrics. ``init_checkpoint`` and tensor parallelism
+(``tp``, ``fsdp_tp``, a 2-D ``mesh_shape``) are not ported yet: asking for
+them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ from focoos_tpu_torch.trainer.train_step import (
     unpack_metrics,
 )
 from focoos_tpu_torch.utils.logger import get_logger
+from focoos_tpu_torch.utils.system import seed_all_rng
 
 logger = get_logger(__name__)
 
@@ -128,10 +132,7 @@ class TrainerLoop:
                     self.run_step()
                     for h in self.hooks:
                         h.after_step()
-                    self.iter += self.steps_per_call
-                # as JAX's loop: iter == max_iter after the loop. With max_iter not a multiple of K the
-                # last call still runs K steps, so the run takes more optimizer steps than max_iter
-                self.iter = min(self.iter, self.max_iter)
+                    self.iter += hooks_mod._call_steps(self)
             except hooks_mod.EarlyStopException:
                 logger.info("Early stopping triggered")
             except Exception:
@@ -145,7 +146,7 @@ class TrainerLoop:
     def run_step(self) -> None:
         t0 = time.perf_counter()
         batches = []
-        for _ in range(self.steps_per_call):
+        for _ in range(hooks_mod._call_steps(self)):  # K, or the fewer left before max_iter
             images, targets = next(self._data_iter)
             batches.append((images.to(self.device, non_blocking=True), targets.to(self.device, non_blocking=True)))
         data_time = time.perf_counter() - t0
@@ -210,7 +211,6 @@ def _unsupported(args: TrainerArgs) -> List[str]:
         "init_checkpoint (item 5; the JAX trainer reads it nowhere)": bool(args.init_checkpoint),
         f"sharding {args.sharding!r} (item 9: tensor parallelism)": args.sharding in ("tp", "fsdp_tp"),
         f"mesh_shape {args.mesh_shape} (item 9: a 2-D mesh)": bool(args.mesh_shape) and len(args.mesh_shape) > 1,
-        "sync_to_hub (item 10)": args.sync_to_hub,
     }
     return [what for what, asked in asks.items() if asked]
 
@@ -257,7 +257,8 @@ class FocoosTrainer:
     optimizer state and EMA in fp32. ``TrainerArgs.amp_enabled`` is not read
     (the JAX trainer ignores it too)."""
 
-    def __init__(self, model, args: TrainerArgs, train_dataset, val_dataset=None):
+    def __init__(self, model, args: TrainerArgs, train_dataset, val_dataset=None, hub=None):
+        """``hub``: the ``FocoosHUB`` that ``args.sync_to_hub`` syncs to (default: ``FocoosHUB()``)."""
         check_ported(args)
         asked, world = requested_world(args, model.device), mesh.get_world_size()
         explicit = bool(args.mesh_shape) or args.num_devices > 1
@@ -272,6 +273,8 @@ class FocoosTrainer:
         self.run_dir = mesh.broadcast_object(
             _versioned_run_dir(args.output_dir, args.run_name) if mesh.is_main_process() else None)
         self.model_info = model.model_info
+        self.hub = hub
+        self._hub_hook: Optional[hooks_mod.SyncToHubHook] = None  # rank 0's, where args.sync_to_hub
         self._train_module = model.module
 
     def _set_status(self, status: ModelStatus, failure_reason: Optional[str] = None) -> None:
@@ -284,8 +287,10 @@ class FocoosTrainer:
 
     def train(self) -> Dict[str, Any]:
         args, model = self.args, self.model
+        # Python's and numpy's global states, as JAX's trainer seeds them, each rank its own (its augmentations
+        # where no worker maps); torch's from the seed alone
+        seed_all_rng(args.seed + mesh.get_rank())
         torch.manual_seed(args.seed)
-        np.random.seed(args.seed + mesh.get_rank())  # a rank's own augmentations where no worker maps
         self._set_status(ModelStatus.TRAINING_STARTING)
         module = model.module
         if mesh.is_initialized() and args.sharding == "fsdp":
@@ -341,6 +346,7 @@ class FocoosTrainer:
             loop.train()
         except Exception as e:
             self._set_status(ModelStatus.TRAINING_ERROR, failure_reason=str(e))
+            self._sync_to_hub(loop.iter - 1)
             raise
         finally:
             loader.close()
@@ -360,6 +366,7 @@ class FocoosTrainer:
         self.model_info.weights_uri = weights_path
         self._set_status(ModelStatus.TRAINING_COMPLETED)
         metrics = self._final_metrics()
+        self._sync_to_hub(loop.iter - 1)
         logger.info(f"Training complete. Artifacts in {self.run_dir}")
         return {"run_dir": self.run_dir, "metrics": metrics, "iterations": loop.iter}
 
@@ -395,6 +402,18 @@ class FocoosTrainer:
                 args.eval_period, lambda: self._render_val_samples(loop, args.samples)))
         hooks.append(hooks_mod.PeriodicCheckpointerHook(periodic))
         hooks.append(hooks_mod.PeriodicWriter(writers, period=args.log_period))
+        if args.sync_to_hub and mesh.is_main_process():
+            # (reference: trainer.py:549 SyncToHubHook; JAX trainer.py:461-470) network failures are swallowed
+            # inside the hook, so training never dies on the uplink; rank 0 alone syncs
+            try:
+                from focoos_tpu_torch.hub.focoos_hub import FocoosHUB
+
+                hub = self.hub if self.hub is not None else FocoosHUB()
+                remote = hub.get_remote_model(self.model_info.focoos_model or self.model_info.name)
+                self._hub_hook = hooks_mod.SyncToHubHook(remote, self.run_dir, period=max(args.log_period, 60))
+                hooks.append(self._hub_hook)
+            except Exception as e:
+                logger.warning(f"sync_to_hub requested but hub unavailable: {e}")
         loop.register_hooks(hooks)
 
     def _val(self) -> Optional[Dict[str, float]]:
@@ -471,6 +490,11 @@ class FocoosTrainer:
             pass
         return mosaic
 
+    def _sync_to_hub(self, iteration: int) -> None:
+        """The run's final status (and metrics) to the hub, once it is set."""
+        if self._hub_hook is not None:
+            self._hub_hook.sync(iteration)
+
     def _final_metrics(self) -> Dict[str, float]:
         """The final weights on ``val_dataset``, also written to model_info.json
         (reference: trainer/trainer.py:360-416)."""
@@ -486,9 +510,9 @@ class FocoosTrainer:
         return results or {}
 
 
-def run_train(model, args: TrainerArgs, train_dataset, val_dataset=None) -> Dict[str, Any]:
+def run_train(model, args: TrainerArgs, train_dataset, val_dataset=None, hub=None) -> Dict[str, Any]:
     """Entry point (reference: trainer/trainer.py:921)."""
-    return FocoosTrainer(model, args, train_dataset, val_dataset).train()
+    return FocoosTrainer(model, args, train_dataset, val_dataset, hub=hub).train()
 
 
 def run_eval(model, args: TrainerArgs, val_dataset) -> Dict[str, Any]:

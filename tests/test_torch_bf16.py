@@ -38,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_fai_detr import SIZE, _flat, _images, _perturb, _tiny_configs, _to_port
+from test_torch_checkpoint import few_threads_module  # noqa: F401 (an autouse fixture: two threads throughout)
 from test_torch_rtmo import SIZE as RTMO_SIZE
 from test_torch_rtmo import TINY as RTMO_TINY
 from test_torch_rtmo import _perturb as _perturb_rtmo

@@ -104,8 +104,9 @@ def _close(got: torch.Tensor, ref, what: str) -> None:
 def test_cards_build_at_full_width_with_jax_parameter_counts(card):
     """Each registry card, uncut: the JAX tree's parameter count (by tracing
     alone) equals the port module's; STDC backbone, two decoder scales,
-    stride-8 mask features."""
-    model = ModelManager.get(card, device="cpu", init_weights=False)
+    stride-8 mask features. Both sides trace shapes alone: the port builds
+    and runs its forward on the meta device."""
+    model = ModelManager.get(card, device="meta")
     d = model.model_info.config
     jcfg = JaxConfigManager.from_dict("bisenetformer", d)
     abstract = jax.eval_shape(_jax_model(jcfg).init, jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3), jnp.float32))
@@ -116,7 +117,7 @@ def test_cards_build_at_full_width_with_jax_parameter_counts(card):
     assert module.predictor.dec_layers == model.config.transformer_predictor_dec_layers
     assert isinstance(model.processor, BisenetFormerProcessor)
     with torch.inference_mode():
-        out, aux = module(torch.zeros((1, 64, 96, 3), dtype=torch.uint8))
+        out, aux = module(torch.zeros((1, 64, 96, 3), dtype=torch.uint8, device="meta"))
     assert aux.masks.shape[-2:] == (8, 12) and out.masks.shape == (1, 100, 64, 96)
 
 

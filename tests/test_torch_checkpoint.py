@@ -49,6 +49,17 @@ def few_threads():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads_module():
+    """``few_threads`` for a whole module, its module-scoped fixtures (model
+    builds, references) included: a test file that imports it runs on two
+    intra-op threads throughout."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 pytestmark = pytest.mark.usefixtures("few_threads")
 # fai-detr on ResNet-18 with a 64-wide encoder and decoder: each checkpoint ~0.2 GB
 MINI = dict(image_size=SIZE, num_queries=10, transformer_predictor_dec_layers=1, num_classes=5,

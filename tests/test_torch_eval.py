@@ -451,13 +451,15 @@ def _write_640x480_record(root: str, keypoints: bool) -> str:
 
 @pytest.mark.parametrize("task", ["detection", "keypoint"])
 def test_resized_record_is_scored_across_two_frames(task, tmp_path):
-    """ROADMAP Queue 3, pinned: the preset's val augmentation at 640 resizes a
-    640x480 record (detection: squashed to 640x640; keypoints: 853x640), the
-    evaluators take the mapped entry's ground truth in that frame, and
-    ``eval_postprocess`` scales predictions to the record's original frame
-    (JAX evaluators.py:72-95, port evaluators.py:57). A model that predicts
-    the ground truth exactly therefore scores the AP pinned here in both
-    packages, not 100; the same predictions in the mapped frame score 100."""
+    """ROADMAP Queue 3, fixed in the port: the preset's val augmentation at
+    640 resizes a 640x480 record (detection: squashed to 640x640; keypoints:
+    853x640), and ``eval_postprocess`` scales predictions to the record's
+    original frame. The JAX package's evaluators take the mapped entry's
+    ground truth (JAX evaluators.py:72-95), so a model that predicts the
+    ground truth exactly scores the AP pinned here, not 100, and the same
+    predictions in the mapped frame score 100. The port's evaluators take the
+    record's own ground truth (``DatasetEntry.original_instances``) and score
+    the exact predictions 100."""
     from focoos_tpu.data.auto_dataset import AutoDataset as JaxAutoDataset
     from focoos_tpu.data.default_aug import get_default_by_task as jax_get_default_by_task
     from focoos_tpu.ports import DatasetSplitType as JaxSplit
@@ -481,6 +483,10 @@ def test_resized_record_is_scored_across_two_frames(task, tmp_path):
             augs = get_default_by_task(PortTask(task), 640)[1]
             entry = AutoDataset(root, task=task).get_split(augs, split=DatasetSplitType.VAL)[0]
             ev = KeypointEvaluator(["person"]) if task == "keypoint" else DetectionEvaluator(["c1", "c2"], 2)
+            # the record's own ground truth beside the mapped one
+            orig = entry.original_instances
+            assert orig.image_size == (480, 640)
+            np.testing.assert_allclose(orig.boxes.tensor[0], [60, 50, 260, 350], rtol=1e-6)
         # the two frames: the mapped image and its ground truth, against the record's size
         assert entry.image.shape[:2] == mapped_hw and (entry.height, entry.width) == (480, 640)
         gt = entry.instances
@@ -494,6 +500,7 @@ def test_resized_record_is_scored_across_two_frames(task, tmp_path):
                 det.append(np.concatenate([kpts[..., :2] / np.array(scale), np.ones_like(kpts[..., :1])], -1))
             results[(pkg, frame)] = _run(ev, [entry], _outputs_of(jax_package, [det], (480, 640), task == "keypoint"))
     for metric, ap in pinned:
-        for pkg in ("jax", "port"):
-            assert results[(pkg, "original")][metric]["AP"] == pytest.approx(ap, abs=1e-9), (pkg, results[(pkg, "original")])
-            assert results[(pkg, "mapped")][metric]["AP"] == pytest.approx(100.0)
+        assert results[("jax", "original")][metric]["AP"] == pytest.approx(ap, abs=1e-9), results[("jax", "original")]
+        assert results[("jax", "mapped")][metric]["AP"] == pytest.approx(100.0)
+        assert results[("port", "original")][metric]["AP"] == pytest.approx(100.0), results[("port", "original")]
+        assert results[("port", "mapped")][metric]["AP"] < 100.0

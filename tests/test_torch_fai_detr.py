@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_checkpoint import few_threads_module  # noqa: F401 (an autouse fixture: two threads throughout)
 
 from focoos_tpu.model_manager import ModelManager as JaxModelManager
 from focoos_tpu.models.fai_detr.config import DETRConfig as JaxDETRConfig

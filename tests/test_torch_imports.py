@@ -3,8 +3,11 @@ and the JAX package ``focoos_tpu`` made unimportable, every module of
 focoos_tpu_torch imports, each ported slice (fai-detr-l, fai-detr-m, rtmo)
 serves an ndarray image and is evaluated on the CPU, fai-detr trains two
 steps with validation and resumes for a third on the CPU, and a dataset on
-disk parses, its images needing cv2 only when they are read; and no source
-of the port, nor chip_smoke.py, imports ``focoos_tpu``."""
+disk parses, its images needing cv2 only when they are read; the port's
+command line runs as ``python -m focoos_tpu_torch.cli.cli`` where neither
+``jax`` nor ``focoos_tpu`` imports; and no source of the port (its CLI, hub
+client, config and system modules among them), nor chip_smoke.py, imports
+``focoos_tpu``."""
 
 import os
 import re
@@ -190,9 +193,29 @@ _JAX_PACKAGE_IMPORT = re.compile(
 )
 
 
+def test_cli_runs_as_a_module_without_jax(tmp_path):
+    """``python -m focoos_tpu_torch.cli.cli version`` and ``settings``, run
+    from a directory whose ``jax`` and ``focoos_tpu`` packages raise on import."""
+    for name in ("jax", "focoos_tpu"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(f"raise ImportError('{name} is blocked here')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    for verb, want in (("version", "focoos-tpu-torch 0.1.0"), ("settings", "runtime_type = cuda_bf16")):
+        proc = subprocess.run([sys.executable, "-m", "focoos_tpu_torch.cli.cli", verb], cwd=tmp_path, env=env,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0 and want in proc.stdout.splitlines(), proc.stdout + proc.stderr
+    probe = subprocess.run([sys.executable, "-c", "import jax"], cwd=tmp_path, env=env, capture_output=True, text=True)
+    assert "jax is blocked here" in probe.stderr
+
+
 def test_port_sources_never_import_the_jax_package():
     sources = sorted(Path(REPO, "focoos_tpu_torch").rglob("*.py")) + [Path(REPO, "chip_smoke.py")]
     assert len(sources) > 40
+    names = {str(p.relative_to(REPO)) for p in sources}
+    assert {"focoos_tpu_torch/cli/cli.py", "focoos_tpu_torch/cli/gradio_app.py", "focoos_tpu_torch/hub/api_client.py",
+            "focoos_tpu_torch/hub/focoos_hub.py", "focoos_tpu_torch/hub/remote_model.py",
+            "focoos_tpu_torch/hub/remote_dataset.py", "focoos_tpu_torch/config.py", "focoos_tpu_torch/utils/system.py",
+            "focoos_tpu_torch/utils/metrics.py"} <= names
     found = [f"{p.relative_to(REPO)}:{n}: {line.strip()}" for p in sources
              for n, line in enumerate(p.read_text().splitlines(), 1) if _JAX_PACKAGE_IMPORT.search(line)]
     assert not found, found

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_fai_detr import _flat, _perturb
+from test_torch_checkpoint import few_threads_module  # noqa: F401 (an autouse fixture: two threads throughout)
 
 import focoos_tpu.models.fai_mf.modelling as jax_mf_modelling
 from focoos_tpu.model_manager import BackboneManager as JaxBackboneManager
@@ -235,14 +236,15 @@ def test_attn_allowed_from_masks_matches_jax():
 # --------------------------------------------------------------------------- model
 def test_cards_build_at_full_width():
     """fai-mf-l-coco-ins and fai-mf-l-ade from the registry: ResNet-101-D,
-    the cards' decoder widths and depths; CUDA unless the CPU is named."""
-    ins = ModelManager.get("fai-mf-l-coco-ins", device="cpu", init_weights=False).module
+    the cards' decoder widths and depths (built on the meta device: no
+    memory, no init); CUDA unless the CPU is named."""
+    ins = ModelManager.get("fai-mf-l-coco-ins", device="meta").module
     assert ins.pixel_decoder.backbone.config.depth == 101 and ins.pixel_decoder.transformer_layers == 6
     assert all(layer.normalize_before for layer in ins.pixel_decoder.transformer.encoder.layers)
     assert ins.predictor.dec_layers == 9 and ins.predictor.num_queries == 100
     assert ins.predictor.forward_prediction_heads.classifier.out_features == 81
     assert ins.pixel_decoder.mask_features.out_channels == 256
-    ade = ModelManager.get("fai-mf-l-ade", device="cpu", init_weights=False).module
+    ade = ModelManager.get("fai-mf-l-ade", device="meta").module
     assert ade.pixel_decoder.transformer_layers == 0 and not hasattr(ade.pixel_decoder, "transformer")
     assert ade.predictor.dec_layers == 6 and ade.pixel_decoder.mask_features.out_channels == 128
     assert ade.predictor.forward_prediction_heads.classifier.out_features == 151

@@ -619,13 +619,18 @@ def test_focoos_model_trains_fai_mf_on_the_cpu(tmp_path):
 
 # --------------------------------------------------------------------------- ROADMAP Queue 3
 def test_a_resized_record_pairs_masks_of_two_sizes(tmp_path):
-    """The resized-record fault (both packages wrong): ``segmentation_val_augs``
-    at 64 maps a 96² record to 64² with its original height and width kept;
-    eval_postprocess resizes the predicted masks to 96², the evaluator takes
-    the ground truth at 64². The JAX package's host library then reads past
-    the smaller masks (undefined), its numpy path raises on the shapes; the
-    port raises a ValueError naming both sizes, with or without its library."""
+    """The resized-record fault (ROADMAP Queue 3, fixed in the port):
+    ``segmentation_val_augs`` at 64 maps a 96² record to 64² with its
+    original height and width kept, and eval_postprocess resizes the
+    predicted masks to 96². The JAX evaluator takes the ground truth at 64²:
+    its numpy path raises on the shapes (its host library reads past the
+    smaller masks). The port's takes the record's own masks at 96²
+    (``DatasetEntry.original_instances``): a prediction equal to them scores
+    segm/AP 100.0, and the random masks' output is scored without raising,
+    with or without its library."""
     from make_synthetic_dataset import make
+
+    from focoos_tpu_torch.structures import Boxes
 
     root = make(str(tmp_path / "ins"), n_train=1, n_val=1, size=96, seed=3)
     pentry = AutoDataset(root, task="instseg").get_split(
@@ -634,6 +639,7 @@ def test_a_resized_record_pairs_masks_of_two_sizes(tmp_path):
         jax_get_default_by_task(JaxTask.INSTANCE_SEGMENTATION, 64)[1], split=JaxSplit.VAL)[0]
     assert pentry.image.shape[:2] == (64, 64) and (pentry.height, pentry.width) == (96, 96)
     assert pentry.instances.masks.tensor.shape[1:] == (64, 64)
+    assert pentry.original_instances.masks.tensor.shape[1:] == (96, 96)
     rng = np.random.default_rng(0)
     logits = rng.dirichlet(np.ones(4), (1, 5))[..., :3].astype(np.float32)
     masks = rng.random((1, 5, 64, 64)).astype(np.float32)
@@ -643,12 +649,25 @@ def test_a_resized_record_pairs_masks_of_two_sizes(tmp_path):
     jout = JaxMFProcessor(jcfg).eval_postprocess(JaxMFOutput(masks=jnp.asarray(masks), logits=jnp.asarray(logits)),
                                                  [jentry])
     assert pout[0]["instances"].masks.tensor.shape[1:] == np.asarray(jout[0]["instances"].masks.tensor).shape[1:] == (96, 96)
+    # the exact prediction: the record's instances at 96², as the JAX package maps the record unresized
+    truth = JaxAutoDataset(root, task="instseg").get_split(
+        jax_get_default_by_task(JaxTask.INSTANCE_SEGMENTATION, 96)[1], split=JaxSplit.VAL)[0].instances
+    g = len(truth)
+    exact = [{"instances": Instances((96, 96), boxes=Boxes(np.asarray(truth.boxes.tensor)),
+                                     scores=np.linspace(0.9, 0.5, g).astype(np.float32),
+                                     classes=np.asarray(truth.classes, np.int64),
+                                     masks=BitMasks(np.asarray(truth.masks.tensor)))}]
+    assert g > 0
     with pytest.MonkeyPatch.context() as mp:
         for library in (True, False):
             if not library:
                 mp.setattr(native, "_load", lambda: None)
-            with pytest.raises(ValueError, match="masks of sizes 64x64, 96x96"):
-                InstanceSegmentationEvaluator(num_classes=3).process([pentry], pout)
+            ev = InstanceSegmentationEvaluator(num_classes=3)
+            ev.process([pentry], exact)
+            assert ev.evaluate()["segm"]["AP"] == pytest.approx(100.0), library
+            ev = InstanceSegmentationEvaluator(num_classes=3)
+            ev.process([pentry], pout)
+            assert np.isfinite(ev.evaluate()["segm"]["AP"])
         mp.setattr(jax_native, "_load", lambda: None)
         with pytest.raises(ValueError, match="mismatch"):
             JaxSegmEvaluator(num_classes=3).process([jentry], jout)

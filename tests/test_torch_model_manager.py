@@ -15,7 +15,7 @@ import os
 import numpy as np
 import pytest
 import torch
-from test_torch_checkpoint import few_threads  # noqa: F401 (a fixture)
+from test_torch_checkpoint import few_threads, few_threads_module  # noqa: F401 (fixtures; the second autouse: two threads throughout)
 
 from focoos_tpu_torch import ModelManager, ports
 from focoos_tpu_torch.model_registry import ModelRegistry
@@ -28,11 +28,12 @@ def _classifier_width(model) -> int:
 
 
 def test_get_leaves_the_registry_card_unchanged():
-    five = ModelManager.get(NAME, device="cpu", num_classes=5, image_size=64, init_weights=False)
+    """(Built on the meta device: the card and the layers' widths are what it reads.)"""
+    five = ModelManager.get(NAME, device="meta", num_classes=5, image_size=64)
     assert five.config.num_classes == 5 and len(five.classes) == 5 and _classifier_width(five) == 5
     assert five.im_size == (64, 64)
 
-    plain = ModelManager.get(NAME, device="cpu", init_weights=False)
+    plain = ModelManager.get(NAME, device="meta")
     assert plain.config.num_classes == 80 and len(plain.classes) == 80 and _classifier_width(plain) == 80
     assert plain.im_size == (640, 640)
 

@@ -171,8 +171,10 @@ class _Stub:
 def test_max_iter_not_a_multiple_of_k_overshoots_as_jax():
     """max_iter=3 at K=2: JAX's loop runs two calls, 4 optimizer steps, and
     ends with iter clamped to 3 (focoos_tpu/trainer/trainer.py:99-108, ROADMAP
-    Queue 3); the port mirrors it."""
+    Queue 3). The port, deliberately otherwise, gives its last call the one
+    step left: 3 optimizer steps, calls of 2 and 1 batches, iter 3."""
     jstub, pstub = _Stub(), _Stub()
+    calls = []
 
     def jax_step(state, batch, rng):
         jstub.steps += batch.shape[0]  # the stacked [K, ...] batch: K steps in one call
@@ -183,12 +185,13 @@ def test_max_iter_not_a_multiple_of_k_overshoots_as_jax():
 
     def port_step(state, batches):
         pstub.steps += len(batches)
+        calls.append(len(batches))
         return ("total_loss",), torch.ones(1)
 
     ploop = TrainerLoop(port_step, None, iter([(torch.zeros(2), torch.zeros(2))] * 8), 3, torch.device("cpu"),
                         steps_per_call=K)
     ploop.train()
-    assert jstub.steps == pstub.steps == 4
+    assert jstub.steps == 4 and pstub.steps == 3 and calls == [2, 1]
     assert jloop.iter == ploop.iter == 3
 
 
@@ -215,7 +218,10 @@ class _Loop:
 def test_checkpoints_and_periods_match_jax_at_k2(max_iter):
     """Period 3 at K=2: the calls on which ``_period_hit`` and
     ``_is_final_call`` fire, and the checkpoints saved (named by the last
-    completed iteration), equal the JAX package's."""
+    completed iteration), equal the JAX package's. At max_iter 7 the port's
+    last call takes the one step left (ROADMAP Queue 3, fixed in the port),
+    so its ``model_final`` is iteration 6, where JAX's overshooting call
+    names it 7."""
     out = {}
     for name, mod, periodic in (("jax", jax_hooks, JaxPeriodic), ("port", hooks, PeriodicCheckpointerMixin)):
         loop, saves = _Loop(max_iter), _Saves()
@@ -227,6 +233,9 @@ def test_checkpoints_and_periods_match_jax_at_k2(max_iter):
             hook.after_step()
             loop.iter += K
         out[name] = (fired, saves.saved)
+    if max_iter % K:
+        assert out["jax"][1][-1] == ("model_final", max_iter) and out["port"][1][-1] == ("model_final", max_iter - 1)
+        out["port"][1][-1] = out["jax"][1][-1]
     assert out["port"] == out["jax"]
     assert ("model_0000003", 3) in out["port"][1] and ("model_0000005", 5) in out["port"][1]
 

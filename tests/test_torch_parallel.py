@@ -188,15 +188,20 @@ def two_ranks():
 # --------------------------------------------------------------------------- samplers and shards
 @pytest.mark.parametrize("world", [2, 3])
 def test_training_sampler_rank_shards_match_jax(monkeypatch, world):
-    """Rank r of ``world`` takes ``order[r::world]`` of each seeded
-    permutation, as the JAX package's host ``r`` of ``world``; the shards
-    partition each epoch."""
+    """Within the first epoch rank r of ``world`` takes ``order[r::world]``
+    of the seeded permutation, as the JAX package's host ``r`` of ``world``;
+    the shards partition it. Past the epoch's end (7 images: no world here
+    divides it) the port's rank r goes on with the positions ``≡ r (mod
+    world)`` of the one global stream (ROADMAP Queue 3, fixed in the port),
+    where JAX's host restarts at ``r`` of the next permutation."""
     import jax
 
     from focoos_tpu.data.loaders import TrainingSampler as JaxTrainingSampler
     from focoos_tpu_torch.data.loaders import TrainingSampler
 
     n, per_rank = 7, 10
+    one = iter(TrainingSampler(n, seed=5))
+    global_stream = [next(one) for _ in range(per_rank * world)]
     streams = []
     for r in range(world):
         monkeypatch.setattr(jax, "process_index", lambda r=r: r)
@@ -204,8 +209,11 @@ def test_training_sampler_rank_shards_match_jax(monkeypatch, world):
         monkeypatch.setattr(mesh, "get_rank", lambda r=r: r)
         monkeypatch.setattr(mesh, "get_world_size", lambda: world)
         ref, got = iter(JaxTrainingSampler(n, seed=5)), iter(TrainingSampler(n, seed=5))
-        stream = [next(got) for _ in range(per_rank)]
-        assert stream == [next(ref) for _ in range(per_rank)]
+        stream, jstream = [next(got) for _ in range(per_rank)], [next(ref) for _ in range(per_rank)]
+        first = len(range(r, n, world))
+        assert stream[:first] == jstream[:first]
+        assert stream != jstream  # past the first epoch's end
+        assert stream == global_stream[r::world]
         streams.append(stream)
     epoch = np.random.default_rng(5).permutation(n).tolist()
     for r, stream in enumerate(streams):
@@ -213,10 +221,42 @@ def test_training_sampler_rank_shards_match_jax(monkeypatch, world):
     assert sorted(i for r in range(world) for i in epoch[r::world]) == list(range(n))
 
 
+def test_two_ranks_batches_are_one_process_batches_across_epochs(monkeypatch):
+    """A dataset of 7 at B=4 on two ranks (2 a rank), with the rank and
+    world set as ``mesh`` reads them and no process group: step by step the
+    two ranks' batches together are one process's batch, over 8 steps, which
+    cross four epoch ends; B=9 on two ranks raises, naming both numbers."""
+    from focoos_tpu_torch.data import loaders
+
+    class Identity:
+        def preprocess_entries(self, entries, max_instances=0):
+            return np.asarray(entries)[:, None], None
+
+    def batches(rank, world, total):
+        monkeypatch.setattr(loaders.mesh, "get_rank", lambda: rank)
+        monkeypatch.setattr(loaders.mesh, "get_world_size", lambda: world)
+        it = loaders.build_train_loader(list(range(7)), Identity(), total, num_workers=0, seed=3)
+        out = [next(it)[0][:, 0].tolist() for _ in range(8)]
+        it.close()
+        return out
+
+    one = batches(0, 1, 4)
+    ranks = [batches(r, 2, 4) for r in range(2)]
+    assert sum(len(b) for b in one) == 32  # four passes over the 7 images and more
+    for step, b in enumerate(one):
+        assert sorted(ranks[0][step] + ranks[1][step]) == sorted(b), step
+        assert ranks[0][step] == b[0::2] and ranks[1][step] == b[1::2]
+    monkeypatch.setattr(loaders.mesh, "get_world_size", lambda: 2)
+    with pytest.raises(ValueError, match="batch size 9 does not divide among the 2 ranks"):
+        loaders.build_train_loader(list(range(7)), Identity(), 9, num_workers=0)
+
+
 def test_train_loader_per_rank_batch_matches_jax(monkeypatch):
-    """In a group of 2 the loader yields ``total_batch_size // 2`` entries a
-    batch, the rank's shard in order, equal to JAX's host-1 loader's batches
-    (its preprocess of the same entries); a batch smaller than the ranks raises."""
+    """In a group of 2 the loader yields ``total_batch_size / 2`` entries a
+    batch: rank 1's batch at each step is the odd rows of the JAX package's
+    one-process loader's batch (its preprocess of the same entries), across
+    the epoch ends of 7 images at B=6; a batch smaller than the ranks
+    raises."""
     import jax
 
     from focoos_tpu.data.loaders import build_train_loader as jax_build_train_loader
@@ -226,8 +266,8 @@ def test_train_loader_per_rank_batch_matches_jax(monkeypatch):
     from focoos_tpu.models.fai_detr.processor import DETRProcessor as JaxDETRProcessor
     from focoos_tpu_torch.models.fai_detr.processor import DETRProcessor
 
-    monkeypatch.setattr(jax, "process_index", lambda: 1)
-    monkeypatch.setattr(jax, "process_count", lambda: 2)
+    monkeypatch.setattr(jax, "process_index", lambda: 0)
+    monkeypatch.setattr(jax, "process_count", lambda: 1)
     monkeypatch.setattr(loaders.mesh, "get_rank", lambda: 1)
     monkeypatch.setattr(loaders.mesh, "get_world_size", lambda: 2)
     jcfg, pcfg = _tiny_configs()
@@ -239,8 +279,8 @@ def test_train_loader_per_rank_batch_matches_jax(monkeypatch):
         images, targets = next(got)
         jb, jt = next(iter(ref))
         assert images.shape[0] == 3
-        np.testing.assert_array_equal(images.numpy(), np.asarray(jb))
-        np.testing.assert_array_equal(targets.valid.numpy(), np.asarray(jt.valid))
+        np.testing.assert_array_equal(images.numpy(), np.asarray(jb)[1::2])
+        np.testing.assert_array_equal(targets.valid.numpy(), np.asarray(jt.valid)[1::2])
     got.close()
     with pytest.raises(ValueError, match="smaller than the 2 ranks"):
         loaders.build_train_loader(_dataset(3), DETRProcessor(pcfg, 96), 1, num_workers=0)

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_checkpoint import few_threads_module  # noqa: F401 (an autouse fixture: two threads throughout)
 
 from focoos_tpu.model_manager import BackboneManager as JaxBackboneManager
 from focoos_tpu.model_manager import ConfigManager as JaxConfigManager

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_mf import _configs, _port_model, tiny  # noqa: F401 (a fixture)
+from test_torch_checkpoint import few_threads_module  # noqa: F401 (an autouse fixture: two threads throughout)
 
 from focoos_tpu.data.auto_dataset import AutoDataset as JaxAutoDataset
 from focoos_tpu.data.default_aug import get_default_by_task as jax_get_default_by_task

@@ -536,14 +536,18 @@ def test_focoos_model_train_writes_jax_layout_weights(tiny, tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
-    """Each refusal names its ROADMAP Queue 1 item."""
+    """Each refusal names its ROADMAP Queue 1 item; ``sync_to_hub`` is
+    ported (tests/test_torch_hub.py) and no longer refused."""
     model = ModelManager.get(
         "fai-detr-l-coco", device="cpu", image_size=SIZE, num_queries=10, transformer_predictor_dec_layers=1,
         backbone_config={"model_type": "resnet", "depth": 18, "variant": "d", "freeze_norm": False},
     )
     for kw, item in (({"init_checkpoint": "x.npz"}, 5), ({"sharding": "tp"}, 9),
-                     ({"mesh_shape": (2, 1)}, 9), ({"sharding": "fsdp_tp"}, 9), ({"sync_to_hub": True}, 10)):
+                     ({"mesh_shape": (2, 1)}, 9), ({"sharding": "fsdp_tp"}, 9)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             model.train(TrainerArgs(run_name="x", output_dir=str(tmp_path), **kw), _dataset(2))
+    from focoos_tpu_torch.trainer.trainer import check_ported
+
+    check_ported(TrainerArgs(run_name="x", sync_to_hub=True))
     with pytest.raises(NotImplementedError, match="Optimizer"):
         model.train(TrainerArgs(run_name="x", output_dir=str(tmp_path), optimizer="LAMB"), _dataset(2))
